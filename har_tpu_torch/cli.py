@@ -1,0 +1,70 @@
+"""`har` command-line interface of the PyTorch/CUDA port.
+
+Mirrors ``har_tpu/cli.py``'s ``train`` for the ported families:
+
+  python -m har_tpu_torch.cli train --models dt rf --no-cv
+  python -m har_tpu_torch.cli train --models dt --no-cv --device cpu
+
+It writes result.txt, additional_param.csv and timing.csv into
+``--output-dir`` and prints the accuracies and artifact paths as JSON.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+from har_tpu_torch.config import DataConfig, ModelConfig, RunConfig
+
+
+def _parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="har_tpu_torch", description=__doc__)
+    sub = p.add_subparsers(dest="command", required=True)
+
+    t = sub.add_parser("train", help="train + evaluate models, write report")
+    t.add_argument("--dataset", default="wisdm", choices=["wisdm", "synthetic"])
+    t.add_argument("--data-path", default=None)
+    t.add_argument("--models", nargs="+", default=["dt", "rf"],
+                   help="dt rf (lr, gbt and the neural families are not "
+                        "ported yet)")
+    t.add_argument("--train-fraction", type=float, default=0.7)
+    t.add_argument("--seed", type=int, default=2018)
+    t.add_argument("--split-method", default="auto",
+                   choices=["auto", "spark", "bernoulli"],
+                   help="train/test draw: spark replays the reference's "
+                        "randomSplit row-for-row (WISDM only); auto picks "
+                        "it for the wisdm dataset")
+    t.add_argument("--no-cv", action="store_true",
+                   help="skip the 5-fold CrossValidator pass (required: "
+                        "the pass is not ported yet)")
+    t.add_argument("--output-dir", default="main_result")
+    t.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu")
+    return p
+
+
+def main(argv=None) -> int:
+    args = _parser().parse_args(argv)
+    from har_tpu_torch.runner import canonical_model_name, run
+
+    models = [canonical_model_name(m) for m in args.models]
+    config = RunConfig(
+        data=DataConfig(
+            dataset=args.dataset,
+            path=args.data_path,
+            train_fraction=args.train_fraction,
+            seed=args.seed,
+            split_method=args.split_method,
+        ),
+        model=ModelConfig(name=models[0]),
+        output_dir=args.output_dir,
+    )
+    outcome = run(config, models=models, with_cv=not args.no_cv, device=args.device)
+    print(json.dumps({"accuracies": outcome.accuracies,
+                      "artifacts": outcome.report_paths}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

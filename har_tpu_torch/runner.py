@@ -1,0 +1,265 @@
+"""End-to-end pipeline runner: the reference's `main.py` flow on PyTorch.
+
+Port of ``har_tpu/runner.py::run`` for the tree families: load the table →
+report its schema, samples and summary → the one-hot feature pipeline →
+the Spark-exact 70/30 split → fit and score each model → result.txt, the
+metrics CSV and timing.csv.  Logistic regression, GBDT, the neural
+families and the cross-validation pass are not ported yet; asking for them
+raises NotImplementedError naming the ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import os
+
+import numpy as np
+import torch
+
+from har_tpu_torch.config import RunConfig
+from har_tpu_torch.data.synthetic import synthetic_wisdm
+from har_tpu_torch.data.wisdm import load_wisdm
+from har_tpu_torch.device import resolve_device
+from har_tpu_torch.features.wisdm_pipeline import (
+    FeatureSet,
+    build_wisdm_pipeline,
+    make_feature_set,
+)
+from har_tpu_torch.models.forest import RandomForestClassifier
+from har_tpu_torch.models.tree import DecisionTreeClassifier
+from har_tpu_torch.ops.metrics import evaluate
+from har_tpu_torch.reporting import ModelResult, ReportWriter
+from har_tpu_torch.utils.profiling import StepTimer, write_timing_csv
+
+_ALIASES = {
+    "lr": "logistic_regression",
+    "dt": "decision_tree",
+    "rf": "random_forest",
+    "gbt": "gbdt",
+}
+
+_ESTIMATORS = {
+    "decision_tree": DecisionTreeClassifier,
+    "random_forest": RandomForestClassifier,
+}
+
+# families of the JAX package that later slices port (ROADMAP.md, Queue 1)
+_NOT_PORTED = {
+    "logistic_regression": "Queue 1 item 4 (logistic regression)",
+    "gbdt": "Queue 1 item 8 (GBDT and ensembles)",
+    "mlp": "Queue 1 item 9 (neural training)",
+    "cnn1d": "Queue 1 item 9 (neural training)",
+    "bilstm": "Queue 1 item 9 (neural training)",
+    "transformer": "Queue 1 item 10 (transformer)",
+}
+
+
+
+def canonical_model_name(name: str) -> str:
+    return _ALIASES.get(name, name)
+
+
+def effective_synthetic_rows(data) -> int:
+    """Row count a synthetic fallback generates for this config."""
+    return data.synthetic_rows or 5418
+
+
+def build_estimator(name: str, params: dict | None = None, device="cuda"):
+    """The estimator for ``name``; each keeps only the knobs it has from
+    the shared ``params`` dict, and a knob no estimator has is an error."""
+    name = canonical_model_name(name)
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{name} is not ported to har_tpu_torch yet: ROADMAP.md "
+            f"{_NOT_PORTED[name]}"
+        )
+    if name not in _ESTIMATORS:
+        raise ValueError(f"unknown model {name!r}")
+    params = dict(params or {})
+    known = {
+        f.name for cls in _ESTIMATORS.values() for f in dataclasses.fields(cls)
+    } - {"device"}
+    unknown = set(params) - known
+    if unknown:
+        raise ValueError(
+            f"unknown hyperparameter(s) {sorted(unknown)} — not accepted "
+            "by any ported estimator"
+        )
+    cls = _ESTIMATORS[name]
+    fields = {f.name for f in dataclasses.fields(cls)}
+    kwargs = {k: v for k, v in params.items() if k in fields}
+    return cls(**kwargs, device=str(device))
+
+
+def load_dataset(config: RunConfig):
+    """The WISDM table: the CSV when a path resolves, else the same-shape
+    synthetic table."""
+    data = config.data
+    if data.dataset not in ("wisdm", "synthetic"):
+        raise NotImplementedError(
+            f"dataset {data.dataset!r} is not ported to har_tpu_torch yet: "
+            "ROADMAP.md Queue 1 items 1 and 9"
+        )
+    path = data.resolved_path()
+    if data.dataset == "wisdm" and path is not None:
+        return load_wisdm(path, drop_binned=data.drop_binned)
+    return synthetic_wisdm(n_rows=effective_synthetic_rows(data), seed=data.seed)
+
+
+def resolve_split_method(data) -> str:
+    """"auto" replays the reference's randomSplit bit-for-bit on the tabular
+    WISDM dataset and falls back to the plain Bernoulli draw elsewhere."""
+    method = getattr(data, "split_method", "auto")
+    if method == "auto":
+        return "spark" if data.dataset == "wisdm" else "bernoulli"
+    if method not in ("spark", "bernoulli"):
+        raise ValueError(f"unknown split_method {method!r}")
+    if method == "spark" and data.dataset != "wisdm":
+        raise ValueError(
+            "split_method='spark' replays the reference's WISDM randomSplit "
+            f"and needs the WISDM sort columns; dataset {data.dataset!r} "
+            "doesn't carry them"
+        )
+    return method
+
+
+def derive_split(full: FeatureSet, table, data) -> tuple[FeatureSet, FeatureSet]:
+    """THE train/test derivation for the tabular WISDM view."""
+    if resolve_split_method(data) == "spark":
+        from har_tpu_torch.data.spark_split import spark_split_indices
+
+        train_idx, test_idx = spark_split_indices(
+            table, [data.train_fraction, 1.0 - data.train_fraction], data.seed
+        )
+        return (
+            dataclasses.replace(full.take(train_idx), rows=train_idx),
+            dataclasses.replace(full.take(test_idx), rows=test_idx),
+        )
+    return full.train_test(data.train_fraction, data.seed)
+
+
+def featurize(config: RunConfig, table):
+    """Fit the one-hot pipeline and split: (train, test, fitted pipeline)."""
+    pipe_model = build_wisdm_pipeline().fit(table)
+    label_vocab = next(
+        (
+            s.vocab
+            for s in pipe_model.stages
+            if getattr(s, "output_col", None) == "label"
+        ),
+        None,
+    )
+    full = make_feature_set(pipe_model.transform(table), class_names=label_vocab)
+    train, test = derive_split(full, table, config.data)
+    return train, test, pipe_model
+
+
+@dataclasses.dataclass
+class RunOutcome:
+    report_paths: dict[str, str]
+    results: list[ModelResult]
+
+    @property
+    def accuracies(self) -> dict[str, float]:
+        return {r.name: float(r.metrics["accuracy"]) for r in self.results}
+
+
+def _spark_display_name(name: str, model) -> str:
+    """The model line Spark prints atop each block (reference
+    result.txt:231,276); the uid suffix is a deterministic hash of the job
+    name, as in the JAX package."""
+    uid = hashlib.sha1(name.encode()).hexdigest()[:20]
+    if name == "decision_tree":
+        return (
+            f"DecisionTreeClassificationModel (uid=DecisionTreeClassifier_"
+            f"{uid}) of depth {model.tree.max_depth} with {model.num_nodes} "
+            "nodes"
+        )
+    return (
+        f"RandomForestClassificationModel (uid=RandomForestClassifier_{uid}) "
+        f"with {model.num_trees} trees"
+    )
+
+
+def _fit_eval(est, name, train, test, report, timer):
+    with timer(f"{name}_fit") as fit_sec:
+        model = est.fit(train)
+    with timer(f"{name}_transform") as tf_sec:
+        preds = model.transform(test)
+    with timer("report"):
+        metrics = evaluate(test.label, preds.raw, model.num_classes)
+        result = ModelResult(
+            name=name,
+            metrics=metrics,
+            train_time_s=fit_sec.seconds,
+            test_time_s=tf_sec.seconds,
+            display_name=_spark_display_name(name, model),
+        )
+        report.model_block(
+            result, sample_text=report.prediction_sample(test, preds)
+        )
+    return result
+
+
+def run(
+    config: RunConfig,
+    models=None,
+    with_cv: bool = False,
+    device: str | torch.device = "cuda",
+) -> RunOutcome:
+    """The reference pipeline for the tree families on ``device``."""
+    if with_cv:
+        raise NotImplementedError(
+            "the cross-validation pass is not ported to har_tpu_torch yet: "
+            "ROADMAP.md Queue 1 item 6 (tuning); run with with_cv=False"
+        )
+    device = resolve_device(device)
+    models = [
+        canonical_model_name(m) for m in (models or ["decision_tree", "random_forest"])
+    ]
+    estimators = [
+        build_estimator(name, config.model.params, device) for name in models
+    ]
+
+    # "report" accumulates every section that renders the report, so
+    # timing.csv accounts for the whole run
+    timer = StepTimer(device)
+    with timer("load"):
+        table = load_dataset(config)
+    report = ReportWriter(config.output_dir)
+    with timer("report"):
+        report.line("Loading Data Set...")
+        report.schema(table)
+        report.sample(table)
+        report.class_counts(table["ACTIVITY"])
+        report.summary(table)
+
+    with timer("featurize"):
+        train, test, _ = featurize(config, table)
+    with timer("report"):
+        report.class_names = (
+            list(train.class_names) if train.class_names else None
+        )
+        # MODELING PIPELINE + sample/table blocks (reference
+        # result.txt:59-138): the design matrix reassembled from the splits
+        report.pipeline_schema(table)
+        feats = np.empty((len(table), train.num_features), np.float32)
+        labels = np.empty((len(table),), np.float64)
+        for part in (train, test):
+            feats[part.rows] = part.features
+            labels[part.rows] = part.label
+        report.sample_feature_data(table, labels, feats)
+        report.split_counts(len(train), len(test))
+        report.split_sample_tables(table, feats, labels, train.rows, test.rows)
+
+    results = [
+        _fit_eval(est, name, train, test, report, timer)
+        for name, est in zip(models, estimators)
+    ]
+    with timer("report"):
+        paths = report.save()
+    paths["timing"] = write_timing_csv(
+        os.path.join(config.output_dir, "timing.csv"), timer
+    )
+    return RunOutcome(report_paths=paths, results=results)

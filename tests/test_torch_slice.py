@@ -1,0 +1,157 @@
+"""The port's slice end to end: `train --models dt rf --no-cv`.
+
+``har_tpu_torch.runner.run`` on the CPU and ``har_tpu.runner.run`` write
+byte-identical result.txt and metrics CSV for the decision tree, apart from
+the uid and timing lines and the time columns (masked as
+tests/test_golden_report.py masks them).  The CLI writes its artifacts at
+the default 5,418 rows and refuses to run without a GPU unless the CPU is
+named.
+"""
+
+import csv
+import json
+import re
+
+import pytest
+import torch
+
+import har_tpu.runner as jax_runner
+from har_tpu.config import DataConfig as JaxDataConfig
+from har_tpu.config import ModelConfig as JaxModelConfig
+from har_tpu.config import RunConfig as JaxRunConfig
+from har_tpu_torch import cli
+from har_tpu_torch import runner as port_runner
+from har_tpu_torch.config import DataConfig, ModelConfig, RunConfig
+
+torch.set_num_threads(1)
+
+ROWS = 600
+_TIME_COLUMNS = ("Training Time", "Testing Time")
+
+
+@pytest.fixture(autouse=True)
+def _no_reference_csv(monkeypatch, tmp_path):
+    # both packages fall back to the synthetic table when the CSV is absent
+    monkeypatch.setenv("HAR_TPU_WISDM_CSV", str(tmp_path / "absent.csv"))
+
+
+def _masked(line: str) -> str:
+    line = re.sub(r"_[0-9a-f]{20}\b", "_<uid>", line)
+    return re.sub(
+        r"(trained in|made in) -?\d+(\.\d+)?([eE]-?\d+)? seconds",
+        r"\1 <t> seconds",
+        line,
+    )
+
+
+def _csv_rows(path):
+    with open(path, newline="") as f:
+        rows = list(csv.DictReader(f))
+    for row in rows:
+        for col in _TIME_COLUMNS:
+            row[col] = "<t>"
+        row["Classifier"] = _masked(row["Classifier"])
+    return rows
+
+
+def test_decision_tree_report_byte_identical(tmp_path):
+    jax_out, port_out = tmp_path / "jax", tmp_path / "port"
+    jax_runner.run(
+        JaxRunConfig(
+            data=JaxDataConfig(synthetic_rows=ROWS), output_dir=str(jax_out)
+        ),
+        models=["decision_tree"],
+        with_cv=False,
+    )
+    outcome = port_runner.run(
+        RunConfig(data=DataConfig(synthetic_rows=ROWS), output_dir=str(port_out)),
+        models=["decision_tree"],
+        with_cv=False,
+        device="cpu",
+    )
+    want = (jax_out / "result.txt").read_text().splitlines()
+    got = (port_out / "result.txt").read_text().splitlines()
+    assert len(got) == len(want)
+    masked = 0
+    for a, b in zip(got, want):
+        if a != b:
+            assert _masked(a) == _masked(b), (a, b)
+            masked += 1
+    assert masked <= 3  # the uid line and the two timing lines
+    assert _csv_rows(port_out / "additional_param.csv") == _csv_rows(
+        jax_out / "additional_param.csv"
+    )
+    assert set(outcome.report_paths) == {"result", "csv", "timing"}
+    with open(port_out / "timing.csv", newline="") as f:
+        sections = [row["section"] for row in csv.DictReader(f)]
+    assert sections == [
+        "load", "report", "featurize", "decision_tree_fit",
+        "decision_tree_transform",
+    ]
+
+
+def test_trees_run_end_to_end(tmp_path):
+    outcome = port_runner.run(
+        RunConfig(
+            data=DataConfig(synthetic_rows=ROWS),
+            model=ModelConfig(params={"num_trees": 8}),
+            output_dir=str(tmp_path),
+        ),
+        models=["decision_tree", "random_forest"],
+        with_cv=False,
+        device="cpu",
+    )
+    acc = outcome.accuracies
+    assert set(acc) == {"decision_tree", "random_forest"}
+    assert acc["random_forest"] > 0.4
+    text = (tmp_path / "result.txt").read_text()
+    assert "RandomForestClassificationModel" in text and "with 8 trees" in text
+    with open(tmp_path / "additional_param.csv", newline="") as f:
+        assert len(list(csv.DictReader(f))) == 2
+
+
+def test_jax_and_port_configs_agree():
+    """The same RunConfig in each package's copy."""
+    a = RunConfig(data=DataConfig(synthetic_rows=ROWS))
+    b = JaxRunConfig(data=JaxDataConfig(synthetic_rows=ROWS))
+    assert repr(a) == repr(b)
+    assert repr(ModelConfig(params={"num_trees": 8})) == repr(
+        JaxModelConfig(params={"num_trees": 8})
+    )
+
+
+def test_cli_train_writes_report_at_default_rows(tmp_path, capsys):
+    rc = cli.main(
+        ["train", "--models", "dt", "--no-cv", "--device", "cpu",
+         "--output-dir", str(tmp_path)]
+    )
+    assert rc == 0
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(printed["accuracies"]) == {"decision_tree"}
+    text = (tmp_path / "result.txt").read_text()
+    assert "Training Dataset Count : 3793" in text
+    assert "Test Dataset Count     : 1625" in text
+    assert (tmp_path / "additional_param.csv").exists()
+    assert (tmp_path / "timing.csv").exists()
+
+
+def test_cli_without_gpu_raises_unless_cpu_is_named(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        cli.main(["train", "--models", "dt", "--no-cv", "--output-dir", str(tmp_path)])
+    assert not (tmp_path / "result.txt").exists()
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [
+        {"models": ["lr"]},
+        {"models": ["gbt"]},
+        {"models": ["mlp"]},
+        {"models": ["dt"], "with_cv": True},
+    ],
+)
+def test_unported_parts_raise_not_implemented(tmp_path, kwargs):
+    config = RunConfig(data=DataConfig(synthetic_rows=ROWS), output_dir=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_runner.run(config, device="cpu", **kwargs)
