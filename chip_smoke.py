@@ -7,21 +7,40 @@ Phases, each printing one JSON line; any failure raises and the script
 exits nonzero without the final ``ok`` line:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's view;
-2. build: every kernel of har_tpu_torch/csrc compiled with nvcc, timed;
+2. build: every kernel of har_tpu_torch/csrc compiled with nvcc (one
+   process per source, started together), timed, with ptxas's report;
 3. hist: kernel K1 against its plain PyTorch version on the card, at the
    test shapes and the main path's shapes: exact for integer weights,
    rtol 1e-5 for random float32 weights; kernel, plain and one-hot-matmul
    times from CUDA events and the least time the card could take;
-4. agree: the port's DT and RF grown on the card equal the same trees grown
+4. flash: kernel K2 against its plain PyTorch version on the card, at the
+   CPU tests' shapes (a ragged T, D = 16) and the raw path's training,
+   prediction and packed shapes, with and without lse, read through the
+   fused-qkv strides: float32 out and lse within rtol 1e-5 (atol 1e-6),
+   bfloat16 out within 1e-2 (it is rounded to bf16; both sides accumulate
+   in f32) and lse within rtol 1e-5; kernel, plain and
+   scaled_dot_product_attention times and the card's bound;
+5. agree: the port's DT and RF grown on the card equal the same trees grown
    on the CPU with the plain histogram (600 rows, 8 trees);
-5. main: ``har_tpu_torch.cli train --models dt rf --no-cv --device cuda`` on
+6. transformer_agree: three float32 training steps of the CLI-width
+   transformer (dropout 0) on the card and on the CPU, from the same
+   initial values and batches: losses, parameters and logits within 1e-4;
+7. main: ``har_tpu_torch.cli train --models dt rf --no-cv --device cuda`` on
    the 5,418-row synthetic WISDM table at the reference's widths (DT depth
-   3; RF 100 trees, depth 4, seed 3), with the kernel's launch count;
-6. with ``--profile`` only: one DT and one RF fit under torch.profiler;
-7. the kernels line, then ``{"ok": true, "device": {...}}``.
+   3; RF 100 trees, depth 4, seed 3), with K1's launch count;
+8. raw_main: ``cli train --dataset wisdm_raw --models transformer --no-cv
+   --device cuda`` at the CLI defaults, with K2's launch count
+   (num_layers x (training steps + prediction chunks)) and an accuracy
+   floor below har_tpu's own band;
+9. raw_packed: ``runner.run`` at the raw bench lane's widths (embed 256, 8
+   heads, patch 8, window_pack 8, scanned layers, batch 4096, 25 epochs),
+   with K2's launch count and its accuracy floor;
+10. with ``--profile`` only: one DT, one RF and one transformer fit under
+    torch.profiler;
+11. the kernels line, then ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card and the repository beside it; it writes the main
-path's artifacts under har_tpu_torch/_build/chip_smoke/ (git-ignored).
+paths' artifacts under har_tpu_torch/_build/chip_smoke/ (git-ignored).
 """
 
 from __future__ import annotations
@@ -42,13 +61,17 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-from har_tpu_torch import cli  # noqa: E402
-from har_tpu_torch.config import DataConfig, RunConfig  # noqa: E402
+from har_tpu_torch import cli, runner  # noqa: E402
+from har_tpu_torch.config import DataConfig, ModelConfig, RunConfig  # noqa: E402
+from har_tpu_torch.features.scaler import StandardScaler  # noqa: E402
 from har_tpu_torch.models.forest import TREE_BATCH, RandomForestClassifier  # noqa: E402
+from har_tpu_torch.models.transformer import Transformer1D  # noqa: E402
 from har_tpu_torch.models.tree import DecisionTreeClassifier  # noqa: E402
 from har_tpu_torch.ops import _build  # noqa: E402
+from har_tpu_torch.ops import flash_attention as flash_ops  # noqa: E402
 from har_tpu_torch.ops import hist as hist_ops  # noqa: E402
 from har_tpu_torch.runner import featurize, load_dataset  # noqa: E402
+from har_tpu_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s,
 # and float32 adds/s outside the tensor cores (67 TFLOP/s counts an FMA
@@ -73,25 +96,64 @@ CHECK_SHAPES = {
 DT_EXPECTED_CORRECT, TEST_ROWS = 1494, 1625
 RF_MIN_ACCURACY = 0.75
 
+# H100 SXM at 700 W: dense bf16 tensor-core rate, and the special-function
+# units' exponentials (16 per SM per clock x 132 SMs x 1.98 GHz)
+BF16_FLOPS_PER_S = 989e12
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
+
+# the raw path (`train --dataset wisdm_raw`): 4,000 synthetic windows split
+# 2,818 / 1,182 by the seed-2018 Bernoulli draw; the CLI transformer is
+# embed 64, 4 heads (D = 16), T = 200, batch 512; the bench lane's packed
+# transformer folds each 25-token window of 8 heads (D = 32) into the batch
+RAW_PACKED_PARAMS = dict(
+    embed_dim=256, num_heads=8, patch_size=8, window_pack=8, scan_layers=True,
+    batch_size=4096, learning_rate=1e-3, epochs=25,
+)
+FLASH_TRAIN = dict(b=512, t=200, h=4, d=16)
+FLASH_PREDICT = dict(b=1182, t=200, h=4, d=16)
+FLASH_PACKED = dict(b=4096, t=25, h=8, d=32)
+FLASH_PACKED_PREDICT = dict(b=1184, t=25, h=8, d=32)
+FLASH_CHECK_SHAPES = {
+    "test_2x64x2x32": dict(b=2, t=64, h=2, d=32),
+    "test_2x96x2x32": dict(b=2, t=96, h=2, d=32),
+    "test_ragged_3x25x2x16": dict(b=3, t=25, h=2, d=16),
+    "test_3x7x2x8": dict(b=3, t=7, h=2, d=8),
+    # a time stride off 8 elements: the wrapper hands the kernel a copy
+    "misaligned_2x25x2x16": dict(b=2, t=25, h=2, d=16, pad=4),
+    "cli_train": FLASH_TRAIN,
+    "cli_predict": FLASH_PREDICT,
+    "packed_train": FLASH_PACKED,
+    "packed_predict": FLASH_PACKED_PREDICT,
+}
+# accuracy floors 0.05 below har_tpu's own band on the CPU for the same
+# command over trainer seeds 0-2 (1.0 at both widths, PERF.md §2): the
+# port's initial values and dropout come from other draws
+RAW_MAIN_MIN_ACCURACY = 0.95
+RAW_PACKED_MIN_ACCURACY = 0.95
+
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn`` between two CUDA events."""
+def cuda_ms(fn, reps: int = 25, rounds: int = 5, warmup: int = 3) -> float:
+    """Milliseconds per call of ``fn``: ``reps`` calls back to back
+    between two CUDA events, the median over ``rounds`` such runs (so the
+    host's launch overhead hides behind the device's work, as it does on
+    the path)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -204,6 +266,99 @@ def phase_hist() -> dict:
     return dict(max_abs_err=max_err, timings=timings)
 
 
+def qkv_inputs(b, t, h, d, dtype, seed=0, pad=0):
+    """q, k, v as an encoder block hands them to K2: (B, T, H, D) views of
+    one fused (B, T, 3·H·D) projection, standard normal; ``pad`` extra
+    columns widen the projection's time stride."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((b, t, 3 * h * d + pad), generator=g, device="cuda").to(dtype)
+    return tuple(
+        z.unflatten(-1, (h, d)) for z in qkv[..., : 3 * h * d].split(h * d, dim=-1)
+    )
+
+
+def library_attention(q, k, v):
+    """One PyTorch call computing the same function, as a yardstick the
+    port never calls: scaled_dot_product_attention in (B, H, T, D)."""
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    )
+    return out.transpose(1, 2)
+
+
+def flash_bound(q, out, lse=None) -> tuple[float, str]:
+    """Least milliseconds for the card: q, k and v read once and out (and
+    lse) written once over the HBM rate, or 4·BH·T²·D flops over the bf16
+    tensor-core rate, or BH·T² exponentials over the special-function
+    units' rate, whichever is largest."""
+    b, t, h, d = q.shape
+    nbytes = 3 * q.numel() * q.element_size() + out.numel() * out.element_size()
+    if lse is not None:
+        nbytes += lse.numel() * lse.element_size()
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(
+        4 * b * h * t * t * d / BF16_FLOPS_PER_S, b * h * t * t / SFU_EXP_PER_S
+    ) * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def phase_flash() -> dict:
+    """K2 against its plain version on the card.  float32: out and lse
+    within rtol 1e-5 (atol 1e-6 for outputs that cancel to near zero);
+    bfloat16: out within 1e-2, since it is rounded to bf16 (3 significant
+    digits) after both sides accumulate in f32 at other places; lse, an
+    f32 output of the same f32 scores, within rtol 1e-5."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out_tol = {
+        torch.float32: dict(rtol=1e-5, atol=1e-6),
+        torch.bfloat16: dict(rtol=1e-2, atol=1e-2),
+    }
+    max_err = 0.0
+    with torch.no_grad():
+        for name, s in FLASH_CHECK_SHAPES.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = qkv_inputs(**s, dtype=dtype, seed=1)
+                want_out, want_lse = flash_ops.attention_with_lse_plain(q, k, v)
+                for with_lse in (False, True):
+                    if with_lse:
+                        out, lse = flash_ops.flash_attention_with_lse(q, k, v)
+                    else:
+                        out, lse = flash_ops.flash_attention(q, k, v), None
+                    torch.cuda.synchronize()
+                    diff = (out.float() - want_out.float()).abs()
+                    fields = dict(out_max_abs_diff=float(diff.max()))
+                    torch.testing.assert_close(out, want_out, **out_tol[dtype])
+                    if lse is not None:
+                        lse_diff = (lse - want_lse).abs()
+                        fields.update(
+                            lse_max_abs_diff=float(lse_diff.max()),
+                            lse_max_rel_diff=float((lse_diff / want_lse.abs()).max()),
+                        )
+                        torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-6)
+                    max_err = max(max_err, *fields.values())
+                    emit("flash_check", shape=name, **s, dtype=str(dtype)[6:],
+                         with_lse=with_lse, **fields)
+
+        timings = {}
+        for name, s in (("cli_train", FLASH_TRAIN), ("packed_train", FLASH_PACKED)):
+            q, k, v = qkv_inputs(**s, dtype=torch.bfloat16, seed=3)
+            out = flash_ops.flash_attention(q, k, v)
+            torch.testing.assert_close(library_attention(q, k, v), out, rtol=1e-2, atol=1e-2)
+            bound_ms, bound_by = flash_bound(q, out)
+            timings[name] = dict(
+                shape=s,
+                dtype="bfloat16",
+                kernel_ms=cuda_ms(lambda: flash_ops.flash_attention(q, k, v)),
+                plain_ms=cuda_ms(lambda: flash_ops.attention_with_lse_plain(q, k, v)),
+                library_ms=cuda_ms(lambda: library_attention(q, k, v)),
+                bound_ms=bound_ms,
+                bound_by=bound_by,
+            )
+            emit("flash_time", name=name, **timings[name])
+    return dict(max_abs_err=max_err, timings=timings)
+
+
 def _tree_arrays(model):
     if hasattr(model, "tree"):
         t = model.tree
@@ -226,114 +381,252 @@ def phase_agree() -> None:
     emit("agree", rows=600, models=["decision_tree", "random_forest"], equal=True)
 
 
-def phase_main() -> dict:
-    out_dir = ROOT / "har_tpu_torch" / "_build" / "chip_smoke"
-    dt, rf = DecisionTreeClassifier(), RandomForestClassifier()
-    expected = dt.max_depth + math.ceil(rf.num_trees / TREE_BATCH) * rf.max_depth
-    argv = ["train", "--models", "dt", "rf", "--no-cv", "--device", "cuda",
-            "--output-dir", str(out_dir)]
+def phase_transformer_agree() -> None:
+    """Three float32 training steps of the CLI-width transformer (dropout
+    0) on the card and on the CPU from the same initial values (drawn from
+    one CPU generator) and the same batches.  Losses, parameters and
+    logits agree within 1e-4: the card's sums run in other orders.  The
+    key bias is left out of the parameter check: its gradient is exactly
+    zero (softmax ignores a constant added to a row's scores), and Adam
+    normalizes the float noise left in it into full-size steps."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    raw = load_dataset(RunConfig(data=DataConfig(dataset="wisdm_raw", synthetic_rows=64)))
+    x = StandardScaler().fit(raw.windows).transform(raw.windows)
+    cfg = TrainerConfig(batch_size=64, epochs=3, learning_rate=1e-3)
+    fits = {
+        device: Trainer(Transformer1D(dtype="float32", dropout_rate=0.0), cfg, device=device)
+        .fit(x, raw.labels, num_classes=6)
+        for device in ("cuda", "cpu")
+    }
+    card, cpu = fits["cuda"], fits["cpu"]
+    loss_diff = max(abs(a - b) for a, b in zip(card.history["loss"], cpu.history["loss"]))
+    param_diff = 0.0
+    e = card.module.embed_dim
+    cpu_sd = cpu.module.state_dict()
+    for key, value in card.module.state_dict().items():
+        a, b = value.cpu(), cpu_sd[key]
+        if key.endswith("qkv.bias"):
+            a, b = torch.cat([a[:e], a[2 * e :]]), torch.cat([b[:e], b[2 * e :]])
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=key)
+        param_diff = max(param_diff, float((a - b).abs().max()))
+    logits = [f.predict_logits(x[:32]) for f in (card, cpu)]
+    logit_diff = float(abs(logits[0] - logits[1]).max())
+    emit("transformer_agree", steps=3, losses_card=card.history["loss"],
+         losses_cpu=cpu.history["loss"], max_loss_diff=loss_diff,
+         max_param_diff=param_diff, max_logit_diff=logit_diff)
+    if not (loss_diff <= 1e-4 and logit_diff <= 1e-4):
+        raise AssertionError("the card's transformer steps disagree with the CPU's")
+
+
+# NeuralModel.predict_logits scores in chunks of this many windows
+PREDICT_CHUNK = 8192
+
+
+def expected_flash_launches(config: RunConfig) -> int:
+    """K2 launches of one raw run: every encoder layer attends once per
+    training step and once per prediction chunk."""
+    train, test, _ = featurize(config, load_dataset(config))
+    est = runner.build_estimator("transformer", config.model.params, "cpu")
+    layers = len(Transformer1D(**est.model_kwargs).blocks)
+    steps = est.config.epochs * math.ceil(len(train) / est.config.batch_size)
+    return layers * (steps + math.ceil(len(test) / PREDICT_CHUNK))
+
+
+def run_cli(argv: list[str]) -> dict:
+    """``cli.main(argv)`` with its printout captured: the accuracies."""
     printed = io.StringIO()
-    torch.cuda.reset_peak_memory_stats()
-    hist_ops.HIST_LAUNCHES = 0
-    t0 = time.perf_counter()
     with contextlib.redirect_stdout(printed):
         rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"cli {argv} returned {rc}")
+    return json.loads(printed.getvalue().strip().splitlines()[-1])["accuracies"]
+
+
+def drive_path(name: str, out_dir: Path, drive, hist: int = 0, flash: int = 0) -> dict:
+    """Drive one main path with both launch counts set to 0 just before
+    it and read just after: each kernel must launch exactly as often as
+    expected (0 for a kernel off the path), and the run must write its
+    three artifacts.  ``drive`` returns the accuracies."""
+    torch.cuda.reset_peak_memory_stats()
+    hist_ops.HIST_LAUNCHES = 0
+    flash_ops.FLASH_LAUNCHES = 0
+    t0 = time.perf_counter()
+    accuracies = drive()
     seconds = time.perf_counter() - t0
-    launches = hist_ops.HIST_LAUNCHES
-    peak_bytes = torch.cuda.max_memory_allocated()
-    result = json.loads(printed.getvalue().strip().splitlines()[-1])
-    for name in ("result.txt", "additional_param.csv", "timing.csv"):
-        if not (out_dir / name).is_file():
-            raise AssertionError(f"main path wrote no {name}")
+    launches = dict(hist=hist_ops.HIST_LAUNCHES, flash_attention=flash_ops.FLASH_LAUNCHES)
+    expected = dict(hist=hist, flash_attention=flash)
+    for artifact in ("result.txt", "additional_param.csv", "timing.csv"):
+        if not (out_dir / artifact).is_file():
+            raise AssertionError(f"{name} wrote no {artifact}")
     with open(out_dir / "timing.csv", newline="") as f:
         timing = {row["section"]: float(row["seconds"]) for row in csv.DictReader(f)}
-    acc = result["accuracies"]
-    emit("main", rc=rc, seconds=seconds, launches=launches,
-         expected_launches=expected, accuracies=acc, timing=timing,
-         peak_device_bytes=peak_bytes)
-    if rc != 0:
-        raise AssertionError(f"cli returned {rc}")
+    emit(name, seconds=seconds, launches=launches, expected_launches=expected,
+         accuracies=accuracies, timing=timing,
+         peak_device_bytes=torch.cuda.max_memory_allocated())
     if launches != expected:
-        raise AssertionError(f"hist launched {launches} times, expected {expected}")
+        raise AssertionError(f"{name}: launches {launches}, expected {expected}")
+    return dict(launches=launches, accuracies=accuracies)
+
+
+def check_floor(name: str, accuracy: float, floor: float) -> None:
+    if not accuracy >= floor:
+        raise AssertionError(f"{name}: accuracy {accuracy} < {floor}")
+
+
+def phase_main() -> dict:
+    """The tree path: ``train --models dt rf --no-cv`` at the reference's
+    widths."""
+    out_dir = ROOT / "har_tpu_torch" / "_build" / "chip_smoke"
+    dt, rf = DecisionTreeClassifier(), RandomForestClassifier()
+    argv = ["train", "--models", "dt", "rf", "--no-cv", "--device", "cuda",
+            "--output-dir", str(out_dir)]
+    path = drive_path(
+        "main", out_dir, lambda: run_cli(argv),
+        hist=dt.max_depth + math.ceil(rf.num_trees / TREE_BATCH) * rf.max_depth,
+    )
+    acc = path["accuracies"]
     if acc["decision_tree"] != DT_EXPECTED_CORRECT / TEST_ROWS:
         raise AssertionError(f"DT accuracy {acc['decision_tree']} != 1494/1625")
-    if not acc["random_forest"] >= RF_MIN_ACCURACY:
-        raise AssertionError(f"RF accuracy {acc['random_forest']} < {RF_MIN_ACCURACY}")
-    return dict(launches=launches)
+    check_floor("random_forest", acc["random_forest"], RF_MIN_ACCURACY)
+    return path
+
+
+def phase_raw_main() -> dict:
+    """The CLI's raw path at its defaults, as a user runs it."""
+    out_dir = ROOT / "har_tpu_torch" / "_build" / "chip_smoke" / "raw_main"
+    config = RunConfig(
+        data=DataConfig(dataset="wisdm_raw"),
+        model=ModelConfig(name="transformer"),
+        output_dir=str(out_dir),
+    )
+    argv = ["train", "--dataset", "wisdm_raw", "--models", "transformer",
+            "--no-cv", "--device", "cuda", "--output-dir", str(out_dir)]
+    path = drive_path("raw_main", out_dir, lambda: run_cli(argv),
+                      flash=expected_flash_launches(config))
+    check_floor("raw_main", path["accuracies"]["transformer"], RAW_MAIN_MIN_ACCURACY)
+    return path
+
+
+def phase_raw_packed() -> dict:
+    """runner.run at the raw bench lane's widths: patch 8, window_pack 8
+    (the segment-folded kernel route), scanned layers, batch 4096."""
+    out_dir = ROOT / "har_tpu_torch" / "_build" / "chip_smoke" / "raw_packed"
+    config = RunConfig(
+        data=DataConfig(dataset="wisdm_raw"),
+        model=ModelConfig(name="transformer", params=RAW_PACKED_PARAMS),
+        output_dir=str(out_dir),
+    )
+    path = drive_path(
+        "raw_packed", out_dir,
+        lambda: runner.run(config, models=["transformer"], device="cuda").accuracies,
+        flash=expected_flash_launches(config),
+    )
+    check_floor("raw_packed", path["accuracies"]["transformer"], RAW_PACKED_MIN_ACCURACY)
+    return path
+
+
+def _profile_fit(label: str, fit) -> None:
+    """One warm fit, one timed fit and one fit under torch.profiler:
+    kernel time by name, the device's busy share and K2's share of the
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fit()  # warm: the kernels are loaded, caches are filled
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fit()
+        torch.cuda.synchronize()
+        profiled_s = time.perf_counter() - t0
+    # device-side events only (kernels, copies, memsets): the aten ops
+    # that launched them carry the same time again
+    events = [
+        e
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and e.self_device_time_total > 0
+        and not e.key.startswith("Activity Buffer")
+    ]
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    device_us = sum(e.self_device_time_total for e in events)
+    flash_us = sum(e.self_device_time_total for e in events if "flash_fwd_" in e.key)
+    emit(
+        "profile",
+        model=label,
+        fit_s=fit_s,
+        profiled_fit_s=profiled_s,
+        device_s=device_us / 1e6,
+        device_busy_share=device_us / 1e6 / profiled_s,
+        flash_share_of_device=flash_us / max(device_us, 1e-9),
+        top=[
+            dict(name=e.key[:80], device_ms=e.self_device_time_total / 1e3,
+                 calls=e.count)
+            for e in events[:8]
+        ],
+    )
 
 
 def phase_profile() -> None:
-    """Device time of one DT and one RF fit at full width under
-    torch.profiler: kernel time by name and the device's busy share."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """A DT and an RF fit at full width, and a 5-epoch fit of the CLI
+    transformer on the raw path's training windows (30 steps)."""
     config = RunConfig()
     train, _, _ = featurize(config, load_dataset(config))
     for est in (DecisionTreeClassifier(), RandomForestClassifier()):
-        est.fit(train)  # warm: the kernel is loaded, caches are filled
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        est.fit(train)
-        torch.cuda.synchronize()
-        fit_s = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            est.fit(train)
-            torch.cuda.synchronize()
-            profiled_s = time.perf_counter() - t0
-        # device-side events only (kernels, copies, memsets): the aten ops
-        # that launched them carry the same time again
-        events = [
-            e
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0
-            and not e.key.startswith("Activity Buffer")
-        ]
-        events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-        device_us = sum(e.self_device_time_total for e in events)
-        emit(
-            "profile",
-            model=type(est).__name__,
-            fit_s=fit_s,
-            profiled_fit_s=profiled_s,
-            device_s=device_us / 1e6,
-            device_busy_share=device_us / 1e6 / profiled_s,
-            top=[
-                dict(name=e.key[:80], device_ms=e.self_device_time_total / 1e3,
-                     calls=e.count)
-                for e in events[:8]
-            ],
-        )
+        _profile_fit(type(est).__name__, lambda: est.fit(train))
+    config = RunConfig(data=DataConfig(dataset="wisdm_raw"), model=ModelConfig(name="transformer"))
+    train, _, _ = featurize(config, load_dataset(config))
+    est = runner.build_estimator("transformer", {"epochs": 5}, "cuda")
+    _profile_fit("Transformer1D (5 epochs)", lambda: est.fit(train))
+
+
+def kernel_entry(name: str, replaces: str, launches: int, checked: dict,
+                 shape: str, **extra) -> dict:
+    """One kernel's entry of the kernels line: its main-path launches, its
+    largest difference from the plain version and its times at ``shape``."""
+    t = checked["timings"][shape]
+    return dict(
+        name=name, route="cuda", source=f"har_tpu_torch/csrc/{name}.cu",
+        replaces=replaces, launches=launches, max_abs_err=checked["max_abs_err"],
+        max_abs_diff=checked["max_abs_err"], ms=t["kernel_ms"],
+        kernel_ms=t["kernel_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=t["library_ms"], shape=shape,
+        per_shape=checked["timings"], **extra,
+    )
 
 
 def main(argv: list[str]) -> int:
     device = phase_device()
     phase_build()
     hist = phase_hist()
+    flash = phase_flash()
     phase_agree()
+    phase_transformer_agree()
     main_path = phase_main()
+    raw_main = phase_raw_main()
+    raw_packed = phase_raw_packed()
     if "--profile" in argv:
         phase_profile()
-    rf = hist["timings"]["rf_chunk"]
-    kernel = dict(
-        name="hist",
-        route="cuda",
-        source="har_tpu_torch/csrc/hist.cu",
-        replaces="har_tpu/ops/pallas_hist.py:56",
-        launches=main_path["launches"],
-        max_abs_err=hist["max_abs_err"],
-        ms=rf["kernel_ms"],
-        kernel_ms=rf["kernel_ms"],
-        max_abs_diff=hist["max_abs_err"],
-        plain_ms=rf["plain_ms"],
-        bound_ms=rf["bound_ms"],
-        bound_by=rf["bound_by"],
-        library_ms=rf["library_ms"],
-        shape="rf_chunk",
-        per_shape=hist["timings"],
-    )
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    flash_launches = {
+        name: path["launches"]["flash_attention"]
+        for name, path in (("raw_main", raw_main), ("raw_packed", raw_packed))
+    }
+    kernels = [
+        kernel_entry(
+            "hist", "har_tpu/ops/pallas_hist.py:56", main_path["launches"]["hist"],
+            hist, "rf_chunk",
+        ),
+        kernel_entry(
+            "flash_attention", "har_tpu/ops/flash_attention.py:56",
+            sum(flash_launches.values()), flash, "cli_train",
+            launches_per_path=flash_launches,
+        ),
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 

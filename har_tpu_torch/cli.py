@@ -4,6 +4,7 @@ Mirrors ``har_tpu/cli.py``'s ``train`` for the ported families:
 
   python -m har_tpu_torch.cli train --models dt rf --no-cv
   python -m har_tpu_torch.cli train --models dt --no-cv --device cpu
+  python -m har_tpu_torch.cli train --dataset wisdm_raw --models transformer --no-cv
 
 It writes result.txt, additional_param.csv and timing.csv into
 ``--output-dir`` and prints the accuracies and artifact paths as JSON.
@@ -23,11 +24,14 @@ def _parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="command", required=True)
 
     t = sub.add_parser("train", help="train + evaluate models, write report")
-    t.add_argument("--dataset", default="wisdm", choices=["wisdm", "synthetic"])
+    t.add_argument("--dataset", default="wisdm",
+                   choices=["wisdm", "wisdm_raw", "synthetic"],
+                   help="wisdm_raw = raw tri-axial windows (the view the "
+                        "transformer trains on)")
     t.add_argument("--data-path", default=None)
     t.add_argument("--models", nargs="+", default=["dt", "rf"],
-                   help="dt rf (lr, gbt and the neural families are not "
-                        "ported yet)")
+                   help="dt rf transformer (lr, gbt, mlp, cnn1d and bilstm "
+                        "are not ported yet)")
     t.add_argument("--train-fraction", type=float, default=0.7)
     t.add_argument("--seed", type=int, default=2018)
     t.add_argument("--split-method", default="auto",
@@ -38,6 +42,12 @@ def _parser() -> argparse.ArgumentParser:
     t.add_argument("--no-cv", action="store_true",
                    help="skip the 5-fold CrossValidator pass (required: "
                         "the pass is not ported yet)")
+    t.add_argument("--epochs", type=int, default=None)
+    t.add_argument("--batch-size", type=int, default=None)
+    t.add_argument("--learning-rate", type=float, default=None)
+    t.add_argument("--class-weight", default=None, choices=["balanced"],
+                   help="reweigh the neural loss by inverse class "
+                        "frequency (minority activities pull equally)")
     t.add_argument("--output-dir", default="main_result")
     t.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
@@ -49,6 +59,11 @@ def main(argv=None) -> int:
     from har_tpu_torch.runner import canonical_model_name, run
 
     models = [canonical_model_name(m) for m in args.models]
+    neural_params = {
+        k: getattr(args, k)
+        for k in ("epochs", "batch_size", "learning_rate", "class_weight")
+        if getattr(args, k) is not None
+    }
     config = RunConfig(
         data=DataConfig(
             dataset=args.dataset,
@@ -57,7 +72,7 @@ def main(argv=None) -> int:
             seed=args.seed,
             split_method=args.split_method,
         ),
-        model=ModelConfig(name=models[0]),
+        model=ModelConfig(name=models[0], params=neural_params),
         output_dir=args.output_dir,
     )
     outcome = run(config, models=models, with_cv=not args.no_cv, device=args.device)

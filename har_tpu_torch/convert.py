@@ -1,15 +1,18 @@
-"""Carry fitted tree models across from the JAX package's arrays.
+"""Carry fitted models across from the JAX package's arrays.
 
 A decision tree or forest fitted by ``har_tpu`` is plain numpy arrays
-(``TreeArrays`` and ``RandomForestModel`` fields); these functions build the
-port's models from them, so the same fitted state predicts on either
-package.  They take arrays, not ``har_tpu`` objects: the port never imports
-the JAX package.  The arrays are copied (JAX hands out read-only views).
+(``TreeArrays`` and ``RandomForestModel`` fields), and a flax transformer's
+parameters are a tree of arrays; these functions build the port's models
+(or their state_dict) from them, so the same fitted state predicts on
+either package.  They take arrays, not ``har_tpu`` objects: the port never
+imports the JAX package.  The arrays are copied (JAX hands out read-only
+views).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from har_tpu_torch.models.forest import RandomForestModel
 from har_tpu_torch.models.tree import DecisionTreeModel, TreeArrays
@@ -52,3 +55,66 @@ def forest_from_arrays(
         num_classes=leaf_probs.shape[-1],
         device=str(device),
     )
+
+
+# flax submodule of an EncoderBlock -> the port's EncoderBlock attribute
+_BLOCK_NAMES = {
+    "LayerNorm_0": "norm1",
+    "qkv": "qkv",
+    "proj": "proj",
+    "LayerNorm_1": "norm2",
+    "Dense_0": "mlp_in",
+    "Dense_1": "mlp_out",
+}
+
+
+def _leaf(x) -> np.ndarray:
+    return np.array(x, np.float32)
+
+
+def _dense(prefix: str, leaf, out: dict) -> None:
+    """flax Dense kernel (in, out) -> torch weight (out, in)."""
+    out[f"{prefix}.weight"] = _leaf(leaf["kernel"]).T
+    out[f"{prefix}.bias"] = _leaf(leaf["bias"])
+
+
+def _norm(prefix: str, leaf, out: dict) -> None:
+    out[f"{prefix}.weight"] = _leaf(leaf["scale"])
+    out[f"{prefix}.bias"] = _leaf(leaf["bias"])
+
+
+def transformer_params_from_flax(params) -> dict:
+    """The port's ``Transformer1D`` state_dict from a flax
+    ``Transformer1D`` parameter tree (nested dicts of arrays), in the
+    unrolled (``EncoderBlock_<i>``) or the ``scan_layers`` layout
+    (``blocks/EncoderBlock_0`` with a leading layer axis).  A patch
+    embedding's conv kernel (patch, in, out) becomes the port's
+    (out, patch·in) matmul weight."""
+    out: dict = {}
+    if "patch_embed" in params:
+        kernel = _leaf(params["patch_embed"]["kernel"])
+        out["patch_embed.weight"] = kernel.reshape(-1, kernel.shape[-1]).T
+        out["patch_embed.bias"] = _leaf(params["patch_embed"]["bias"])
+    else:
+        _dense("embed", params["embed"], out)
+    if "blocks" in params:
+        stacked = params["blocks"]["EncoderBlock_0"]
+        layers = len(stacked["qkv"]["kernel"])
+        blocks = [
+            {
+                name: {key: np.asarray(val)[i] for key, val in leaf.items()}
+                for name, leaf in stacked.items()
+            }
+            for i in range(layers)
+        ]
+    else:
+        blocks = []
+        while f"EncoderBlock_{len(blocks)}" in params:
+            blocks.append(params[f"EncoderBlock_{len(blocks)}"])
+    for i, block in enumerate(blocks):
+        for flax_name, port_name in _BLOCK_NAMES.items():
+            convert = _norm if flax_name.startswith("LayerNorm") else _dense
+            convert(f"blocks.{i}.{port_name}", block[flax_name], out)
+    _norm("norm", params["LayerNorm_0"], out)
+    _dense("head", params["head"], out)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}

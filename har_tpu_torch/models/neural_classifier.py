@@ -1,0 +1,72 @@
+"""Estimator-protocol wrapper around the neural models + Trainer.
+
+Port of ``har_tpu/models/neural_classifier.py``: gives the neural family
+the fit/transform surface of the classical models, so the runner and the
+report writer treat a transformer as they treat a tree.  Inputs are
+standardized over axis 0 (per step and axis for raw windows) by a scaler
+fitted on the training rows.  The JAX package's warm-refit cache (a
+bench-only optimisation) is not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping
+
+import numpy as np
+
+from har_tpu_torch.features.scaler import FittedScaler, StandardScaler
+from har_tpu_torch.models.base import Predictions
+from har_tpu_torch.models.neural import build_model
+from har_tpu_torch.train.trainer import NeuralModel, Trainer, TrainerConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class NeuralClassifier:
+    model_name: str = "transformer"
+    config: TrainerConfig = dataclasses.field(default_factory=TrainerConfig)
+    model_kwargs: Mapping[str, Any] = dataclasses.field(default_factory=dict)
+    standardize: bool = True
+    num_classes: int | None = None
+    # augmentation policy name; only None / "none" are ported
+    augment: str | None = None
+    device: str = "cuda"
+
+    def fit(self, data) -> "NeuralClassifierModel":
+        if self.augment not in (None, "none"):
+            raise NotImplementedError(
+                f"augment={self.augment!r} is not ported to har_tpu_torch yet: "
+                "ROADMAP.md Queue 1 item 9 (data/augment.py)"
+            )
+        x = np.asarray(data.features, np.float32)
+        y = np.asarray(data.label, np.int32)
+        num_classes = self.num_classes or int(y.max()) + 1
+        scaler = StandardScaler().fit(x) if self.standardize else None
+        if scaler is not None:
+            x = scaler.transform(x)
+        module = build_model(
+            self.model_name, num_classes=num_classes, **self.model_kwargs
+        )
+        trainer = Trainer(module, self.config, device=self.device)
+        trained = trainer.fit(x, y, num_classes=num_classes)
+        return NeuralClassifierModel(
+            inner=trained, scaler=scaler, num_classes=num_classes
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class NeuralClassifierModel:
+    inner: NeuralModel
+    scaler: FittedScaler | None
+    num_classes: int
+
+    @property
+    def history(self) -> dict | None:
+        return self.inner.history
+
+    def transform(self, data) -> Predictions:
+        x = data.features if hasattr(data, "features") else data
+        x = np.asarray(x, np.float32)
+        if self.scaler is not None:
+            x = self.scaler.transform(x)
+        return self.inner.transform(x)

@@ -1,23 +1,33 @@
 """End-to-end pipeline runner: the reference's `main.py` flow on PyTorch.
 
-Port of ``har_tpu/runner.py::run`` for the tree families: load the table →
-report its schema, samples and summary → the one-hot feature pipeline →
-the Spark-exact 70/30 split → fit and score each model → result.txt, the
-metrics CSV and timing.csv.  Logistic regression, GBDT, the neural
-families and the cross-validation pass are not ported yet; asking for them
-raises NotImplementedError naming the ROADMAP item that ports them.
+Port of ``har_tpu/runner.py::run`` for the tree families and the
+transformer:
+
+- tabular WISDM: load the table → report its schema, samples and summary
+  → the one-hot feature pipeline → the Spark-exact 70/30 split → fit and
+  score each tree model;
+- ``wisdm_raw``: synthetic raw windows → report their shape and class
+  counts → the Bernoulli 70/30 split of the windows → fit and score the
+  transformer;
+
+then result.txt, the metrics CSV and timing.csv.  Logistic regression,
+GBDT, the other neural families and the cross-validation pass are not
+ported yet; asking for them raises NotImplementedError naming the ROADMAP
+item that ports them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import inspect
 import os
 
 import numpy as np
 import torch
 
 from har_tpu_torch.config import RunConfig
+from har_tpu_torch.data.raw_windows import WindowedDataset, synthetic_raw_stream
 from har_tpu_torch.data.synthetic import synthetic_wisdm
 from har_tpu_torch.data.wisdm import load_wisdm
 from har_tpu_torch.device import resolve_device
@@ -27,9 +37,12 @@ from har_tpu_torch.features.wisdm_pipeline import (
     make_feature_set,
 )
 from har_tpu_torch.models.forest import RandomForestClassifier
+from har_tpu_torch.models.neural import MODEL_REGISTRY
+from har_tpu_torch.models.neural_classifier import NeuralClassifier
 from har_tpu_torch.models.tree import DecisionTreeClassifier
 from har_tpu_torch.ops.metrics import evaluate
 from har_tpu_torch.reporting import ModelResult, ReportWriter
+from har_tpu_torch.train.trainer import TrainerConfig
 from har_tpu_torch.utils.profiling import StepTimer, write_timing_csv
 
 _ALIASES = {
@@ -44,6 +57,10 @@ _ESTIMATORS = {
     "random_forest": RandomForestClassifier,
 }
 
+_NEURAL = tuple(MODEL_REGISTRY)
+# models that consume (n, T, 3) raw windows, not tabular feature vectors
+_RAW_MODELS = ("cnn1d", "bilstm", "transformer")
+
 # families of the JAX package that later slices port (ROADMAP.md, Queue 1)
 _NOT_PORTED = {
     "logistic_regression": "Queue 1 item 4 (logistic regression)",
@@ -51,9 +68,7 @@ _NOT_PORTED = {
     "mlp": "Queue 1 item 9 (neural training)",
     "cnn1d": "Queue 1 item 9 (neural training)",
     "bilstm": "Queue 1 item 9 (neural training)",
-    "transformer": "Queue 1 item 10 (transformer)",
 }
-
 
 
 def canonical_model_name(name: str) -> str:
@@ -62,7 +77,24 @@ def canonical_model_name(name: str) -> str:
 
 def effective_synthetic_rows(data) -> int:
     """Row count a synthetic fallback generates for this config."""
-    return data.synthetic_rows or 5418
+    return data.synthetic_rows or (4000 if data.dataset == "wisdm_raw" else 5418)
+
+
+def _neural_model_fields(name: str) -> set[str]:
+    """Constructor arguments of a neural family's module."""
+    params = inspect.signature(MODEL_REGISTRY[name]).parameters
+    return set(params) - {"self"}
+
+
+def _known_params() -> set[str]:
+    """Every hyperparameter name a ported estimator accepts; a param
+    outside this union is a typo and fails loudly."""
+    known = {
+        f.name for cls in _ESTIMATORS.values() for f in dataclasses.fields(cls)
+    } | {f.name for f in dataclasses.fields(TrainerConfig)} | {"augment"}
+    for name in _NEURAL:
+        known |= _neural_model_fields(name)
+    return known - {"device"}
 
 
 def build_estimator(name: str, params: dict | None = None, device="cuda"):
@@ -74,17 +106,28 @@ def build_estimator(name: str, params: dict | None = None, device="cuda"):
             f"{name} is not ported to har_tpu_torch yet: ROADMAP.md "
             f"{_NOT_PORTED[name]}"
         )
-    if name not in _ESTIMATORS:
+    if name not in _ESTIMATORS and name not in _NEURAL:
         raise ValueError(f"unknown model {name!r}")
     params = dict(params or {})
-    known = {
-        f.name for cls in _ESTIMATORS.values() for f in dataclasses.fields(cls)
-    } - {"device"}
-    unknown = set(params) - known
+    unknown = set(params) - _known_params()
     if unknown:
         raise ValueError(
             f"unknown hyperparameter(s) {sorted(unknown)} — not accepted "
             "by any ported estimator"
+        )
+    if name in _NEURAL:
+        train_keys = {f.name for f in dataclasses.fields(TrainerConfig)}
+        cfg = TrainerConfig(
+            **{k: params.pop(k) for k in list(params) if k in train_keys}
+        )
+        augment = params.pop("augment", None)
+        fields = _neural_model_fields(name)
+        return NeuralClassifier(
+            name,
+            config=cfg,
+            model_kwargs={k: v for k, v in params.items() if k in fields},
+            augment=augment,
+            device=str(device),
         )
     cls = _ESTIMATORS[name]
     fields = {f.name for f in dataclasses.fields(cls)}
@@ -93,18 +136,47 @@ def build_estimator(name: str, params: dict | None = None, device="cuda"):
 
 
 def load_dataset(config: RunConfig):
-    """The WISDM table: the CSV when a path resolves, else the same-shape
-    synthetic table."""
+    """The WISDM table (the CSV when a path resolves, else the same-shape
+    synthetic table), or for ``wisdm_raw`` the synthetic raw windows."""
     data = config.data
+    if data.dataset == "wisdm_raw":
+        if data.path is not None:
+            raise NotImplementedError(
+                "reading a raw WISDM stream (--data-path) needs the native "
+                "raw parser, which is not ported to har_tpu_torch yet: "
+                "ROADMAP.md Queue 1 item 1 (data/raw_loader.py)"
+            )
+        return synthetic_raw_stream(
+            n_windows=effective_synthetic_rows(data), seed=data.seed
+        )
     if data.dataset not in ("wisdm", "synthetic"):
         raise NotImplementedError(
             f"dataset {data.dataset!r} is not ported to har_tpu_torch yet: "
-            "ROADMAP.md Queue 1 items 1 and 9"
+            "ROADMAP.md Queue 1 item 1"
         )
     path = data.resolved_path()
     if data.dataset == "wisdm" and path is not None:
         return load_wisdm(path, drop_binned=data.drop_binned)
     return synthetic_wisdm(n_rows=effective_synthetic_rows(data), seed=data.seed)
+
+
+def _feature_mode(config: RunConfig) -> str:
+    """Which feature view this config's model trains on."""
+    name = canonical_model_name(config.model.name)
+    if config.data.dataset == "wisdm_raw":
+        if name in _RAW_MODELS:
+            return "raw"
+        raise NotImplementedError(
+            f"{name} on wisdm_raw trains on the 43-feature transform of the "
+            "windows (features/raw_features.py), which is not ported to "
+            "har_tpu_torch yet: ROADMAP.md Queue 1 item 9"
+        )
+    if name in _RAW_MODELS:
+        raise ValueError(
+            f"{name} trains on raw (T, 3) windows — use --dataset wisdm_raw, "
+            f"not a tabular dataset ({config.data.dataset})"
+        )
+    return "onehot"
 
 
 def resolve_split_method(data) -> str:
@@ -140,7 +212,21 @@ def derive_split(full: FeatureSet, table, data) -> tuple[FeatureSet, FeatureSet]
 
 
 def featurize(config: RunConfig, table):
-    """Fit the one-hot pipeline and split: (train, test, fitted pipeline)."""
+    """(train, test, fitted pipeline or None) for this config's model: the
+    raw windows split by a Bernoulli draw, or the one-hot pipeline and
+    the split of the tabular table."""
+    if _feature_mode(config) == "raw":
+        full = FeatureSet(
+            features=np.asarray(table.windows, np.float32),
+            label=np.asarray(table.labels, np.int32),
+            class_names=(
+                tuple(table.class_names) if table.class_names else None
+            ),
+        )
+        train, test = full.train_test(
+            config.data.train_fraction, config.data.seed
+        )
+        return train, test, None
     pipe_model = build_wisdm_pipeline().fit(table)
     label_vocab = next(
         (
@@ -168,7 +254,7 @@ class RunOutcome:
 def _spark_display_name(name: str, model) -> str:
     """The model line Spark prints atop each block (reference
     result.txt:231,276); the uid suffix is a deterministic hash of the job
-    name, as in the JAX package."""
+    name, as in the JAX package.  None for the neural families."""
     uid = hashlib.sha1(name.encode()).hexdigest()[:20]
     if name == "decision_tree":
         return (
@@ -176,10 +262,12 @@ def _spark_display_name(name: str, model) -> str:
             f"{uid}) of depth {model.tree.max_depth} with {model.num_nodes} "
             "nodes"
         )
-    return (
-        f"RandomForestClassificationModel (uid=RandomForestClassifier_{uid}) "
-        f"with {model.num_trees} trees"
-    )
+    if name == "random_forest":
+        return (
+            f"RandomForestClassificationModel (uid=RandomForestClassifier_"
+            f"{uid}) with {model.num_trees} trees"
+        )
+    return None  # the neural families keep their own names
 
 
 def _fit_eval(est, name, train, test, report, timer):
@@ -202,13 +290,19 @@ def _fit_eval(est, name, train, test, report, timer):
     return result
 
 
+def _model_config(config: RunConfig, name: str) -> RunConfig:
+    return dataclasses.replace(
+        config, model=dataclasses.replace(config.model, name=name)
+    )
+
+
 def run(
     config: RunConfig,
     models=None,
     with_cv: bool = False,
     device: str | torch.device = "cuda",
 ) -> RunOutcome:
-    """The reference pipeline for the tree families on ``device``."""
+    """The reference pipeline for the ported families on ``device``."""
     if with_cv:
         raise NotImplementedError(
             "the cross-validation pass is not ported to har_tpu_torch yet: "
@@ -221,37 +315,62 @@ def run(
     estimators = [
         build_estimator(name, config.model.params, device) for name in models
     ]
+    if (config.mesh.dp, config.mesh.tp) != (1, 1) and any(
+        name in _NEURAL for name in models
+    ):
+        raise NotImplementedError(
+            "data- and tensor-parallel neural training is not ported to "
+            "har_tpu_torch yet: ROADMAP.md Queue 1 item 14 (the parallel layer)"
+        )
+    # every model's feature view, resolved before any work: it raises for a
+    # model that cannot run on this dataset, so the dataset fixes one view
+    for name in models:
+        _feature_mode(_model_config(config, name))
 
     # "report" accumulates every section that renders the report, so
     # timing.csv accounts for the whole run
     timer = StepTimer(device)
     with timer("load"):
         table = load_dataset(config)
+    is_raw = isinstance(table, WindowedDataset)
     report = ReportWriter(config.output_dir)
     with timer("report"):
         report.line("Loading Data Set...")
-        report.schema(table)
-        report.sample(table)
-        report.class_counts(table["ACTIVITY"])
-        report.summary(table)
+        if is_raw:
+            report.line(
+                f"Raw windows: {tuple(table.windows.shape)} "
+                f"({table.windows.shape[1]} steps, tri-axial)"
+            )
+            names = table.class_names or tuple(
+                str(i) for i in range(int(table.labels.max()) + 1)
+            )
+            report.class_counts([names[i] for i in np.asarray(table.labels)])
+        else:
+            report.schema(table)
+            report.sample(table)
+            report.class_counts(table["ACTIVITY"])
+            report.summary(table)
 
     with timer("featurize"):
-        train, test, _ = featurize(config, table)
+        train, test, _ = featurize(_model_config(config, models[0]), table)
     with timer("report"):
         report.class_names = (
             list(train.class_names) if train.class_names else None
         )
-        # MODELING PIPELINE + sample/table blocks (reference
-        # result.txt:59-138): the design matrix reassembled from the splits
-        report.pipeline_schema(table)
-        feats = np.empty((len(table), train.num_features), np.float32)
-        labels = np.empty((len(table),), np.float64)
-        for part in (train, test):
-            feats[part.rows] = part.features
-            labels[part.rows] = part.label
-        report.sample_feature_data(table, labels, feats)
+        if not is_raw:
+            # MODELING PIPELINE + sample/table blocks (reference
+            # result.txt:59-138): the design matrix reassembled from the
+            # splits
+            report.pipeline_schema(table)
+            feats = np.empty((len(table), train.num_features), np.float32)
+            labels = np.empty((len(table),), np.float64)
+            for part in (train, test):
+                feats[part.rows] = part.features
+                labels[part.rows] = part.label
+            report.sample_feature_data(table, labels, feats)
         report.split_counts(len(train), len(test))
-        report.split_sample_tables(table, feats, labels, train.rows, test.rows)
+        if not is_raw:
+            report.split_sample_tables(table, feats, labels, train.rows, test.rows)
 
     results = [
         _fit_eval(est, name, train, test, report, timer)

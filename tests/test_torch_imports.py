@@ -35,7 +35,10 @@ def test_port_has_files():
     for required in (
         "chip_smoke.py",
         "har_tpu_torch/ops/hist.py",
+        "har_tpu_torch/ops/flash_attention.py",
         "har_tpu_torch/models/tree.py",
+        "har_tpu_torch/models/transformer.py",
+        "har_tpu_torch/train/trainer.py",
         "har_tpu_torch/runner.py",
     ):
         assert required in names
