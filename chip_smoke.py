@@ -9,10 +9,14 @@ exits nonzero without the final ``ok`` line:
 1. device: the card's name and power limit (nvidia-smi) and torch's view;
 2. build: every kernel of har_tpu_torch/csrc compiled with nvcc (one
    process per source, started together), timed, with ptxas's report;
-3. hist: kernel K1 against its plain PyTorch version on the card, at the
-   test shapes and the main path's shapes: exact for integer weights,
-   rtol 1e-5 for random float32 weights; kernel, plain and one-hot-matmul
-   times from CUDA events and the least time the card could take;
+3. hist: kernel K1's two entries against their plain PyTorch versions on
+   the card: the dense kernel at the test shapes and the static-width
+   shapes it served before the tree path moved to the row-sparse kernel,
+   and the row-sparse kernel at the test shapes and every level shape of
+   the main path (each level at its live width); exact for integer
+   weights, rtol 1e-5 for random float32 weights; kernel, plain and
+   one-hot-matmul times from CUDA events and the least time the card
+   could take;
 4. flash: kernel K2 against its plain PyTorch version on the card, at the
    CPU tests' shapes (a ragged T, D = 16) and the raw path's training,
    prediction and packed shapes, with and without lse, read through the
@@ -27,7 +31,8 @@ exits nonzero without the final ``ok`` line:
    initial values and batches: losses, parameters and logits within 1e-4;
 7. main: ``har_tpu_torch.cli train --models dt rf --no-cv --device cuda`` on
    the 5,418-row synthetic WISDM table at the reference's widths (DT depth
-   3; RF 100 trees, depth 4, seed 3), with K1's launch count;
+   3; RF 100 trees, depth 4, seed 3), with the row-sparse kernel's launch
+   count (one per tree level, 55) and none of the dense kernel's;
 8. raw_main: ``cli train --dataset wisdm_raw --models transformer --no-cv
    --device cuda`` at the CLI defaults, with K2's launch count
    (num_layers x (training steps + prediction chunks)) and an accuracy
@@ -36,7 +41,7 @@ exits nonzero without the final ``ok`` line:
    heads, patch 8, window_pack 8, scanned layers, batch 4096, 25 epochs),
    with K2's launch count and its accuracy floor;
 10. with ``--profile`` only: one DT, one RF and one transformer fit under
-    torch.profiler;
+    torch.profiler, with K1's and K2's shares of the device time;
 11. the kernels line, then ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card and the repository beside it; it writes the main
@@ -80,10 +85,13 @@ HBM_BYTES_PER_S = 3.35e12
 F32_ADDS_PER_S = 67e12 / 2
 
 # the main path's histogram shapes (n train rows, d one-hot features, B
-# bins, WC = 2**depth nodes * 6 classes, T trees per launch)
+# bins, WC = 2**depth nodes * 6 classes, T trees per launch); DT_SHAPE and
+# RF_SHAPE are the static widths the dense kernel served at every level
 N, D, B, C = 3793, 730, 32, 6
-DT_SHAPE = dict(n=N, d=D, bins=B, wc=2**3 * C, trees=1)
-RF_SHAPE = dict(n=N, d=D, bins=B, wc=2**4 * C, trees=TREE_BATCH)
+DT_DEPTH = DecisionTreeClassifier().max_depth
+RF_DEPTH, RF_TREES = RandomForestClassifier().max_depth, RandomForestClassifier().num_trees
+DT_SHAPE = dict(n=N, d=D, bins=B, wc=2**DT_DEPTH * C, trees=1)
+RF_SHAPE = dict(n=N, d=D, bins=B, wc=2**RF_DEPTH * C, trees=TREE_BATCH)
 CHECK_SHAPES = {
     "test_300x7_b8_wc12": dict(n=300, d=7, bins=8, wc=12, trees=1),
     "test_513x130_b4_wc6": dict(n=513, d=130, bins=4, wc=6, trees=1),
@@ -91,6 +99,25 @@ CHECK_SHAPES = {
     "dt": DT_SHAPE,
     "rf_chunk": RF_SHAPE,
     "rf_last_chunk": dict(RF_SHAPE, trees=100 % TREE_BATCH),
+}
+# the row-sparse kernel's launches on the main path: level L of a tree
+# (or of an RF chunk) at its live width 2**L nodes * C classes
+ROW_LEVEL_SHAPES = {
+    **{f"dt_L{level}": dict(n=N, d=D, bins=B, wc=2**level * C, trees=1)
+       for level in range(DT_DEPTH)},
+    **{f"rf_chunk_L{level}": dict(n=N, d=D, bins=B, wc=2**level * C, trees=TREE_BATCH)
+       for level in range(RF_DEPTH)},
+    f"rf_last_chunk_L{RF_DEPTH - 1}": dict(
+        n=N, d=D, bins=B, wc=2 ** (RF_DEPTH - 1) * C, trees=RF_TREES % TREE_BATCH
+    ),
+}
+# the kernels line's headline shape: an RF chunk's deepest level
+RF_HEADLINE = f"rf_chunk_L{RF_DEPTH - 1}"
+ROW_CHECK_SHAPES = {
+    "test_300x7_b8_wc12_t3": dict(n=300, d=7, bins=8, wc=12, trees=3),
+    "test_513x130_b4_wc6_t3": dict(n=513, d=130, bins=4, wc=6, trees=3),
+    "test_257x9_b32_wc12_t3": dict(n=257, d=9, bins=32, wc=12, trees=3),
+    **ROW_LEVEL_SHAPES,
 }
 # har_tpu on the CPU, same synthetic table and split: 1494 of 1625 right
 DT_EXPECTED_CORRECT, TEST_ROWS = 1494, 1625
@@ -173,6 +200,52 @@ def tree_level_inputs(n, d, bins, wc, trees, integer=True, seed=0):
     return b, m
 
 
+def graph_ms(fn, reps: int = 25, rounds: int = 5) -> float:
+    """Device milliseconds per call of ``fn``: ``reps`` calls captured in
+    one CUDA graph, whose replay is timed between two CUDA events (median
+    of ``rounds``).  Unlike :func:`cuda_ms` it leaves out the host's time
+    between launches, which decides back-to-back calls of a kernel whose
+    device time is shorter than its wrapper's Python."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, reps=1, rounds=rounds) / reps
+
+
+def tree_row_inputs(n, d, bins, wc, trees, integer=True, seed=0):
+    """bins, slot and weight as a tree level hands them to the row-sparse
+    kernel: each row in one (node, class) slot per tree with weight 1 (a
+    tree) or a Poisson count (a forest, zeros included), every 13th row's
+    slot past the level; or, with integer=False, uniform float32 weights
+    with every 5th row 0."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b = torch.randint(0, bins, (n, d), generator=g, device="cuda", dtype=torch.int32)
+    slot = torch.randint(0, wc, (trees, n), generator=g, device="cuda", dtype=torch.int32)
+    slot[:, ::13] = wc
+    if not integer:
+        w = torch.rand((trees, n), generator=g, device="cuda")
+        w[:, ::5] = 0.0
+    elif trees > 1:
+        w = torch.poisson(torch.ones((trees, n), device="cuda"), generator=g)
+    else:
+        w = torch.ones((trees, n), device="cuda")
+    return b, slot, w
+
+
+def dense_m(slot, w, wc):
+    """The row one-hot ``m`` of (slot, weight), for the dense yardstick."""
+    keep = (slot >= 0) & (slot < wc)
+    m = torch.zeros(slot.shape + (wc,), device=slot.device)
+    return m.scatter_(2, torch.where(keep, slot, 0).long()[..., None],
+                      torch.where(keep, w, 0.0)[..., None])
+
+
 def library_hist(b, m, bins):
     """One PyTorch call chain computing the same function, as a yardstick:
     the materialized one-hot and a batched matmul."""
@@ -188,6 +261,22 @@ def bound(b, m, out) -> tuple[float, str]:
     adds = int(torch.count_nonzero(m)) * b.shape[1]
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = adds / F32_ADDS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def rows_bound(b, slot, w, out) -> tuple[float, str]:
+    """Least milliseconds for the card, for the row-sparse kernel: bins,
+    slot and weight read once, the output written once (twice when the
+    launch zeroes it first, see ``hist_ops.rows_plan``), and one add per
+    kept row and feature."""
+    n, d = b.shape
+    trees, wc, width = out.shape
+    chunks = hist_ops.rows_plan(n, d, width // d, wc, trees)[3]
+    out_bytes = out.numel() * out.element_size() * (2 if chunks > 1 else 1)
+    nbytes = sum(t.numel() * t.element_size() for t in (b, slot, w)) + out_bytes
+    kept = int(((w != 0) & (slot >= 0) & (slot < wc)).sum())
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = kept * d / F32_ADDS_PER_S * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
@@ -263,6 +352,58 @@ def phase_hist() -> dict:
             bound_by=bound_by,
         )
         emit("hist_time", name=name, **timings[name])
+    return dict(max_abs_err=max_err, timings=timings)
+
+
+def phase_hist_rows() -> dict:
+    """The row-sparse kernel against ``hist_rows_plain`` at the test
+    shapes and every main-path level shape: integer weights bit for bit,
+    float32 weights within rtol 1e-5 (its merges add in any order); then
+    kernel, plain and one-hot-matmul times at each level shape, the
+    matmul's dense ``m`` built outside the timed region."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    max_err = 0.0
+    for name, s in ROW_CHECK_SHAPES.items():
+        wc, bins = s["wc"], s["bins"]
+        diffs = {}
+        for integer, seed in ((True, 1), (False, 2)):
+            b, slot, w = tree_row_inputs(**s, integer=integer, seed=seed)
+            got = hist_ops.hist_rows(b, slot, w, wc, bins)
+            want = hist_ops.hist_rows_plain(b, slot, w, wc, bins)
+            torch.cuda.synchronize()
+            diffs[integer] = float((got - want).abs().max())
+            if integer and not torch.equal(got, want):
+                raise AssertionError(
+                    f"hist_rows {name}: integer weights differ by {diffs[integer]}"
+                )
+            if not integer:
+                rel = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=0.0)
+        max_err = max(max_err, *diffs.values())
+        emit("hist_rows_check", shape=name, **s, max_abs_diff_int=diffs[True],
+             max_abs_diff_f32=diffs[False], max_rel_diff_f32=rel)
+
+    timings = {}
+    for name, s in ROW_LEVEL_SHAPES.items():
+        wc, bins = s["wc"], s["bins"]
+        b, slot, w = tree_row_inputs(**s, seed=3)
+        out = hist_ops.hist_rows(b, slot, w, wc, bins)
+        m = dense_m(slot, w, wc)
+        if not torch.equal(library_hist(b, m, bins), out):
+            raise AssertionError(f"one-hot matmul disagrees with hist_rows at {name}")
+        bound_ms, bound_by = rows_bound(b, slot, w, out)
+        timings[name] = dict(
+            shape=s,
+            plan=hist_ops.rows_plan(s["n"], s["d"], bins, wc, s["trees"]),
+            kernel_ms=cuda_ms(lambda: hist_ops.hist_rows(b, slot, w, wc, bins)),
+            kernel_graph_ms=graph_ms(lambda: hist_ops.hist_rows(b, slot, w, wc, bins)),
+            plain_ms=cuda_ms(lambda: hist_ops.hist_rows_plain(b, slot, w, wc, bins)),
+            library_ms=cuda_ms(lambda: library_hist(b, m, bins)),
+            bound_ms=bound_ms,
+            bound_by=bound_by,
+        )
+        emit("hist_rows_time", name=name, **timings[name])
+        del m
     return dict(max_abs_err=max_err, timings=timings)
 
 
@@ -443,19 +584,23 @@ def run_cli(argv: list[str]) -> dict:
     return json.loads(printed.getvalue().strip().splitlines()[-1])["accuracies"]
 
 
-def drive_path(name: str, out_dir: Path, drive, hist: int = 0, flash: int = 0) -> dict:
-    """Drive one main path with both launch counts set to 0 just before
+def drive_path(name: str, out_dir: Path, drive, hist_rows: int = 0,
+               flash: int = 0) -> dict:
+    """Drive one main path with every launch count set to 0 just before
     it and read just after: each kernel must launch exactly as often as
-    expected (0 for a kernel off the path), and the run must write its
-    three artifacts.  ``drive`` returns the accuracies."""
+    expected (0 for a kernel off the path: the dense hist kernel is off
+    every path), and the run must write its three artifacts.  ``drive``
+    returns the accuracies."""
     torch.cuda.reset_peak_memory_stats()
     hist_ops.HIST_LAUNCHES = 0
+    hist_ops.HIST_ROWS_LAUNCHES = 0
     flash_ops.FLASH_LAUNCHES = 0
     t0 = time.perf_counter()
     accuracies = drive()
     seconds = time.perf_counter() - t0
-    launches = dict(hist=hist_ops.HIST_LAUNCHES, flash_attention=flash_ops.FLASH_LAUNCHES)
-    expected = dict(hist=hist, flash_attention=flash)
+    launches = dict(hist=hist_ops.HIST_LAUNCHES, hist_rows=hist_ops.HIST_ROWS_LAUNCHES,
+                    flash_attention=flash_ops.FLASH_LAUNCHES)
+    expected = dict(hist=0, hist_rows=hist_rows, flash_attention=flash)
     for artifact in ("result.txt", "additional_param.csv", "timing.csv"):
         if not (out_dir / artifact).is_file():
             raise AssertionError(f"{name} wrote no {artifact}")
@@ -483,7 +628,7 @@ def phase_main() -> dict:
             "--output-dir", str(out_dir)]
     path = drive_path(
         "main", out_dir, lambda: run_cli(argv),
-        hist=dt.max_depth + math.ceil(rf.num_trees / TREE_BATCH) * rf.max_depth,
+        hist_rows=dt.max_depth + math.ceil(rf.num_trees / TREE_BATCH) * rf.max_depth,
     )
     acc = path["accuracies"]
     if acc["decision_tree"] != DT_EXPECTED_CORRECT / TEST_ROWS:
@@ -528,8 +673,8 @@ def phase_raw_packed() -> dict:
 
 def _profile_fit(label: str, fit) -> None:
     """One warm fit, one timed fit and one fit under torch.profiler:
-    kernel time by name, the device's busy share and K2's share of the
-    device time."""
+    kernel time by name, the device's busy share, K1's row-sparse
+    kernel's launches, device time and share of it, and K2's share."""
     from torch.profiler import ProfilerActivity, profile
 
     fit()  # warm: the kernels are loaded, caches are filled
@@ -554,7 +699,15 @@ def _profile_fit(label: str, fit) -> None:
     ]
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     device_us = sum(e.self_device_time_total for e in events)
-    flash_us = sum(e.self_device_time_total for e in events if "flash_fwd_" in e.key)
+
+    def share(tag: str) -> float:
+        return sum(e.self_device_time_total for e in events if tag in e.key) / max(
+            device_us, 1e-9
+        )
+
+    rows = [e for e in events if "hist_rows_kernel" in e.key]
+    rows_launches = sum(e.count for e in rows)
+
     emit(
         "profile",
         model=label,
@@ -562,7 +715,10 @@ def _profile_fit(label: str, fit) -> None:
         profiled_fit_s=profiled_s,
         device_s=device_us / 1e6,
         device_busy_share=device_us / 1e6 / profiled_s,
-        flash_share_of_device=flash_us / max(device_us, 1e-9),
+        hist_rows_share_of_device=share("hist_rows_kernel"),
+        hist_rows_launches=rows_launches,
+        hist_rows_device_ms=sum(e.self_device_time_total for e in rows) / 1e3,
+        flash_share_of_device=share("flash_fwd_"),
         top=[
             dict(name=e.key[:80], device_ms=e.self_device_time_total / 1e3,
                  calls=e.count)
@@ -584,13 +740,13 @@ def phase_profile() -> None:
     _profile_fit("Transformer1D (5 epochs)", lambda: est.fit(train))
 
 
-def kernel_entry(name: str, replaces: str, launches: int, checked: dict,
-                 shape: str, **extra) -> dict:
+def kernel_entry(name: str, source: str, replaces: str, launches: int,
+                 checked: dict, shape: str, **extra) -> dict:
     """One kernel's entry of the kernels line: its main-path launches, its
     largest difference from the plain version and its times at ``shape``."""
     t = checked["timings"][shape]
     return dict(
-        name=name, route="cuda", source=f"har_tpu_torch/csrc/{name}.cu",
+        name=name, route="cuda", source=f"har_tpu_torch/csrc/{source}",
         replaces=replaces, launches=launches, max_abs_err=checked["max_abs_err"],
         max_abs_diff=checked["max_abs_err"], ms=t["kernel_ms"],
         kernel_ms=t["kernel_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
@@ -603,6 +759,7 @@ def main(argv: list[str]) -> int:
     device = phase_device()
     phase_build()
     hist = phase_hist()
+    hist_rows = phase_hist_rows()
     flash = phase_flash()
     phase_agree()
     phase_transformer_agree()
@@ -617,11 +774,16 @@ def main(argv: list[str]) -> int:
     }
     kernels = [
         kernel_entry(
-            "hist", "har_tpu/ops/pallas_hist.py:56", main_path["launches"]["hist"],
-            hist, "rf_chunk",
+            "hist_rows", "hist.cu", "har_tpu/ops/pallas_hist.py:56",
+            main_path["launches"]["hist_rows"], hist_rows, RF_HEADLINE,
+            graph_ms=hist_rows["timings"][RF_HEADLINE]["kernel_graph_ms"],
         ),
         kernel_entry(
-            "flash_attention", "har_tpu/ops/flash_attention.py:56",
+            "hist", "hist.cu", "har_tpu/ops/pallas_hist.py:56",
+            main_path["launches"]["hist"], hist, "rf_chunk",
+        ),
+        kernel_entry(
+            "flash_attention", "flash_attention.cu", "har_tpu/ops/flash_attention.py:56",
             sum(flash_launches.values()), flash, "cli_train",
             launches_per_path=flash_launches,
         ),

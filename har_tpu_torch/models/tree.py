@@ -6,9 +6,9 @@ step for step, so a tree grown here equals the reference's bit for bit:
 
   - **Binning**: MLlib's split candidates per feature (≤ max_bins-1
     thresholds), features quantized once to int32 bin ids.
-  - **Level-wise growth**: one class histogram per level, for every
-    (node, feature, bin), from the hand-written CUDA kernel
-    (:func:`har_tpu_torch.ops.hist.hist`).
+  - **Level-wise growth**: one class histogram per level, for every live
+    (node, feature, bin), from the hand-written row-sparse CUDA kernel
+    (:func:`har_tpu_torch.ops.hist.hist_rows`).
   - **Split selection**: cumulative sums over the bin axis give left/right
     class counts for every candidate split; weighted Gini gain, argmax over
     (feature, bin).  Nodes that shouldn't split (pure / too small / no
@@ -121,7 +121,7 @@ def _grow_tree(
     thresholds: torch.Tensor,  # (d, B-1) f32
     y: torch.Tensor,  # (n,) int64
     weights: torch.Tensor,  # (T, n) f32 (0 = row not in that tree)
-    feature_scores: torch.Tensor | None,  # (depth, T, W, d) f32 or None
+    feature_scores: torch.Tensor | None,  # (depth, T, 2**depth, d) or None
     num_classes: int,
     max_depth: int,
     max_bins: int,
@@ -131,19 +131,19 @@ def _grow_tree(
     """Grow T trees level by level; returns per-tree (feature, threshold,
     leaf_class, leaf_probs, node_counts) with a leading T axis.
 
-    Every level works on the static width W = 2**max_depth nodes, like the
-    JAX grower, so its histogram is (T, W*C, d*B) at every level.  With
-    ``features_per_split`` each (tree, level, node) keeps the features whose
-    score is among the ``features_per_split`` smallest of its row of
-    ``feature_scores``.
+    Level L works on its live width wl = 2**L nodes, so its histogram is
+    (T, wl*C, d*B).  The JAX grower works on the static width 2**max_depth
+    at every level (``lax.fori_loop`` needs one shape); its slots past
+    2**L hold no rows and split nothing, so the trees are the same.  With
+    ``features_per_split`` each (tree, level, node) keeps the features
+    whose score is among the ``features_per_split`` smallest of its row of
+    ``feature_scores``: slot s is row s, as in the JAX draw.
     """
     device = bins.device
     trees, n = weights.shape
     d = bins.shape[1]
     classes = num_classes
     n_nodes = 2 ** (max_depth + 1) - 1
-    n_internal = 2**max_depth - 1
-    width = 2**max_depth
 
     feature = torch.full((trees, n_nodes), -1, dtype=torch.int32, device=device)
     threshold = torch.zeros((trees, n_nodes), dtype=torch.float32, device=device)
@@ -152,22 +152,22 @@ def _grow_tree(
     )
     node_counts[:, 0].index_add_(1, y, weights)  # root class counts
     node_of_row = torch.zeros((trees, n), dtype=torch.int64, device=device)
-    slots = torch.arange(width, device=device)
     tree_idx = torch.arange(trees, device=device)[:, None]
 
     for level in range(max_depth):
-        first = 2**level - 1
+        wl = 2**level  # live nodes at this level
+        first = wl - 1
         local = node_of_row - first  # position within the level
-        valid = (local >= 0) & (local < width)
-        local = local.clamp(0, width - 1)
+        valid = (local >= 0) & (local < wl)
+        local = local.clamp(0, wl - 1)
 
+        # each row's weight in one (node, class) slot per tree
+        slot = (local * classes + y).to(torch.int32)
         w = torch.where(valid, weights, 0.0)
-        m = torch.zeros((trees, n, width * classes), device=device)
-        m.scatter_(2, (local * classes + y)[:, :, None], w[:, :, None])
-        hist = hist_ops.hist(bins, m, max_bins)  # (T, W*C, d*B)
-        hist = hist.reshape(trees, width, classes, d, max_bins).permute(
+        hist = hist_ops.hist_rows(bins, slot, w, wl * classes, max_bins)
+        hist = hist.reshape(trees, wl, classes, d, max_bins).permute(
             0, 1, 3, 4, 2
-        )  # (T, W, d, B, C)
+        )  # (T, wl, d, B, C)
 
         # left counts for a split at bin b = Σ_{bin<=b}; the candidates
         # are the first B-1 bins (split "x <= threshold[b]")
@@ -175,42 +175,41 @@ def _grow_tree(
         left = cum[:, :, :, : max_bins - 1, :]
         total = cum[:, :, :, -1:, :]
         right = total - left
-        gain = _gini(total) - _gini(left) - _gini(right)  # (T, W, d, B-1)
+        gain = _gini(total) - _gini(left) - _gini(right)  # (T, wl, d, B-1)
 
         ok = (left.sum(-1) >= min_instances) & (right.sum(-1) >= min_instances)
         if features_per_split:
-            scores = feature_scores[level]  # (T, W, d)
+            scores = feature_scores[level][:, :wl]  # (T, wl, d)
             kth = torch.sort(scores, dim=-1).values[
                 :, :, features_per_split - 1
             ]
             ok = ok & (scores <= kth[:, :, None])[:, :, :, None]
         gain = torch.where(ok, gain, -torch.inf)
 
-        flat = gain.reshape(trees, width, -1)
+        flat = gain.reshape(trees, wl, -1)
         best = torch.argmax(flat, dim=-1)  # first maximum, as jnp.argmax
         best_gain = torch.gather(flat, 2, best[:, :, None])[:, :, 0]
         best_feat = best // (max_bins - 1)
         best_bin = best % (max_bins - 1)
         splittable = torch.isfinite(best_gain) & (best_gain > 1e-12)
 
-        node_ids = first + slots
-        is_internal = splittable & (node_ids < n_internal)
-        feat_upd = torch.where(is_internal, best_feat, -1)
-        thr_upd = thresholds[best_feat, best_bin]  # (T, W)
+        slots = torch.arange(wl, device=device)
+        node_ids = first + slots  # internal nodes: level < max_depth
+        feat_upd = torch.where(splittable, best_feat, -1)
+        thr_upd = thresholds[best_feat, best_bin]  # (T, wl)
         feature[:, node_ids] = feat_upd.to(torch.int32)
-        threshold[:, node_ids] = torch.where(is_internal, thr_upd, 0.0)
+        threshold[:, node_ids] = torch.where(splittable, thr_upd, 0.0)
 
-        # children class counts (ids past the array are dropped, as the
-        # JAX grower's mode="drop" scatter does)
-        lcounts = left[tree_idx, slots, best_feat, best_bin]  # (T, W, C)
+        # children class counts: the children of level L < max_depth lie
+        # in the array
+        lcounts = left[tree_idx, slots, best_feat, best_bin]  # (T, wl, C)
         rcounts = total[:, :, 0, 0, :] - lcounts
         for child_ids, counts in (
             (2 * node_ids + 1, lcounts),
             (2 * node_ids + 2, rcounts),
         ):
-            keep = child_ids < n_nodes
-            node_counts[:, child_ids[keep]] = torch.where(
-                is_internal[:, keep, None], counts[:, keep], 0.0
+            node_counts[:, child_ids] = torch.where(
+                splittable[:, :, None], counts, 0.0
             )
 
         # route rows to children where their node split

@@ -180,3 +180,56 @@ def test_tree_model_needs_cuda_unless_cpu_is_named(datasets, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         port_tree.DecisionTreeClassifier().fit(ptr)
+
+
+def test_grow_tree_asks_for_each_levels_live_width(datasets, monkeypatch):
+    """Level L's histogram is (T, 2**L * C, d*B), from the row-sparse
+    entry; the dense entry is off the tree path."""
+    _, _, ptr, _ = datasets
+    calls = []
+    row_sparse = port_tree.hist_ops.hist_rows
+
+    def recording(bins, slot, weight, wc, max_bins):
+        out = row_sparse(bins, slot, weight, wc, max_bins)
+        calls.append((wc, tuple(out.shape)))
+        return out
+
+    def dense(*args):
+        raise AssertionError("the tree path called the dense hist")
+
+    monkeypatch.setattr(port_tree.hist_ops, "hist_rows", recording)
+    monkeypatch.setattr(port_tree.hist_ops, "hist", dense)
+    d, classes = ptr.num_features, int(ptr.label.max()) + 1
+    for est, trees in (
+        (port_tree.DecisionTreeClassifier(device="cpu"), 1),
+        (port_forest.RandomForestClassifier(num_trees=3, device="cpu"), 3),
+    ):
+        calls.clear()
+        est.fit(ptr)
+        want = [2**level * classes for level in range(est.max_depth)]
+        assert calls == [(wc, (trees, wc, d * 32)) for wc in want]
+
+
+def test_decision_tree_at_depth_5_bit_identical(datasets):
+    jtr, _, ptr, _ = datasets
+    theirs = JaxTree(max_depth=5, use_pallas_hist=False).fit(jtr)
+    assert (theirs.tree.feature[15:31] >= 0).any()  # level 4 splits
+    ours = port_tree.DecisionTreeClassifier(max_depth=5, device="cpu").fit(ptr)
+    _assert_tree_equal(theirs.tree, ours.tree)
+
+
+def test_forest_at_depth_5_with_injected_draws_is_identical(datasets):
+    jtr, _, ptr, _ = datasets
+    num_trees, seed, depth = 3, 5, 5
+    theirs = JaxForest(
+        num_trees=num_trees, max_depth=depth, seed=seed, use_pallas_hist=False
+    ).fit(jtr)
+    assert (theirs.feature[:, 15:31] >= 0).any()  # level 4 splits
+    boot, scores = _jax_forest_draws(seed, num_trees, len(ptr), ptr.num_features, depth)
+    ours = port_forest.RandomForestClassifier(
+        num_trees=num_trees, max_depth=depth, seed=seed, device="cpu"
+    ).fit(ptr, boot=torch.from_numpy(boot), feature_scores=torch.from_numpy(scores))
+    for field in ("feature", "threshold", "leaf_probs"):
+        np.testing.assert_array_equal(
+            getattr(ours, field), getattr(theirs, field), err_msg=field
+        )
