@@ -16,7 +16,8 @@ exits nonzero without the final ``ok`` line:
    the main path (each level at its live width); exact for integer
    weights, rtol 1e-5 for random float32 weights; kernel, plain and
    one-hot-matmul times from CUDA events and the least time the card
-   could take;
+   could take (and apart from it, the time of the output's zeroing where
+   a launch merges row chunks);
 4. flash: kernel K2 against its plain PyTorch version on the card, at the
    CPU tests' shapes (a ragged T, D = 16) and the raw path's training,
    prediction and packed shapes, with and without lse, read through the
@@ -265,19 +266,34 @@ def bound(b, m, out) -> tuple[float, str]:
 
 
 def rows_bound(b, slot, w, out) -> tuple[float, str]:
-    """Least milliseconds for the card, for the row-sparse kernel: bins,
-    slot and weight read once, the output written once (twice when the
-    launch zeroes it first, see ``hist_ops.rows_plan``), and one add per
-    kept row and feature."""
+    """Least milliseconds for the card, for the row-sparse function: the
+    bins of every row some tree keeps, slot and weight read once, the
+    output written once, and one add per kept row and feature.  The
+    zeroing a launch of several row chunks needs is its design's cost,
+    not the function's: :func:`rows_memset` reports it apart."""
     n, d = b.shape
-    trees, wc, width = out.shape
-    chunks = hist_ops.rows_plan(n, d, width // d, wc, trees)[3]
-    out_bytes = out.numel() * out.element_size() * (2 if chunks > 1 else 1)
-    nbytes = sum(t.numel() * t.element_size() for t in (b, slot, w)) + out_bytes
-    kept = int(((w != 0) & (slot >= 0) & (slot < wc)).sum())
+    wc = out.shape[1]
+    kept = (w != 0) & (slot >= 0) & (slot < wc)
+    rows_read = int(kept.any(dim=0).sum())
+    nbytes = (
+        rows_read * d * b.element_size()
+        + sum(t.numel() * t.element_size() for t in (slot, w, out))
+    )
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = kept * d / F32_ADDS_PER_S * 1e3
+    ops_ms = int(kept.sum()) * d / F32_ADDS_PER_S * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def rows_memset(out, chunks: int) -> dict:
+    """The zeroing of the output that a launch of several row chunks
+    makes before its blocks merge into it: its CUDA-event time and its
+    byte bound (the output written once), or None for both where the
+    launch has one chunk and writes its output without it."""
+    if chunks == 1:
+        return dict(memset_ms=None, memset_bound_ms=None)
+    nbytes = out.numel() * out.element_size()
+    return dict(memset_ms=cuda_ms(out.zero_),
+                memset_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
 
 
 def phase_device() -> dict:
@@ -392,15 +408,18 @@ def phase_hist_rows() -> dict:
         if not torch.equal(library_hist(b, m, bins), out):
             raise AssertionError(f"one-hot matmul disagrees with hist_rows at {name}")
         bound_ms, bound_by = rows_bound(b, slot, w, out)
+        plan = hist_ops.rows_plan(s["n"], s["d"], bins, wc, s["trees"],
+                                  hist_ops.sm_count(b.device.index))
         timings[name] = dict(
             shape=s,
-            plan=hist_ops.rows_plan(s["n"], s["d"], bins, wc, s["trees"]),
+            plan=plan,
             kernel_ms=cuda_ms(lambda: hist_ops.hist_rows(b, slot, w, wc, bins)),
             kernel_graph_ms=graph_ms(lambda: hist_ops.hist_rows(b, slot, w, wc, bins)),
             plain_ms=cuda_ms(lambda: hist_ops.hist_rows_plain(b, slot, w, wc, bins)),
             library_ms=cuda_ms(lambda: library_hist(b, m, bins)),
             bound_ms=bound_ms,
             bound_by=bound_by,
+            **rows_memset(out, plan[3]),
         )
         emit("hist_rows_time", name=name, **timings[name])
         del m

@@ -8,8 +8,8 @@
 //
 // i.e. m^T @ one_hot(bins) without materializing the indicator.  Bin ids
 // outside [0, B) contribute nothing, as in the one-hot matmul.  This dense
-// kernel takes any m (a boosted tree's float gradients, say); the tree
-// grower's row one-hot m goes to the row-sparse kernel further down.
+// kernel takes any m; the tree grower's row one-hot m goes to the
+// row-sparse kernel further down, and no path calls this one.
 //
 // Design.  One block per (feature tile, wc tile, tree).  Thread
 // (f_local, wc_local) owns the B accumulators of one (wc, f) pair in shared

@@ -11,8 +11,10 @@ decision-tree and random-forest level's split search reads::
 tree axis lets one launch serve a whole random-forest chunk.  Two entries
 compute it, each with its own hand-written kernel in ``csrc/hist.cu``:
 
-- :func:`hist` takes any dense ``m`` (float weights in any column), the
-  general function a boosted tree's per-round histogram needs.
+- :func:`hist` takes any dense ``m`` (float weights in any column).  No
+  path of the port calls it since the tree grower moved to
+  :func:`hist_rows`; boosted trees will use :func:`hist_rows` too (their
+  ``m`` is row one-hot per gradient channel), and this entry goes then.
   :func:`hist_plain` is its plain PyTorch version, a one-hot matmul over
   feature chunks; ``HIST_LAUNCHES`` counts its kernel's launches.
 - :func:`hist_rows` takes ``m`` row one-hot, as a tree level builds it:
@@ -159,11 +161,12 @@ def _launch(bins: torch.Tensor, m: torch.Tensor, max_bins: int) -> torch.Tensor:
 
 
 # the row-sparse kernel: 32 features per block (one per lane), and enough
-# row chunks for two blocks per SM
+# row chunks for two blocks per SM (the launch reads the card's SM count;
+# a plan made without a card assumes an H100 SXM's)
 _ROWS_F_TILE = 32
 _ROWS_MIN_CHUNK = 256
-_H100_SMS = 132
-_ROWS_TARGET_BLOCKS = 2 * _H100_SMS
+_ROWS_BLOCKS_PER_SM = 2
+H100_SMS = 132
 # a block's accumulators stay within half an SM's shared memory, so two
 # blocks share one SM
 _ROWS_SMEM_TARGET = _SMEM_BYTES // 2 - 1024
@@ -201,15 +204,15 @@ def _rows_slot_bytes(max_bins: int) -> int:
 
 
 def rows_plan(
-    n: int, d: int, max_bins: int, wc: int, trees: int
+    n: int, d: int, max_bins: int, wc: int, trees: int, sms: int = H100_SMS
 ) -> tuple[int, int, int, int]:
     """(wc_tile, slot_tiles, chunk_rows, chunks) of a :func:`hist_rows`
-    launch.  A block owns (tree, slot tile, 32 features, row chunk).  The
-    slot tile keeps its accumulators within half an SM's shared memory;
-    rows are split into chunks until the grid has about two blocks per
-    SM, each chunk at least 256 rows.  With more than one chunk, blocks
-    add into an output zeroed first.  Raises when one slot's
-    accumulators exceed a block's shared memory."""
+    launch on a card of ``sms`` SMs.  A block owns (tree, slot tile, 32
+    features, row chunk).  The slot tile keeps its accumulators within
+    half an SM's shared memory; rows are split into chunks until the grid
+    has about two blocks per SM, each chunk at least 256 rows.  With more
+    than one chunk, blocks add into an output zeroed first.  Raises when
+    one slot's accumulators exceed a block's shared memory."""
     slot_bytes = _rows_slot_bytes(max_bins)
     if slot_bytes > _SMEM_BYTES:
         raise ValueError(
@@ -221,7 +224,8 @@ def rows_plan(
     wc_tile = -(-wc // slot_tiles)  # balanced tiles, none of them empty
     slot_tiles = -(-wc // wc_tile)
     blocks = trees * slot_tiles * -(-d // _ROWS_F_TILE)
-    chunks = max(1, min(-(-_ROWS_TARGET_BLOCKS // max(blocks, 1)),
+    target = _ROWS_BLOCKS_PER_SM * sms
+    chunks = max(1, min(-(-target // max(blocks, 1)),
                         n // _ROWS_MIN_CHUNK))
     chunk_rows = -(-n // chunks)
     chunk_rows = -(-chunk_rows // 32) * 32
@@ -285,6 +289,12 @@ def _is_hopper(index: int) -> bool:
 
 
 @functools.cache
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.cache
 def _rows_kernel():
     """The row-sparse kernel's C entry, loaded (and built) once."""
     fn = _build.load("hist").har_hist_rows_launch
@@ -297,7 +307,8 @@ def _launch_rows(bins, slot, weight, wc: int, max_bins: int) -> torch.Tensor:
     global HIST_ROWS_LAUNCHES
     n, d = bins.shape
     trees = slot.shape[0]
-    if not _is_hopper(bins.device.index):
+    index = bins.device.index
+    if not _is_hopper(index):
         raise RuntimeError(
             "the hist_rows kernel is built for sm_90a (Hopper); device "
             f"{torch.cuda.get_device_name(bins.device)} is not one"
@@ -305,7 +316,9 @@ def _launch_rows(bins, slot, weight, wc: int, max_bins: int) -> torch.Tensor:
     shape = (trees, wc, d * max_bins)
     if n == 0 or 0 in shape:
         return torch.zeros(shape, device=bins.device)
-    wc_tile, slot_tiles, chunk_rows, chunks = rows_plan(n, d, max_bins, wc, trees)
+    wc_tile, slot_tiles, chunk_rows, chunks = rows_plan(
+        n, d, max_bins, wc, trees, sm_count(index)
+    )
     if (
         trees * slot_tiles >= 2**31
         or -(-d // _ROWS_F_TILE) > 65535
@@ -319,11 +332,13 @@ def _launch_rows(bins, slot, weight, wc: int, max_bins: int) -> torch.Tensor:
     # several row chunks add into one output: it starts at zero
     alloc = torch.zeros if chunks > 1 else torch.empty
     out = alloc(shape, device=bins.device)
-    err = _rows_kernel()(
-        bins.data_ptr(), slot.data_ptr(), weight.data_ptr(), out.data_ptr(),
-        n, d, max_bins, trees, wc, wc_tile, slot_tiles, chunk_rows, chunks,
-        torch.cuda.current_stream(bins.device).cuda_stream,
-    )
+    # the C entry sets its attribute and launches on the current device
+    with torch.cuda.device(bins.device):
+        err = _rows_kernel()(
+            bins.data_ptr(), slot.data_ptr(), weight.data_ptr(), out.data_ptr(),
+            n, d, max_bins, trees, wc, wc_tile, slot_tiles, chunk_rows, chunks,
+            torch.cuda.current_stream().cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"hist_rows kernel launch failed: CUDA error {err}")
     HIST_ROWS_LAUNCHES += 1

@@ -220,6 +220,15 @@ def test_rows_plan_fits_hopper_and_covers_every_row(n, d, max_bins, wc, trees):
     assert blocks >= 2 * 132 or chunks == max(1, n // 256)
 
 
+@pytest.mark.parametrize("sms", [16, 66, 114, 132])
+def test_rows_plan_follows_the_sm_count(sms):
+    # DT's first level: 23 blocks before the rows are split into the
+    # fewest chunks that give two blocks per SM
+    _, _, chunk_rows, chunks = hist_ops.rows_plan(3793, 730, 32, 6, 1, sms)
+    assert chunks == -(-2 * sms // 23)
+    assert (chunks - 1) * chunk_rows < 3793 <= chunks * chunk_rows
+
+
 def test_rows_of_an_empty_table_are_zeros():
     bins = torch.zeros((0, 3), dtype=torch.int32)
     slot, weight = torch.zeros((2, 0), dtype=torch.int32), torch.zeros((2, 0))
