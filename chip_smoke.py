@@ -19,12 +19,14 @@ exits nonzero without the final ``ok`` line:
    could take (and apart from it, the time of the output's zeroing where
    a launch merges row chunks);
 4. flash: kernel K2 against its plain PyTorch version on the card, at the
-   CPU tests' shapes (a ragged T, D = 16) and the raw path's training,
-   prediction and packed shapes, with and without lse, read through the
-   fused-qkv strides: float32 out and lse within rtol 1e-5 (atol 1e-6),
-   bfloat16 out within 1e-2 (it is rounded to bf16; both sides accumulate
-   in f32) and lse within rtol 1e-5; kernel, plain and
-   scaled_dot_product_attention times and the card's bound;
+   CPU tests' shapes (a ragged T, D = 16), the raw path's training,
+   prediction and packed shapes (the resident route) and one long T (the
+   streamed route), with and without lse, read through the fused-qkv
+   strides: float32 out and lse within rtol 1e-5 (atol 1e-6), bfloat16 out
+   within 1e-2 (it is rounded to bf16; both sides accumulate in f32) and
+   lse within rtol 1e-5; then, at the four main-path shapes, each launch's
+   plan, kernel times from CUDA events and from a CUDA graph's replay,
+   plain and scaled_dot_product_attention times and the card's bound;
 5. agree: the port's DT and RF grown on the card equal the same trees grown
    on the CPU with the plain histogram (600 rows, 8 trees);
 6. transformer_agree: three float32 training steps of the CLI-width
@@ -45,6 +47,11 @@ exits nonzero without the final ``ok`` line:
     torch.profiler, with K1's and K2's shares of the device time;
 11. the kernels line, then ``{"ok": true, "device": {...}}``.
 
+``--flash-only`` runs phases 1, 2 and 4 and stops there, without the last
+two lines: the quick way to time K2, or to time another checkout's K2 by
+running a copy of this script from that checkout's root (a package that
+predates ``flash_plan`` reports no plan).
+
 It needs one CUDA card and the repository beside it; it writes the main
 paths' artifacts under har_tpu_torch/_build/chip_smoke/ (git-ignored).
 """
@@ -56,6 +63,7 @@ import csv
 import io
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -141,6 +149,9 @@ FLASH_TRAIN = dict(b=512, t=200, h=4, d=16)
 FLASH_PREDICT = dict(b=1182, t=200, h=4, d=16)
 FLASH_PACKED = dict(b=4096, t=25, h=8, d=32)
 FLASH_PACKED_PREDICT = dict(b=1184, t=25, h=8, d=32)
+# a T whose K and V pass the kernel's shared-memory budget: flash_plan
+# takes the streamed route
+FLASH_STREAMED = dict(b=2, t=4096, h=2, d=64)
 FLASH_CHECK_SHAPES = {
     "test_2x64x2x32": dict(b=2, t=64, h=2, d=32),
     "test_2x96x2x32": dict(b=2, t=96, h=2, d=32),
@@ -148,6 +159,13 @@ FLASH_CHECK_SHAPES = {
     "test_3x7x2x8": dict(b=3, t=7, h=2, d=8),
     # a time stride off 8 elements: the wrapper hands the kernel a copy
     "misaligned_2x25x2x16": dict(b=2, t=25, h=2, d=16, pad=4),
+    "cli_train": FLASH_TRAIN,
+    "cli_predict": FLASH_PREDICT,
+    "packed_train": FLASH_PACKED,
+    "packed_predict": FLASH_PACKED_PREDICT,
+    "streamed_2x4096x2x64": FLASH_STREAMED,
+}
+FLASH_TIME_SHAPES = {
     "cli_train": FLASH_TRAIN,
     "cli_predict": FLASH_PREDICT,
     "packed_train": FLASH_PACKED,
@@ -316,18 +334,43 @@ def phase_device() -> dict:
     return device
 
 
+# the kernels of har_tpu_torch/csrc, in a mangled name: base name and
+# template argument
+KERNEL_NAME = re.compile(
+    r"(flash_fwd_bf16_streamed|flash_fwd_bf16|flash_fwd_f32|hist_rows_kernel|hist_kernel)"
+    r"(?:ILi(\d+)E)?"
+)
+
+
+def ptxas_report(log: str) -> dict:
+    """ptxas's ``-v`` report per kernel instance: registers, spill stores
+    and loads (bytes) and static shared memory, keyed by the kernel's name
+    and template argument (``flash_fwd_bf16<16>``)."""
+    report, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            kernel = KERNEL_NAME.search(entry.group(1))
+            name = entry.group(1) if kernel is None else (
+                kernel.group(1) + (f"<{kernel.group(2)}>" if kernel.group(2) else "")
+            )
+            report[name] = {}
+        elif name and "spill stores" in line:
+            stores, loads = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                      line).groups()
+            report[name].update(spill_stores=int(stores), spill_loads=int(loads))
+        elif name and "Used" in line and "registers" in line:
+            report[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            report[name]["static_smem"] = int(smem.group(1)) if smem else 0
+    return report
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     libs = _build.build_all()
     seconds = time.perf_counter() - t0
-    ptxas = {
-        name: [
-            line.strip()
-            for line in _build.PTXAS_LOG.get(name, "").splitlines()
-            if "registers" in line or "spill" in line
-        ]
-        for name in libs
-    }
+    ptxas = {name: ptxas_report(_build.PTXAS_LOG.get(name, "")) for name in libs}
     emit("build", seconds=seconds, libraries=[p.name for p in libs.values()],
          ptxas=ptxas)
 
@@ -501,7 +544,8 @@ def phase_flash() -> dict:
                          with_lse=with_lse, **fields)
 
         timings = {}
-        for name, s in (("cli_train", FLASH_TRAIN), ("packed_train", FLASH_PACKED)):
+        plan = getattr(flash_ops, "flash_plan", None)
+        for name, s in FLASH_TIME_SHAPES.items():
             q, k, v = qkv_inputs(**s, dtype=torch.bfloat16, seed=3)
             out = flash_ops.flash_attention(q, k, v)
             torch.testing.assert_close(library_attention(q, k, v), out, rtol=1e-2, atol=1e-2)
@@ -509,13 +553,18 @@ def phase_flash() -> dict:
             timings[name] = dict(
                 shape=s,
                 dtype="bfloat16",
+                plan=None if plan is None else vars(
+                    plan(**s, sm_count=hist_ops.sm_count(q.device.index))
+                ),
                 kernel_ms=cuda_ms(lambda: flash_ops.flash_attention(q, k, v)),
+                kernel_graph_ms=graph_ms(lambda: flash_ops.flash_attention(q, k, v)),
                 plain_ms=cuda_ms(lambda: flash_ops.attention_with_lse_plain(q, k, v)),
                 library_ms=cuda_ms(lambda: library_attention(q, k, v)),
                 bound_ms=bound_ms,
                 bound_by=bound_by,
             )
             emit("flash_time", name=name, **timings[name])
+            del q, k, v, out
     return dict(max_abs_err=max_err, timings=timings)
 
 
@@ -777,6 +826,9 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int,
 def main(argv: list[str]) -> int:
     device = phase_device()
     phase_build()
+    if "--flash-only" in argv:
+        phase_flash()
+        return 0
     hist = phase_hist()
     hist_rows = phase_hist_rows()
     flash = phase_flash()
@@ -804,6 +856,7 @@ def main(argv: list[str]) -> int:
         kernel_entry(
             "flash_attention", "flash_attention.cu", "har_tpu/ops/flash_attention.py:56",
             sum(flash_launches.values()), flash, "cli_train",
+            graph_ms=flash["timings"]["cli_train"]["kernel_graph_ms"],
             launches_per_path=flash_launches,
         ),
     ]

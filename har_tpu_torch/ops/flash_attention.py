@@ -24,6 +24,21 @@ forward the JAX package writes in Pallas.  Public functions keep the JAX
   cotangent of ``lse``.
 - ``FLASH_LAUNCHES`` counts kernel launches, so a run can show that its
   attention went through the kernel.
+- :func:`flash_plan` plans each bfloat16 launch (the kernel refuses a plan
+  that disagrees with its own arithmetic).  On the *resident* route a
+  block owns one batch row and ``heads_per_block`` heads with all T query
+  rows of each, and loads their Q, K and V into shared memory once: it is
+  taken while one head's Q, K and V (rows padded to the 32-key chunk) fit
+  half of a Hopper SM's 227 KB, so two blocks share an SM; that holds for
+  T up to 800 at D = 16 and 128 at D = 128.  A group of several heads
+  gets 4 warps, each walking at most two 16-row tiles; the group is the
+  widest divisor of H that fits and still leaves two blocks per SM (8
+  heads of T = 25 give 4 heads a block).  One head alone takes up to
+  :func:`max_warps` warps (the kernel's launch bounds), as few as its
+  rounds of tiles allow (7 for T = 200).  Past the budget the *streamed*
+  route gives a block ``16 * warps`` query rows of one head and streams
+  32-key chunks of K and V through two shared-memory stages.  float32
+  launches take the kernel's own f32 route and no plan.
 
 The kernel's own limits are its guards, on every device: head dim a
 multiple of 8 up to 128, float32 or bfloat16, any T >= 1.  The JAX
@@ -35,12 +50,15 @@ note and in PERF.md.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
 import functools
 
 import torch
 
 from har_tpu_torch.ops import _build
+from har_tpu_torch.ops.hist import H100_SMS, sm_count
 
 # kernel launches since import (or since the caller last reset it)
 FLASH_LAUNCHES = 0
@@ -54,6 +72,86 @@ _BWD_BLOCK_K = 128
 _MAX_HEAD_DIM = 128
 _HEAD_DIM_MULTIPLE = 8
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# the bf16 kernel's plan: Hopper gives a block up to 227 KB of shared
+# memory and reserves 1 KB a block; a block takes at most half, so two
+# share an SM
+_SMEM_BYTES = 232_448
+_SMEM_BUDGET = _SMEM_BYTES // 2 - 1024
+_STATIC_SMEM_BYTES = 48 << 10  # a block takes this much without an attribute
+_ROW_TILE = 16  # query rows of a warp
+_GROUP_WARPS = 4  # warps of a block that holds several heads
+_KEY_CHUNK = 32  # keys per softmax update
+_STAGES = 2  # key chunks in flight on the streamed route
+_ROUTES = {"resident": 0, "streamed": 1}
+_INT_MAX = 2**31 - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashPlan:
+    """One bfloat16 launch of the kernel: its route (``"resident"`` or
+    ``"streamed"``), heads per block, warps per block, keys per softmax
+    update, dynamic shared memory in bytes and blocks in the grid."""
+
+    route: str
+    heads_per_block: int
+    warps: int
+    key_chunk: int
+    smem_bytes: int
+    grid: int
+
+
+def _padded_head_dim(d: int) -> int:
+    return next(p for p in (16, 32, 64, 128) if d <= p)
+
+
+def max_warps(d: int) -> int:
+    """Warps a block may have at head dim ``d`` (the kernel's launch
+    bounds): 7 at D <= 16, 8 up to 64, 4 above."""
+    dp = _padded_head_dim(d)
+    return 7 if dp <= 16 else 8 if dp <= 64 else 4
+
+
+@functools.cache
+def flash_plan(b: int, t: int, h: int, d: int, sm_count: int = H100_SMS) -> FlashPlan:
+    """The bf16 kernel's launch for q, k, v of shape (b, t, h, d) on a card
+    of ``sm_count`` SMs (see the module's note).  Shared rows are D padded
+    to 16, 32, 64 or 128, plus 16 bytes."""
+    if b * h > _INT_MAX:
+        raise ValueError(f"flash attention of {b * h} heads is past the grid's {_INT_MAX}")
+    row_bytes = (_padded_head_dim(d) + 8) * 2
+    tiles = -(-t // _ROW_TILE)
+    warps_cap = max_warps(d)
+    # a head's Q, K and V, rows padded to a multiple of the key chunk
+    head_bytes = 3 * -(-t // _KEY_CHUNK) * _KEY_CHUNK * row_bytes
+    if head_bytes <= _SMEM_BUDGET:
+        # several heads share a block of _GROUP_WARPS warps, two row tiles
+        # a warp; one head takes up to max_warps warps, in balanced rounds
+        groups = [
+            n for n in range(h, 1, -1)
+            if h % n == 0 and n * head_bytes <= _SMEM_BUDGET and n * tiles <= 2 * _GROUP_WARPS
+        ]
+        # the widest group that leaves two blocks per SM
+        hpb = next((n for n in groups if b * (h // n) >= 2 * sm_count), 1)
+        items = hpb * tiles
+        cap = warps_cap if hpb == 1 else _GROUP_WARPS
+        warps = -(-items // -(-items // cap))
+        plan = FlashPlan("resident", hpb, warps, _KEY_CHUNK, hpb * head_bytes, b * (h // hpb))
+    else:
+        # enough query blocks for one block per SM, none wider than the cap
+        # and none narrower than 4 warps (each re-reads the head's K and V)
+        q_blocks = max(-(-tiles // warps_cap),
+                       min(-(-tiles // 4), -(-sm_count // (b * h))))
+        warps = -(-tiles // q_blocks)
+        q_blocks = -(-tiles // warps)
+        smem = (_ROW_TILE * warps + 2 * _STAGES * _KEY_CHUNK) * row_bytes
+        plan = FlashPlan("streamed", 1, warps, _KEY_CHUNK, smem, b * h * q_blocks)
+    if plan.grid > _INT_MAX:
+        raise ValueError(
+            f"flash attention of shape {(b, t, h, d)} needs {plan.grid} blocks, "
+            f"past the grid's {_INT_MAX}"
+        )
+    return plan
 
 
 def attention_with_lse_plain(q, k, v):
@@ -138,14 +236,14 @@ def _kernel():
     fn = _build.load("flash_attention").har_flash_attention_launch
     fn.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9
-        + [ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
 
 
 def _aligned(x):
-    """``x``, or a contiguous copy where the kernel's 16-byte loads would
+    """``x``, or a contiguous copy where the kernel's 16-byte copies would
     not be aligned (a start off 16 bytes, a stride off 8 elements)."""
     if x.data_ptr() % 16 or any(s % _HEAD_DIM_MULTIPLE for s in x.stride()[:3]):
         return x.clone(memory_format=torch.contiguous_format)
@@ -172,13 +270,27 @@ def _launch(q, k, v, with_lse: bool):
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) if with_lse else None
     if out.numel() == 0:
         return out, lse
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _kernel()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(),
-        b, t, h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        _DTYPE_CODES[q.dtype], stream,
+    plan = (
+        flash_plan(b, t, h, d, sm_count(q.device.index))
+        if q.dtype == torch.bfloat16
+        else None
     )
+    plan_args = (
+        (_ROUTES[plan.route], plan.heads_per_block, plan.warps, plan.key_chunk,
+         plan.smem_bytes, plan.grid)
+        if plan is not None
+        else (0,) * 6
+    )
+    # past 48 KB of shared memory the C entry raises its kernel's limit on
+    # the current device, so the launch runs under the tensors' device
+    big = plan is not None and plan.smem_bytes > _STATIC_SMEM_BYTES
+    with torch.cuda.device(q.device) if big else contextlib.nullcontext():
+        err = _kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            b, t, h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            _DTYPE_CODES[q.dtype], *plan_args, torch.cuda.current_stream(q.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error {err}")
     FLASH_LAUNCHES += 1
