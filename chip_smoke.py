@@ -13,7 +13,8 @@ exits nonzero without the final ``ok`` line:
    the card: the dense kernel at the test shapes and the static-width
    shapes it served before the tree path moved to the row-sparse kernel,
    and the row-sparse kernel at the test shapes and every level shape of
-   the main path (each level at its live width); exact for integer
+   the main path (each level at its live width; at the full training
+   split and at a CV fold's 3,034 rows); exact for integer
    weights, rtol 1e-5 for random float32 weights; kernel, plain and
    one-hot-matmul times from CUDA events and the least time the card
    could take (and apart from it, the time of the output's zeroing where
@@ -43,9 +44,25 @@ exits nonzero without the final ``ok`` line:
 9. raw_packed: ``runner.run`` at the raw bench lane's widths (embed 256, 8
    heads, patch 8, window_pack 8, scanned layers, batch 4096, 25 epochs),
    with K2's launch count and its accuracy floor;
-10. with ``--profile`` only: one DT, one RF and one transformer fit under
-    torch.profiler, with K1's and K2's shares of the device time;
-11. the kernels line, then ``{"ok": true, "device": {...}}``.
+10. lr_agree: logistic regression's fit and its 9-point 5-fold sweep on a
+    noisy seeded table at the main path's width (3,793 x 730, 6 classes),
+    on the card and on the CPU: losses and objective within rtol 1e-5,
+    labels equal but for at most 0.1% of rows (the count printed),
+    avg_metrics within one validation row per fold, best_params equal;
+    the sweep's time from CUDA events and the line search's host reads;
+11. cv_agree: DT and RF (12 trees: one chunk of 8 and one of 4, the main
+    forest's launch shapes) CrossValidators over the default table's
+    training split, on the card and on the CPU: avg_metrics equal exactly
+    (K1 at the fold shapes);
+12. default_main: ``cli train --device cuda`` with no model flags (LR, DT
+    and RF, each with its 5-fold CrossValidator), with K1's launch count (7
+    fits a family: 385), its four artifacts, DT and DT-CV exactly
+    1494/1625, RF and RF-CV equal to main's RF, LR and LR-CV at or above
+    har_tpu's accuracy on the CPU for the same table;
+13. with ``--profile`` only: one DT, one RF and one transformer fit and
+    one default run under torch.profiler, with K1's and K2's shares of the
+    device time;
+14. the kernels line, then ``{"ok": true, "device": {...}}``.
 
 ``--flash-only`` runs phases 1, 2 and 4 and stops there, without the last
 two lines: the quick way to time K2, or to time another checkout's K2 by
@@ -70,6 +87,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -78,6 +96,9 @@ sys.path.insert(0, str(ROOT))
 from har_tpu_torch import cli, runner  # noqa: E402
 from har_tpu_torch.config import DataConfig, ModelConfig, RunConfig  # noqa: E402
 from har_tpu_torch.features.scaler import StandardScaler  # noqa: E402
+from har_tpu_torch.features.wisdm_pipeline import FeatureSet  # noqa: E402
+from har_tpu_torch.models import lbfgs  # noqa: E402
+from har_tpu_torch.models import logistic_regression as lr_ops  # noqa: E402
 from har_tpu_torch.models.forest import TREE_BATCH, RandomForestClassifier  # noqa: E402
 from har_tpu_torch.models.transformer import Transformer1D  # noqa: E402
 from har_tpu_torch.models.tree import DecisionTreeClassifier  # noqa: E402
@@ -86,6 +107,7 @@ from har_tpu_torch.ops import flash_attention as flash_ops  # noqa: E402
 from har_tpu_torch.ops import hist as hist_ops  # noqa: E402
 from har_tpu_torch.runner import featurize, load_dataset  # noqa: E402
 from har_tpu_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
+from har_tpu_torch.tuning import CrossValidator, kfold_indices, param_grid  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s,
 # and float32 adds/s outside the tensor cores (67 TFLOP/s counts an FMA
@@ -122,11 +144,16 @@ ROW_LEVEL_SHAPES = {
 }
 # the kernels line's headline shape: an RF chunk's deepest level
 RF_HEADLINE = f"rf_chunk_L{RF_DEPTH - 1}"
+# the default run's CV fold fits: a 5-fold split of the training rows
+# leaves 3,034 or 3,035 rows a fold fit
+CV_FOLDS = 5
+FOLD_N = N - math.ceil(N / CV_FOLDS)
 ROW_CHECK_SHAPES = {
     "test_300x7_b8_wc12_t3": dict(n=300, d=7, bins=8, wc=12, trees=3),
     "test_513x130_b4_wc6_t3": dict(n=513, d=130, bins=4, wc=6, trees=3),
     "test_257x9_b32_wc12_t3": dict(n=257, d=9, bins=32, wc=12, trees=3),
     **ROW_LEVEL_SHAPES,
+    **{f"fold_{name}": dict(s, n=FOLD_N) for name, s in ROW_LEVEL_SHAPES.items()},
 }
 # har_tpu on the CPU, same synthetic table and split: 1494 of 1625 right
 DT_EXPECTED_CORRECT, TEST_ROWS = 1494, 1625
@@ -176,6 +203,15 @@ FLASH_TIME_SHAPES = {
 # port's initial values and dropout come from other draws
 RAW_MAIN_MIN_ACCURACY = 0.95
 RAW_PACKED_MIN_ACCURACY = 0.95
+
+# har_tpu on the CPU, same table and split, `run(models=["lr"],
+# with_cv=True)`: LR and LR-CV both 1625/1625
+LR_MIN_ACCURACY = 1.0
+# lr_agree: card against CPU on the noisy table
+LR_LOSS_RTOL = 1e-5
+LR_MAX_LABEL_FLIPS = 0.001  # share of rows
+# cv_agree's forest: one chunk of TREE_BATCH trees and one of 4
+CV_AGREE_TREES = TREE_BATCH + 4
 
 
 def emit(phase: str, **fields) -> None:
@@ -652,12 +688,15 @@ def run_cli(argv: list[str]) -> dict:
     return json.loads(printed.getvalue().strip().splitlines()[-1])["accuracies"]
 
 
+ARTIFACTS = ("result.txt", "additional_param.csv", "timing.csv")
+
+
 def drive_path(name: str, out_dir: Path, drive, hist_rows: int = 0,
-               flash: int = 0) -> dict:
+               flash: int = 0, artifacts=ARTIFACTS) -> dict:
     """Drive one main path with every launch count set to 0 just before
     it and read just after: each kernel must launch exactly as often as
     expected (0 for a kernel off the path: the dense hist kernel is off
-    every path), and the run must write its three artifacts.  ``drive``
+    every path), and the run must write its artifacts.  ``drive``
     returns the accuracies."""
     torch.cuda.reset_peak_memory_stats()
     hist_ops.HIST_LAUNCHES = 0
@@ -669,7 +708,7 @@ def drive_path(name: str, out_dir: Path, drive, hist_rows: int = 0,
     launches = dict(hist=hist_ops.HIST_LAUNCHES, hist_rows=hist_ops.HIST_ROWS_LAUNCHES,
                     flash_attention=flash_ops.FLASH_LAUNCHES)
     expected = dict(hist=0, hist_rows=hist_rows, flash_attention=flash)
-    for artifact in ("result.txt", "additional_param.csv", "timing.csv"):
+    for artifact in artifacts:
         if not (out_dir / artifact).is_file():
             raise AssertionError(f"{name} wrote no {artifact}")
     with open(out_dir / "timing.csv", newline="") as f:
@@ -732,10 +771,120 @@ def phase_raw_packed() -> dict:
     )
     path = drive_path(
         "raw_packed", out_dir,
-        lambda: runner.run(config, models=["transformer"], device="cuda").accuracies,
+        lambda: runner.run(
+            config, models=["transformer"], with_cv=False, device="cuda"
+        ).accuracies,
         flash=expected_flash_launches(config),
     )
     check_floor("raw_packed", path["accuracies"]["transformer"], RAW_PACKED_MIN_ACCURACY)
+    return path
+
+
+def noisy_table(n: int, d: int, classes: int = 6, seed: int = 0,
+                noise: float = 8.0) -> FeatureSet:
+    """Class-conditional Gaussians under noise, the first half of the
+    columns sparse 0/1 (a one-hot block's shape): LR fits about 92% of
+    its training rows and its grid points stay apart."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, classes, n).astype(np.int32)
+    x = rng.normal(0.0, 1.0, (classes, d))[y] + rng.normal(0.0, noise, (n, d))
+    x[:, : d // 2] = rng.random((n, d // 2)) < 0.05
+    return FeatureSet(x.astype(np.float32), y)
+
+
+def phase_lr_agree() -> dict:
+    """LR's fit and its 9-point CV sweep on the card and on the CPU, at the
+    main path's width on a noisy table; the sweep timed from CUDA events
+    with the line search's host reads counted.  Both fits run the same
+    algorithm; only the order of float sums differs."""
+    data = noisy_table(N, D)
+    grid = param_grid(**runner.REFERENCE_GRIDS["logistic_regression"])
+    fits = {dev: lr_ops.LogisticRegression(device=dev).fit(data) for dev in ("cuda", "cpu")}
+    card, cpu = fits["cuda"], fits["cpu"]
+    loss_rel = float(np.max(np.abs(card.losses - cpu.losses) / np.abs(cpu.losses)))
+    objectives = [lr_ops.objective(m, data, 0.3) for m in (card, cpu)]
+    objective_rel = abs(objectives[0] - objectives[1]) / abs(objectives[1])
+    flips = int((card.transform(data).prediction != cpu.transform(data).prediction).sum())
+
+    folds = kfold_indices(len(data), CV_FOLDS, 2018)
+    sweeps, cv = {}, {}
+    for dev in ("cuda", "cpu"):
+        est = lr_ops.LogisticRegression(device=dev)
+        cv[dev] = CrossValidator(est, grid).fit(data)
+        if dev == "cuda":  # warm, then time one sweep alone
+            syncs = lbfgs.HOST_SYNCS
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            sweeps[dev] = est.cv_scores(data, folds, grid, "accuracy")
+            end.record()
+            end.synchronize()
+            sweep_ms, sweep_syncs = start.elapsed_time(end), lbfgs.HOST_SYNCS - syncs
+    one_row = float(np.mean([1.0 / len(v) for _, v in folds]))
+    avg_diff = float(np.max(np.abs(np.subtract(cv["cuda"].avg_metrics, cv["cpu"].avg_metrics))))
+    emit("lr_agree", rows=len(data), features=data.num_features,
+         losses_card=card.losses.tolist(), losses_cpu=cpu.losses.tolist(),
+         max_loss_rel_diff=loss_rel, objective_card=objectives[0],
+         objective_cpu=objectives[1], objective_rel_diff=objective_rel,
+         label_flips=flips, train_accuracy=float((cpu.transform(data).prediction == data.label).mean()),
+         avg_metrics_card=cv["cuda"].avg_metrics, avg_metrics_cpu=cv["cpu"].avg_metrics,
+         max_avg_metric_diff=avg_diff, one_validation_row=one_row,
+         best_params_card=cv["cuda"].best_params, best_params_cpu=cv["cpu"].best_params,
+         sweep_ms=sweep_ms, sweep_host_syncs=sweep_syncs, lanes_per_group=len(folds) * 3)
+    if not (loss_rel <= LR_LOSS_RTOL and objective_rel <= LR_LOSS_RTOL):
+        raise AssertionError("the card's LR fit disagrees with the CPU's")
+    if flips > LR_MAX_LABEL_FLIPS * len(data):
+        raise AssertionError(f"LR labels: {flips} of {len(data)} differ")
+    if avg_diff > one_row + 1e-6 or cv["cuda"].best_params != cv["cpu"].best_params:
+        raise AssertionError("the card's LR sweep disagrees with the CPU's")
+    return dict(sweep_ms=sweep_ms, sweep_host_syncs=sweep_syncs)
+
+
+def phase_cv_agree() -> None:
+    """DT and RF CrossValidators (5 fold fits and a refit each) on the card
+    and on the CPU over the default table's training split: K1 at the
+    fold shapes, so every fold's score must be equal."""
+    config = RunConfig()
+    train, _, _ = featurize(config, load_dataset(config))
+    out = {}
+    for est in (DecisionTreeClassifier(), RandomForestClassifier(num_trees=CV_AGREE_TREES)):
+        name = type(est).__name__
+        card = CrossValidator(est).fit(train)
+        cpu = CrossValidator(est.copy_with(device="cpu")).fit(train)
+        out[name] = dict(card=card.avg_metrics, cpu=cpu.avg_metrics)
+        if card.avg_metrics != cpu.avg_metrics:
+            raise AssertionError(f"{name} CV: card {card.avg_metrics} != CPU {cpu.avg_metrics}")
+    emit("cv_agree", rows=len(train), folds=CV_FOLDS, rf_trees=CV_AGREE_TREES,
+         avg_metrics=out, equal=True)
+
+
+def default_launches() -> int:
+    """K1 launches of the default run: each family fits once, once a fold
+    and once more to refit, each tree (or chunk of a forest) one launch a
+    level."""
+    dt, rf = DecisionTreeClassifier(), RandomForestClassifier()
+    fits = 1 + CV_FOLDS + 1
+    return fits * (dt.max_depth + math.ceil(rf.num_trees / TREE_BATCH) * rf.max_depth)
+
+
+def phase_default_main(rf_accuracy: float) -> dict:
+    """The reference's default command, ``train`` with no model flags: LR,
+    DT and RF, each followed by its 5-fold CrossValidator."""
+    out_dir = ROOT / "har_tpu_torch" / "_build" / "chip_smoke" / "default_main"
+    argv = ["train", "--device", "cuda", "--output-dir", str(out_dir)]
+    path = drive_path(
+        "default_main", out_dir, lambda: run_cli(argv), hist_rows=default_launches(),
+        artifacts=ARTIFACTS + ("crossFold_additional_param.csv",),
+    )
+    acc = path["accuracies"]
+    for name in ("decision_tree", "decision_tree_cv"):
+        if acc[name] != DT_EXPECTED_CORRECT / TEST_ROWS:
+            raise AssertionError(f"{name} accuracy {acc[name]} != 1494/1625")
+    for name in ("random_forest", "random_forest_cv"):
+        if acc[name] != rf_accuracy:
+            raise AssertionError(f"{name} accuracy {acc[name]} != main's {rf_accuracy}")
+    for name in ("logistic_regression", "logistic_regression_cv"):
+        check_floor(name, acc[name], LR_MIN_ACCURACY)
     return path
 
 
@@ -806,6 +955,9 @@ def phase_profile() -> None:
     train, _, _ = featurize(config, load_dataset(config))
     est = runner.build_estimator("transformer", {"epochs": 5}, "cuda")
     _profile_fit("Transformer1D (5 epochs)", lambda: est.fit(train))
+    out_dir = ROOT / "har_tpu_torch" / "_build" / "chip_smoke" / "default_profile"
+    argv = ["train", "--device", "cuda", "--output-dir", str(out_dir)]
+    _profile_fit("default train (lr dt rf, CV)", lambda: run_cli(argv))
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
@@ -837,17 +989,25 @@ def main(argv: list[str]) -> int:
     main_path = phase_main()
     raw_main = phase_raw_main()
     raw_packed = phase_raw_packed()
+    lr_agree = phase_lr_agree()
+    phase_cv_agree()
+    default_main = phase_default_main(main_path["accuracies"]["random_forest"])
     if "--profile" in argv:
         phase_profile()
     flash_launches = {
         name: path["launches"]["flash_attention"]
         for name, path in (("raw_main", raw_main), ("raw_packed", raw_packed))
     }
+    hist_rows_launches = {
+        name: path["launches"]["hist_rows"]
+        for name, path in (("main", main_path), ("default_main", default_main))
+    }
     kernels = [
         kernel_entry(
             "hist_rows", "hist.cu", "har_tpu/ops/pallas_hist.py:56",
-            main_path["launches"]["hist_rows"], hist_rows, RF_HEADLINE,
+            sum(hist_rows_launches.values()), hist_rows, RF_HEADLINE,
             graph_ms=hist_rows["timings"][RF_HEADLINE]["kernel_graph_ms"],
+            launches_per_path=hist_rows_launches,
         ),
         kernel_entry(
             "hist", "hist.cu", "har_tpu/ops/pallas_hist.py:56",

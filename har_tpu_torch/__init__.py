@@ -7,6 +7,6 @@ their first launch (``har_tpu_torch.ops._build``), never at import.
 
 Entry points run on ``cuda`` unless the caller asks for ``cpu``:
 
-    python -m har_tpu_torch.cli train --models dt rf --no-cv
+    python -m har_tpu_torch.cli train            # lr dt rf, each with CV
 """
 

@@ -2,12 +2,14 @@
 
 Mirrors ``har_tpu/cli.py``'s ``train`` for the ported families:
 
+  python -m har_tpu_torch.cli train                # lr dt rf, each with CV
+  python -m har_tpu_torch.cli train --device cpu
   python -m har_tpu_torch.cli train --models dt rf --no-cv
-  python -m har_tpu_torch.cli train --models dt --no-cv --device cpu
   python -m har_tpu_torch.cli train --dataset wisdm_raw --models transformer --no-cv
 
-It writes result.txt, additional_param.csv and timing.csv into
-``--output-dir`` and prints the accuracies and artifact paths as JSON.
+It writes result.txt, additional_param.csv, crossFold_additional_param.csv
+(with CV) and timing.csv into ``--output-dir`` and prints the accuracies
+and artifact paths as JSON.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import argparse
 import json
 import sys
 
-from har_tpu_torch.config import DataConfig, ModelConfig, RunConfig
+from har_tpu_torch.config import DataConfig, ModelConfig, RunConfig, TuningConfig
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -29,8 +31,8 @@ def _parser() -> argparse.ArgumentParser:
                    help="wisdm_raw = raw tri-axial windows (the view the "
                         "transformer trains on)")
     t.add_argument("--data-path", default=None)
-    t.add_argument("--models", nargs="+", default=["dt", "rf"],
-                   help="dt rf transformer (lr, gbt, mlp, cnn1d and bilstm "
+    t.add_argument("--models", nargs="+", default=["lr", "dt", "rf"],
+                   help="lr dt rf transformer (gbt, mlp, cnn1d and bilstm "
                         "are not ported yet)")
     t.add_argument("--train-fraction", type=float, default=0.7)
     t.add_argument("--seed", type=int, default=2018)
@@ -40,8 +42,10 @@ def _parser() -> argparse.ArgumentParser:
                         "randomSplit row-for-row (WISDM only); auto picks "
                         "it for the wisdm dataset")
     t.add_argument("--no-cv", action="store_true",
-                   help="skip the 5-fold CrossValidator pass (required: "
-                        "the pass is not ported yet)")
+                   help="skip the 5-fold CrossValidator pass")
+    t.add_argument("--cv-metric", default="accuracy",
+                   help="model-selection metric; 'mae' replicates the "
+                        "reference's evaluator quirk (SURVEY §2 N)")
     t.add_argument("--epochs", type=int, default=None)
     t.add_argument("--batch-size", type=int, default=None)
     t.add_argument("--learning-rate", type=float, default=None)
@@ -73,6 +77,7 @@ def main(argv=None) -> int:
             split_method=args.split_method,
         ),
         model=ModelConfig(name=models[0], params=neural_params),
+        tuning=TuningConfig(selection_metric=args.cv_metric),
         output_dir=args.output_dir,
     )
     outcome = run(config, models=models, with_cv=not args.no_cv, device=args.device)

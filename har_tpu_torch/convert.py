@@ -1,7 +1,8 @@
 """Carry fitted models across from the JAX package's arrays.
 
-A decision tree or forest fitted by ``har_tpu`` is plain numpy arrays
-(``TreeArrays`` and ``RandomForestModel`` fields), and a flax transformer's
+A logistic regression, decision tree or forest fitted by ``har_tpu`` is
+plain numpy arrays (``LogisticRegressionModel``, ``TreeArrays`` and
+``RandomForestModel`` fields), and a flax transformer's
 parameters are a tree of arrays; these functions build the port's models
 (or their state_dict) from them, so the same fitted state predicts on
 either package.  They take arrays, not ``har_tpu`` objects: the port never
@@ -15,7 +16,21 @@ import numpy as np
 import torch
 
 from har_tpu_torch.models.forest import RandomForestModel
+from har_tpu_torch.models.logistic_regression import LogisticRegressionModel
 from har_tpu_torch.models.tree import DecisionTreeModel, TreeArrays
+
+
+def logistic_regression_from_arrays(
+    coefficients, intercept, num_classes: int, device: str = "cuda"
+) -> LogisticRegressionModel:
+    """A LogisticRegressionModel from (d, C) coefficients and (C,)
+    intercepts in the unscaled feature space."""
+    return LogisticRegressionModel(
+        coefficients=np.array(coefficients, np.float32),
+        intercept=np.array(intercept, np.float32),
+        num_classes=int(num_classes),
+        device=str(device),
+    )
 
 
 def tree_from_arrays(

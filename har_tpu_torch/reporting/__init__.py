@@ -3,6 +3,7 @@
 from har_tpu_torch.reporting.ascii_table import show
 from har_tpu_torch.reporting.report import (
     CSV_HEADER,
+    CV_CSV_HEADER,
     ModelResult,
     ReportWriter,
 )
@@ -10,6 +11,7 @@ from har_tpu_torch.reporting.report import (
 __all__ = [
     "show",
     "CSV_HEADER",
+    "CV_CSV_HEADER",
     "ModelResult",
     "ReportWriter",
 ]

@@ -1,19 +1,19 @@
 """End-to-end pipeline runner: the reference's `main.py` flow on PyTorch.
 
-Port of ``har_tpu/runner.py::run`` for the tree families and the
-transformer:
+Port of ``har_tpu/runner.py::run`` for logistic regression, the tree
+families and the transformer:
 
 - tabular WISDM: load the table → report its schema, samples and summary
   → the one-hot feature pipeline → the Spark-exact 70/30 split → fit and
-  score each tree model;
+  score each model, then (CV on, the default) its 5-fold CrossValidator
+  over the reference's grid (LR's 9 points; ``{}`` for the others);
 - ``wisdm_raw``: synthetic raw windows → report their shape and class
   counts → the Bernoulli 70/30 split of the windows → fit and score the
   transformer;
 
-then result.txt, the metrics CSV and timing.csv.  Logistic regression,
-GBDT, the other neural families and the cross-validation pass are not
-ported yet; asking for them raises NotImplementedError naming the ROADMAP
-item that ports them.
+then result.txt, the metrics CSV, the cross-fold CSV and timing.csv.
+GBDT and the other neural families are not ported yet; asking for them
+raises NotImplementedError naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -37,12 +37,14 @@ from har_tpu_torch.features.wisdm_pipeline import (
     make_feature_set,
 )
 from har_tpu_torch.models.forest import RandomForestClassifier
+from har_tpu_torch.models.logistic_regression import LogisticRegression
 from har_tpu_torch.models.neural import MODEL_REGISTRY
 from har_tpu_torch.models.neural_classifier import NeuralClassifier
 from har_tpu_torch.models.tree import DecisionTreeClassifier
 from har_tpu_torch.ops.metrics import evaluate
 from har_tpu_torch.reporting import ModelResult, ReportWriter
 from har_tpu_torch.train.trainer import TrainerConfig
+from har_tpu_torch.tuning import CrossValidator, param_grid
 from har_tpu_torch.utils.profiling import StepTimer, write_timing_csv
 
 _ALIASES = {
@@ -53,6 +55,7 @@ _ALIASES = {
 }
 
 _ESTIMATORS = {
+    "logistic_regression": LogisticRegression,
     "decision_tree": DecisionTreeClassifier,
     "random_forest": RandomForestClassifier,
 }
@@ -63,7 +66,6 @@ _RAW_MODELS = ("cnn1d", "bilstm", "transformer")
 
 # families of the JAX package that later slices port (ROADMAP.md, Queue 1)
 _NOT_PORTED = {
-    "logistic_regression": "Queue 1 item 4 (logistic regression)",
     "gbdt": "Queue 1 item 8 (GBDT and ensembles)",
     "mlp": "Queue 1 item 9 (neural training)",
     "cnn1d": "Queue 1 item 9 (neural training)",
@@ -94,7 +96,8 @@ def _known_params() -> set[str]:
     } | {f.name for f in dataclasses.fields(TrainerConfig)} | {"augment"}
     for name in _NEURAL:
         known |= _neural_model_fields(name)
-    return known - {"device"}
+    # infrastructure fields, not hyperparameters
+    return known - {"device", "mesh"}
 
 
 def build_estimator(name: str, params: dict | None = None, device="cuda"):
@@ -133,6 +136,14 @@ def build_estimator(name: str, params: dict | None = None, device="cuda"):
     fields = {f.name for f in dataclasses.fields(cls)}
     kwargs = {k: v for k, v in params.items() if k in fields}
     return cls(**kwargs, device=str(device))
+
+
+# The reference's LR grid (Main/main.py:202-207); DT/RF grids are empty.
+REFERENCE_GRIDS = {
+    "logistic_regression": dict(
+        reg_param=[0.1, 0.3, 0.5], elastic_net_param=[0.0, 0.1, 0.2]
+    ),
+}
 
 
 def load_dataset(config: RunConfig):
@@ -251,26 +262,57 @@ class RunOutcome:
         return {r.name: float(r.metrics["accuracy"]) for r in self.results}
 
 
-def _spark_display_name(name: str, model) -> str:
-    """The model line Spark prints atop each block (reference
-    result.txt:231,276); the uid suffix is a deterministic hash of the job
-    name, as in the JAX package.  None for the neural families."""
+# (estimator class, pretty name) per ported classical family, for the
+# report's Spark-style model lines (result.txt:141,186,231,276)
+_SPARK_NAMES = {
+    "logistic_regression": ("LogisticRegression", "Logistic Regression"),
+    "decision_tree": ("DecisionTreeClassifier", "Decision Tree"),
+    "random_forest": ("RandomForestClassifier", "Random Forest"),
+}
+
+
+def _spark_display_name(name: str, model, is_cv: bool) -> str | None:
+    """The model line Spark prints atop each block: the estimator uid for
+    LR, the fitted model's repr for trees (result.txt:141,231,276) and
+    "CrossValidatorModel_<uid> for <family>" for CV (result.txt:186).  The
+    uid suffix is a deterministic hash of the job name, as in the JAX
+    package.  None for the neural families."""
+    base = name[: -len("_cv")] if name.endswith("_cv") else name
+    entry = _SPARK_NAMES.get(base)
+    if entry is None:
+        return None  # the neural families keep their own names
+    est_cls, pretty = entry
     uid = hashlib.sha1(name.encode()).hexdigest()[:20]
-    if name == "decision_tree":
+    if is_cv:
+        return f"CrossValidatorModel_{uid} for {pretty}"
+    if base == "decision_tree":
         return (
-            f"DecisionTreeClassificationModel (uid=DecisionTreeClassifier_"
-            f"{uid}) of depth {model.tree.max_depth} with {model.num_nodes} "
-            "nodes"
+            f"DecisionTreeClassificationModel (uid={est_cls}_{uid}) of "
+            f"depth {model.tree.max_depth} with {model.num_nodes} nodes"
         )
-    if name == "random_forest":
+    if base == "random_forest":
         return (
-            f"RandomForestClassificationModel (uid=RandomForestClassifier_"
-            f"{uid}) with {model.num_trees} trees"
+            f"RandomForestClassificationModel (uid={est_cls}_{uid}) "
+            f"with {model.num_trees} trees"
         )
-    return None  # the neural families keep their own names
+    return f"{est_cls}_{uid}"
 
 
-def _fit_eval(est, name, train, test, report, timer):
+def _cross_validator(config: RunConfig, name: str, est) -> CrossValidator:
+    """The CV pass after a plain fit: ``config.tuning``'s grid, folds and
+    metric where given, else the reference's grid, 5 folds and accuracy."""
+    tuning = config.tuning
+    grid = dict(tuning.grid) if tuning and tuning.grid else REFERENCE_GRIDS.get(name, {})
+    return CrossValidator(
+        estimator=est,
+        grid=param_grid(**grid),
+        num_folds=tuning.num_folds if tuning else 5,
+        selection_metric=tuning.selection_metric if tuning else "accuracy",
+        seed=config.data.seed,
+    )
+
+
+def _fit_eval(est, name, train, test, report, timer, is_cv=False):
     with timer(f"{name}_fit") as fit_sec:
         model = est.fit(train)
     with timer(f"{name}_transform") as tf_sec:
@@ -282,7 +324,8 @@ def _fit_eval(est, name, train, test, report, timer):
             metrics=metrics,
             train_time_s=fit_sec.seconds,
             test_time_s=tf_sec.seconds,
-            display_name=_spark_display_name(name, model),
+            is_cv=is_cv,
+            display_name=_spark_display_name(name, model, is_cv),
         )
         report.model_block(
             result, sample_text=report.prediction_sample(test, preds)
@@ -299,28 +342,28 @@ def _model_config(config: RunConfig, name: str) -> RunConfig:
 def run(
     config: RunConfig,
     models=None,
-    with_cv: bool = False,
+    with_cv: bool = True,
     device: str | torch.device = "cuda",
 ) -> RunOutcome:
-    """The reference pipeline for the ported families on ``device``."""
-    if with_cv:
-        raise NotImplementedError(
-            "the cross-validation pass is not ported to har_tpu_torch yet: "
-            "ROADMAP.md Queue 1 item 6 (tuning); run with with_cv=False"
-        )
+    """The reference pipeline for the ported families on ``device``: each
+    model's fit and, with ``with_cv``, its CrossValidator."""
     device = resolve_device(device)
     models = [
-        canonical_model_name(m) for m in (models or ["decision_tree", "random_forest"])
+        canonical_model_name(m)
+        for m in (
+            models or ["logistic_regression", "decision_tree", "random_forest"]
+        )
     ]
     estimators = [
         build_estimator(name, config.model.params, device) for name in models
     ]
     if (config.mesh.dp, config.mesh.tp) != (1, 1) and any(
-        name in _NEURAL for name in models
+        name in _NEURAL or name == "logistic_regression" for name in models
     ):
         raise NotImplementedError(
-            "data- and tensor-parallel neural training is not ported to "
-            "har_tpu_torch yet: ROADMAP.md Queue 1 item 14 (the parallel layer)"
+            "data- and tensor-parallel neural training and the mesh-sharded "
+            "LR sweep are not ported to har_tpu_torch yet: ROADMAP.md Queue 1 "
+            "item 14 (the parallel layer)"
         )
     # every model's feature view, resolved before any work: it raises for a
     # model that cannot run on this dataset, so the dataset fixes one view
@@ -372,10 +415,14 @@ def run(
         if not is_raw:
             report.split_sample_tables(table, feats, labels, train.rows, test.rows)
 
-    results = [
-        _fit_eval(est, name, train, test, report, timer)
-        for name, est in zip(models, estimators)
-    ]
+    results = []
+    for name, est in zip(models, estimators):
+        results.append(_fit_eval(est, name, train, test, report, timer))
+        if with_cv:
+            cv = _cross_validator(config, name, est)
+            results.append(
+                _fit_eval(cv, f"{name}_cv", train, test, report, timer, is_cv=True)
+            )
     with timer("report"):
         paths = report.save()
     paths["timing"] = write_timing_csv(
