@@ -59,10 +59,17 @@ exits nonzero without the final ``ok`` line:
     fits a family: 385), its four artifacts, DT and DT-CV exactly
     1494/1625, RF and RF-CV equal to main's RF, LR and LR-CV at or above
     har_tpu's accuracy on the CPU for the same table;
-13. with ``--profile`` only: one DT, one RF and one transformer fit and
-    one default run under torch.profiler, with K1's and K2's shares of the
-    device time;
-14. the kernels line, then ``{"ok": true, "device": {...}}``.
+13. parity_main: ``cli parity --device cuda`` (the bit-exact LR, LR-CV and
+    RF replays on the host, DT grown on the card), after building the
+    three host C++ libraries with g++ (its version and each build's time
+    printed): K1's launch count (DT's 3 levels), its three artifacts, the
+    accuracies har_tpu's parity run reaches on the CPU for the same table,
+    result.txt equal to a ``--device cpu`` run's outside the uid and timing
+    lines, and native/*.so byte-identical before and after the run;
+14. with ``--profile`` only: one DT, one RF and one transformer fit, one
+    default run and one parity run under torch.profiler, with K1's and
+    K2's shares of the device time;
+15. the kernels line, then ``{"ok": true, "device": {...}}``.
 
 ``--flash-only`` runs phases 1, 2 and 4 and stops there, without the last
 two lines: the quick way to time K2, or to time another checkout's K2 by
@@ -77,6 +84,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import hashlib
 import io
 import json
 import math
@@ -95,9 +103,11 @@ sys.path.insert(0, str(ROOT))
 
 from har_tpu_torch import cli, runner  # noqa: E402
 from har_tpu_torch.config import DataConfig, ModelConfig, RunConfig  # noqa: E402
+from har_tpu_torch.data import raw_loader  # noqa: E402
 from har_tpu_torch.features.scaler import StandardScaler  # noqa: E402
 from har_tpu_torch.features.wisdm_pipeline import FeatureSet  # noqa: E402
 from har_tpu_torch.models import lbfgs  # noqa: E402
+from har_tpu_torch.models import _jvm_native  # noqa: E402
 from har_tpu_torch.models import logistic_regression as lr_ops  # noqa: E402
 from har_tpu_torch.models.forest import TREE_BATCH, RandomForestClassifier  # noqa: E402
 from har_tpu_torch.models.transformer import Transformer1D  # noqa: E402
@@ -350,13 +360,18 @@ def rows_memset(out, chunks: int) -> dict:
                 memset_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
 
 
-def phase_device() -> dict:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
-    smi = subprocess.run(
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def phase_device() -> dict:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+    smi = nvidia_smi()
     print(smi, flush=True)
     device = {
         "platform": "gpu",
@@ -711,14 +726,16 @@ def drive_path(name: str, out_dir: Path, drive, hist_rows: int = 0,
     for artifact in artifacts:
         if not (out_dir / artifact).is_file():
             raise AssertionError(f"{name} wrote no {artifact}")
-    with open(out_dir / "timing.csv", newline="") as f:
-        timing = {row["section"]: float(row["seconds"]) for row in csv.DictReader(f)}
+    timing = None  # parity writes no timing.csv
+    if "timing.csv" in artifacts:
+        with open(out_dir / "timing.csv", newline="") as f:
+            timing = {row["section"]: float(row["seconds"]) for row in csv.DictReader(f)}
     emit(name, seconds=seconds, launches=launches, expected_launches=expected,
          accuracies=accuracies, timing=timing,
          peak_device_bytes=torch.cuda.max_memory_allocated())
     if launches != expected:
         raise AssertionError(f"{name}: launches {launches}, expected {expected}")
-    return dict(launches=launches, accuracies=accuracies)
+    return dict(launches=launches, accuracies=accuracies, seconds=seconds)
 
 
 def check_floor(name: str, accuracy: float, floor: float) -> None:
@@ -888,6 +905,92 @@ def phase_default_main(rf_accuracy: float) -> dict:
     return path
 
 
+# har_tpu's parity run on the CPU: synthetic_wisdm(5418), and the reference
+# CSV (the reference's printed accuracies, to the digits it prints)
+PARITY_SYNTHETIC = {
+    "logistic_regression": 1.0,
+    "logistic_regression_cv": 1.0,
+    "decision_tree": DT_EXPECTED_CORRECT / TEST_ROWS,
+    "random_forest": 1364 / TEST_ROWS,
+}
+PARITY_REFERENCE_CSV = {
+    "logistic_regression": 0.61477,
+    "logistic_regression_cv": 0.71446,
+    "decision_tree": 0.73046,
+    "random_forest": 0.632,
+}
+PARITY_ARTIFACTS = ("result.txt", "additional_param.csv", "crossFold_additional_param.csv")
+_UID = re.compile(r"_[0-9a-f]{20}\b")
+_TIMING = re.compile(r"(trained in|made in) -?[\d.eE-]+ seconds")
+
+
+def native_hashes() -> dict:
+    """sha256 of every library of the JAX package's native/ directory."""
+    return {p.name: hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted((ROOT / "native").glob("*.so"))}
+
+
+def _uid_and_timing_masked(path: Path) -> list[str]:
+    """Every line of the file, each uid and each timing replaced by a
+    fixed token, so the model lines (a tree's depth and node count) are
+    still compared."""
+    return [_TIMING.sub(r"\1 <t> seconds", _UID.sub("_<uid>", ln))
+            for ln in path.read_text().splitlines()]
+
+
+def _block_seconds(out_dir: Path) -> dict:
+    """Each parity block's training and testing seconds, from its CSVs."""
+    times = {}
+    for name in PARITY_ARTIFACTS[1:]:
+        with open(out_dir / name, newline="") as f:
+            for row in csv.DictReader(f):
+                train, test = (v for k, v in row.items() if k.endswith(("Training Time",
+                                                                         "Testing Time")))
+                times[row["Classifier"][:40]] = dict(train_s=float(train), test_s=float(test))
+    return times
+
+
+def phase_parity_main(native_before: dict) -> dict:
+    """``parity``: the host libraries built first (g++'s version and each
+    build's time), then the run on the card with K1's launches counted,
+    then the same command with ``--device cpu`` for the file comparison."""
+    gpp = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.splitlines()[0]
+    builds = {}
+    for lib in (raw_loader.NATIVE, _jvm_native.NATIVE):
+        lib.load()
+        builds[lib.path.name] = dict(seconds=lib.build_seconds, command=lib.command)
+    emit("native_build", gpp=gpp, libraries=builds)
+
+    out_dir = ROOT / "har_tpu_torch" / "_build" / "chip_smoke" / "parity_main"
+    cpu_dir = ROOT / "har_tpu_torch" / "_build" / "chip_smoke" / "parity_cpu"
+    argv = ["parity", "--output-dir"]
+    path = drive_path("parity_main", out_dir, lambda: run_cli(argv + [str(out_dir)]),
+                      hist_rows=DT_DEPTH, artifacts=PARITY_ARTIFACTS)
+    t0 = time.perf_counter()
+    cpu_accuracies = run_cli(argv + [str(cpu_dir), "--device", "cpu"])
+    cpu_seconds = time.perf_counter() - t0
+    expected = PARITY_SYNTHETIC if DataConfig().resolved_path() is None else PARITY_REFERENCE_CSV
+    acc = path["accuracies"]
+    rounded = acc if expected is PARITY_SYNTHETIC else {k: round(v, 5) for k, v in acc.items()}
+    same_file = _uid_and_timing_masked(out_dir / "result.txt") == _uid_and_timing_masked(
+        cpu_dir / "result.txt")
+    native_after = native_hashes()
+    emit("parity_main_checks", expected_accuracies=expected, cpu_accuracies=cpu_accuracies,
+         cpu_seconds=cpu_seconds, blocks_card=_block_seconds(out_dir),
+         blocks_cpu=_block_seconds(cpu_dir), result_txt_equal_to_cpu=same_file,
+         native_so_sha256=native_after, native_so_unchanged=native_after == native_before)
+    if rounded != expected or cpu_accuracies != acc:
+        raise AssertionError(f"parity accuracies {acc} (CPU {cpu_accuracies}) != {expected}")
+    if not same_file:
+        raise AssertionError("the card's parity result.txt differs from the CPU run's")
+    if native_after != native_before:
+        raise AssertionError(f"native/*.so changed: {native_before} -> {native_after}")
+    return dict(path, cpu_seconds=cpu_seconds, result_txt_equal_to_cpu=same_file,
+                native_so_unchanged=True,
+                build_seconds={name: b["seconds"] for name, b in builds.items()})
+
+
 def _profile_fit(label: str, fit) -> None:
     """One warm fit, one timed fit and one fit under torch.profiler:
     kernel time by name, the device's busy share, K1's row-sparse
@@ -945,8 +1048,9 @@ def _profile_fit(label: str, fit) -> None:
 
 
 def phase_profile() -> None:
-    """A DT and an RF fit at full width, and a 5-epoch fit of the CLI
-    transformer on the raw path's training windows (30 steps)."""
+    """A DT and an RF fit at full width, a 5-epoch fit of the CLI
+    transformer on the raw path's training windows (30 steps), the default
+    run and the parity run."""
     config = RunConfig()
     train, _, _ = featurize(config, load_dataset(config))
     for est in (DecisionTreeClassifier(), RandomForestClassifier()):
@@ -958,6 +1062,9 @@ def phase_profile() -> None:
     out_dir = ROOT / "har_tpu_torch" / "_build" / "chip_smoke" / "default_profile"
     argv = ["train", "--device", "cuda", "--output-dir", str(out_dir)]
     _profile_fit("default train (lr dt rf, CV)", lambda: run_cli(argv))
+    out_dir = ROOT / "har_tpu_torch" / "_build" / "chip_smoke" / "parity_profile"
+    argv = ["parity", "--device", "cuda", "--output-dir", str(out_dir)]
+    _profile_fit("parity (lr lr_cv dt rf)", lambda: run_cli(argv))
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
@@ -976,6 +1083,7 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int,
 
 
 def main(argv: list[str]) -> int:
+    native_before = native_hashes()
     device = phase_device()
     phase_build()
     if "--flash-only" in argv:
@@ -992,6 +1100,7 @@ def main(argv: list[str]) -> int:
     lr_agree = phase_lr_agree()
     phase_cv_agree()
     default_main = phase_default_main(main_path["accuracies"]["random_forest"])
+    parity_main = phase_parity_main(native_before)
     if "--profile" in argv:
         phase_profile()
     flash_launches = {
@@ -1000,7 +1109,8 @@ def main(argv: list[str]) -> int:
     }
     hist_rows_launches = {
         name: path["launches"]["hist_rows"]
-        for name, path in (("main", main_path), ("default_main", default_main))
+        for name, path in (("main", main_path), ("default_main", default_main),
+                           ("parity_main", parity_main))
     }
     kernels = [
         kernel_entry(
@@ -1021,6 +1131,10 @@ def main(argv: list[str]) -> int:
         ),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
+    # the newest paths' numbers once more, short, where a log that keeps
+    # only the end of the output still holds them
+    emit("summary", nvidia_smi=nvidia_smi(), default_main=default_main,
+         parity_main=parity_main)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 

@@ -1,15 +1,19 @@
 """`har` command-line interface of the PyTorch/CUDA port.
 
-Mirrors ``har_tpu/cli.py``'s ``train`` for the ported families:
+Mirrors ``har_tpu/cli.py``'s ``train`` for the ported families and its
+``parity``:
 
   python -m har_tpu_torch.cli train                # lr dt rf, each with CV
   python -m har_tpu_torch.cli train --device cpu
   python -m har_tpu_torch.cli train --models dt rf --no-cv
   python -m har_tpu_torch.cli train --dataset wisdm_raw --models transformer --no-cv
+  python -m har_tpu_torch.cli parity               # the bit-exact replays
+  python -m har_tpu_torch.cli parity --blocks dt --device cpu
 
-It writes result.txt, additional_param.csv, crossFold_additional_param.csv
-(with CV) and timing.csv into ``--output-dir`` and prints the accuracies
-and artifact paths as JSON.
+``train`` writes result.txt, additional_param.csv,
+crossFold_additional_param.csv (with CV) and timing.csv into
+``--output-dir``; ``parity`` writes the first three.  Both print the
+accuracies and artifact paths as JSON.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import json
 import sys
 
 from har_tpu_torch.config import DataConfig, ModelConfig, RunConfig, TuningConfig
+from har_tpu_torch.parity import BLOCKS
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -55,11 +60,37 @@ def _parser() -> argparse.ArgumentParser:
     t.add_argument("--output-dir", default="main_result")
     t.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
+
+    pa = sub.add_parser(
+        "parity",
+        help="reproduce the reference's result.txt byte-for-byte "
+             "(bit-exact MLlib replays: LR, LR-CV, DT, RF)",
+    )
+    pa.add_argument("--data-path", default=None)
+    pa.add_argument("--output-dir", default="parity_result")
+    pa.add_argument("--blocks", nargs="+", default=list(BLOCKS), choices=BLOCKS,
+                    help="which reference blocks to run (default: all four)")
+    pa.add_argument("--device", default="cuda",
+                    help="where DT grows: cuda (default) or cpu")
     return p
+
+
+def _parity(args) -> int:
+    from har_tpu_torch.parity import parity_run
+
+    config = None
+    if args.data_path is not None:
+        config = RunConfig(data=DataConfig(dataset="wisdm", path=args.data_path))
+    out = parity_run(args.output_dir, config=config, blocks=tuple(args.blocks),
+                     device=args.device)
+    print(json.dumps(out))
+    return 0
 
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
+    if args.command == "parity":
+        return _parity(args)
     from har_tpu_torch.runner import canonical_model_name, run
 
     models = [canonical_model_name(m) for m in args.models]

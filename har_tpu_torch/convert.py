@@ -2,8 +2,9 @@
 
 A logistic regression, decision tree or forest fitted by ``har_tpu`` is
 plain numpy arrays (``LogisticRegressionModel``, ``TreeArrays`` and
-``RandomForestModel`` fields), and a flax transformer's
-parameters are a tree of arrays; these functions build the port's models
+``RandomForestModel`` fields), as are its bit-exact MLlib replays
+(``MLlibLRModel``'s fields and each ``MLlibRFModel`` node's), and a flax
+transformer's parameters are a tree of arrays; these functions build the port's models
 (or their state_dict) from them, so the same fitted state predicts on
 either package.  They take arrays, not ``har_tpu`` objects: the port never
 imports the JAX package.  The arrays are copied (JAX hands out read-only
@@ -17,6 +18,9 @@ import torch
 
 from har_tpu_torch.models.forest import RandomForestModel
 from har_tpu_torch.models.logistic_regression import LogisticRegressionModel
+from har_tpu_torch.models.mllib_exact import ExactModel
+from har_tpu_torch.models.mllib_lr import MLlibLRModel
+from har_tpu_torch.models.mllib_rf import MLlibRFModel, _Node
 from har_tpu_torch.models.tree import DecisionTreeModel, TreeArrays
 
 
@@ -70,6 +74,46 @@ def forest_from_arrays(
         num_classes=leaf_probs.shape[-1],
         device=str(device),
     )
+
+
+def mllib_lr_from_arrays(
+    coefficient_matrix, intercepts, objective_history=()
+) -> ExactModel:
+    """The exact LR replay's model from its (k, d) original-space
+    coefficients and (k,) intercepts, float64 and unrounded."""
+    coef = np.array(coefficient_matrix, np.float64)
+    inner = MLlibLRModel(
+        coefficient_matrix=coef,
+        intercepts=np.array(intercepts, np.float64),
+        objective_history=tuple(float(v) for v in objective_history),
+    )
+    return ExactModel(inner=inner, num_classes=coef.shape[0])
+
+
+# the fields of one node of an MLlib RF tree, in _Node's order
+MLLIB_NODE_FIELDS = ("id", "is_leaf", "feature", "threshold", "split_bin", "stats")
+
+
+def mllib_rf_from_arrays(trees, num_classes: int) -> ExactModel:
+    """The exact RF replay's model from per-tree node arrays: each tree a
+    mapping of ``MLLIB_NODE_FIELDS`` to (nodes,) arrays (``stats``
+    (nodes, C) weighted class counts), in the tree's node order."""
+    port_trees = []
+    for tree in trees:
+        cols = {f: np.asarray(tree[f]) for f in MLLIB_NODE_FIELDS}
+        port_trees.append({
+            int(cols["id"][i]): _Node(
+                id=int(cols["id"][i]),
+                stats=np.array(cols["stats"][i], np.float64),
+                is_leaf=bool(cols["is_leaf"][i]),
+                feature=int(cols["feature"][i]),
+                threshold=float(cols["threshold"][i]),
+                split_bin=int(cols["split_bin"][i]),
+            )
+            for i in range(len(cols["id"]))
+        })
+    inner = MLlibRFModel(trees=port_trees, num_classes=int(num_classes))
+    return ExactModel(inner=inner, num_classes=int(num_classes), dense_input=True)
 
 
 # flax submodule of an EncoderBlock -> the port's EncoderBlock attribute

@@ -3,9 +3,9 @@
 Replaces the reference's ``com.databricks.spark.csv`` read (reference
 Main/main.py:18-20): header row, full-pass schema inference, typed columns.
 
-A native C++ fast path (native/csvloader.cpp via har_tpu/data/native_loader,
-loaded through ctypes) parses files on worker threads when the toolchain is
-available; the pure-Python path is authoritative and always available.
+The file is parsed in Python: the only CSV the system reads is the
+5,418-row WISDM table, where a native parser's first-use build would cost
+more than it saves.
 """
 
 from __future__ import annotations

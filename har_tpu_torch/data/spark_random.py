@@ -121,6 +121,26 @@ def bernoulli_draws(n: int, seed: int, partition_index: int = 0) -> np.ndarray:
     )
 
 
+def py2_string_hash(s: str) -> int:
+    """CPython 2's 64-bit str hash (signed).
+
+    PySpark params default their ``seed`` to ``hash(type(self).__name__)``
+    — e.g. pyspark.ml.tuning.CrossValidator's fold assignment runs SQL
+    ``rand(hash('CrossValidator'))``.  Python 2 (the reference's 2019-era
+    client) hashes strings with this deterministic algorithm; Python 3
+    randomizes, so replaying the committed run means replaying py2's.
+    """
+    if not s:
+        return 0
+    x = (ord(s[0]) << 7) & _M64
+    for ch in s:
+        x = ((1000003 * x) ^ ord(ch)) & _M64
+    x ^= len(s)
+    if x == _M64:  # CPython maps -1 to -2
+        x = _M64 - 1
+    return x - (1 << 64) if x >= (1 << 63) else x
+
+
 def java_string_hash(s: str) -> int:
     """java.lang.String.hashCode (signed 32-bit)."""
     h = 0

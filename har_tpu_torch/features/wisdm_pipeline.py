@@ -38,8 +38,8 @@ class FeatureSet:
     # split paths, in sampled-stream order) — lets the report render the
     # reference's train/test show(5) tables; None once re-indexed
     rows: np.ndarray | None = None
-    # float64 sparse design for the bit-exact MLlib replay estimators in
-    # the JAX package; those are not ported yet, so it stays None here
+    # float64 sparse design for the bit-exact MLlib replay estimators
+    # (models/mllib_exact.py), attached by the spark-exact split
     exact: object | None = None
 
     def __len__(self) -> int:

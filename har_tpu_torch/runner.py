@@ -27,9 +27,10 @@ import numpy as np
 import torch
 
 from har_tpu_torch.config import RunConfig
+from har_tpu_torch.data.raw_loader import load_raw_stream, stream_windows
 from har_tpu_torch.data.raw_windows import WindowedDataset, synthetic_raw_stream
 from har_tpu_torch.data.synthetic import synthetic_wisdm
-from har_tpu_torch.data.wisdm import load_wisdm
+from har_tpu_torch.data.wisdm import ACTIVITIES, load_wisdm
 from har_tpu_torch.device import resolve_device
 from har_tpu_torch.features.wisdm_pipeline import (
     FeatureSet,
@@ -148,15 +149,12 @@ REFERENCE_GRIDS = {
 
 def load_dataset(config: RunConfig):
     """The WISDM table (the CSV when a path resolves, else the same-shape
-    synthetic table), or for ``wisdm_raw`` the synthetic raw windows."""
+    synthetic table), or for ``wisdm_raw`` the raw windows (of the stream
+    at ``--data-path``, else synthetic)."""
     data = config.data
     if data.dataset == "wisdm_raw":
         if data.path is not None:
-            raise NotImplementedError(
-                "reading a raw WISDM stream (--data-path) needs the native "
-                "raw parser, which is not ported to har_tpu_torch yet: "
-                "ROADMAP.md Queue 1 item 1 (data/raw_loader.py)"
-            )
+            return load_raw_windows(data.path)
         return synthetic_raw_stream(
             n_windows=effective_synthetic_rows(data), seed=data.seed
         )
@@ -169,6 +167,21 @@ def load_dataset(config: RunConfig):
     if data.dataset == "wisdm" and path is not None:
         return load_wisdm(path, drop_binned=data.drop_binned)
     return synthetic_wisdm(n_rows=effective_synthetic_rows(data), seed=data.seed)
+
+
+def load_raw_windows(path: str) -> WindowedDataset:
+    """A real ``WISDM_ar_v1.1_raw.txt`` through the native parser, cut into
+    200-sample windows per (user, activity) bout; labels follow the
+    canonical WISDM order when the stream's activity names are WISDM's."""
+    stream = load_raw_stream(path)
+    ds = stream_windows(stream)
+    # parser ids are first-appearance order
+    if set(stream.activity_names) <= set(ACTIVITIES):
+        remap = np.asarray(
+            [ACTIVITIES.index(n) for n in stream.activity_names], np.int32
+        )
+        ds = WindowedDataset(ds.windows, remap[ds.labels], class_names=ACTIVITIES)
+    return ds
 
 
 def _feature_mode(config: RunConfig) -> str:
@@ -210,14 +223,26 @@ def resolve_split_method(data) -> str:
 def derive_split(full: FeatureSet, table, data) -> tuple[FeatureSet, FeatureSet]:
     """THE train/test derivation for the tabular WISDM view."""
     if resolve_split_method(data) == "spark":
-        from har_tpu_torch.data.spark_split import spark_split_indices
+        from har_tpu_torch.data.spark_split import assemble_rows, spark_split_indices
+        from har_tpu_torch.models.mllib_exact import DeferredExactDesign
 
+        asm = assemble_rows(table)
         train_idx, test_idx = spark_split_indices(
-            table, [data.train_fraction, 1.0 - data.train_fraction], data.seed
+            table, [data.train_fraction, 1.0 - data.train_fraction], data.seed,
+            rows=asm,
         )
+        # the float64 design of the bit-exact replays, packed only if one
+        # runs; the dict shares the full table's CSR between the two sides
+        shared: dict = {}
         return (
-            dataclasses.replace(full.take(train_idx), rows=train_idx),
-            dataclasses.replace(full.take(test_idx), rows=test_idx),
+            dataclasses.replace(
+                full.take(train_idx), rows=train_idx,
+                exact=DeferredExactDesign(shared, asm, train_idx),
+            ),
+            dataclasses.replace(
+                full.take(test_idx), rows=test_idx,
+                exact=DeferredExactDesign(shared, asm, test_idx),
+            ),
         )
     return full.train_test(data.train_fraction, data.seed)
 

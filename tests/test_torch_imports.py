@@ -40,6 +40,9 @@ def test_port_has_files():
         "har_tpu_torch/models/transformer.py",
         "har_tpu_torch/train/trainer.py",
         "har_tpu_torch/runner.py",
+        "har_tpu_torch/parity.py",
+        "har_tpu_torch/models/mllib_exact.py",
+        "har_tpu_torch/data/_native_build.py",
     ):
         assert required in names
 

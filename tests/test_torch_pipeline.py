@@ -86,7 +86,13 @@ def test_featurize_split_identical(tables, dataset):
         np.testing.assert_array_equal(a.label, b.label)
         np.testing.assert_array_equal(a.uid, b.uid)
         assert a.class_names == b.class_names
-    assert pte.exact is None
+        # the spark split attaches the replays' float64 design, as JAX's does
+        assert (a.exact is None) == (b.exact is None) == (dataset != "wisdm")
+        if a.exact is not None:
+            for field in ("indices", "values", "indptr"):
+                np.testing.assert_array_equal(getattr(a.exact.x, field), getattr(b.exact.x, field))
+            np.testing.assert_array_equal(a.exact.label, b.exact.label)
+            np.testing.assert_array_equal(a.exact.uid, b.exact.uid)
 
 
 def test_csv_roundtrip_equal(tmp_path, tables):

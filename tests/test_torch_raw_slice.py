@@ -158,8 +158,17 @@ def test_cli_without_gpu_raises(tmp_path, monkeypatch, small_raw_dataset):
     [
         ("wisdm_raw", ["dt"], None, NotImplementedError),  # raw_features
         ("wisdm", ["transformer"], None, ValueError),  # needs raw windows
-        ("wisdm_raw", ["transformer"], "raw.txt", NotImplementedError),  # parser
+        # the native raw parser reads --data-path: a missing file raises
+        ("wisdm_raw", ["transformer"], "raw.txt", FileNotFoundError),
         ("wisdm_raw", ["cnn1d"], None, NotImplementedError),
+    ],
+    # ids fixed: the parser case was named for NotImplementedError before
+    # the raw parser was ported
+    ids=[
+        "wisdm_raw-models0-None-NotImplementedError",
+        "wisdm-models1-None-ValueError",
+        "wisdm_raw-models2-raw.txt-NotImplementedError",
+        "wisdm_raw-models3-None-NotImplementedError",
     ],
 )
 def test_unported_or_impossible_combinations_raise(tmp_path, dataset, models, path, error):
