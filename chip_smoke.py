@@ -66,10 +66,35 @@ exits nonzero without the final ``ok`` line:
     accuracies har_tpu's parity run reaches on the CPU for the same table,
     result.txt equal to a ``--device cpu`` run's outside the uid and timing
     lines, and native/*.so byte-identical before and after the run;
-14. with ``--profile`` only: one DT, one RF and one transformer fit, one
-    default run and one parity run under torch.profiler, with K1's and
-    K2's shares of the device time;
-15. the kernels line, then ``{"ok": true, "device": {...}}``.
+14. gbdt_hist: K1's row-sparse kernel at every boosted-tree level shape
+    (2K = 12 channels: g and h of 6 class trees; live width 1-16; d 13
+    and 43; B 32) against its plain version: small integer weights bit
+    for bit (the int32 path), signed float gradients and hessians within
+    rtol 1e-5 plus 1e-5 times each element's sum of |w| (the float path);
+    kernel times (CUDA events and graph), plain and one-call index_add_
+    times, the byte bound and the zeroing;
+15. gbdt_main: ``cli train --models gbt --no-cv --device cuda`` (K1
+    launches: rounds x depth = 500, none of the dense kernel or K2, an
+    accuracy floor below har_tpu's), the same with ``--device cpu`` (card
+    labels against CPU labels, an agreement floor), then ``--models gbt``
+    with its CV (7 fits, 3,500 launches);
+16. raw_features_main: the 43 features of the raw path's 4,000 windows on
+    the card against the CPU (histogram columns exact), then ``cli train
+    --dataset wisdm_raw --models dt gbt --no-cv`` (503 launches, floors);
+17. neural_agree: three float32 steps (dropout 0) of the MLP, the CNN1D
+    (max/layer and stride/rms) and the BiLSTM (bf16_stream) at the CLI's
+    widths on the card and on the CPU: losses within rtol 1e-5, logits
+    within 1e-4;
+18. neural_main: ``cli train --models mlp --no-cv`` (the numeric view),
+    and on ``--dataset wisdm_raw`` the CNN1D (with and without ``--augment
+    raw_windows``) and the BiLSTM, at the CLI's widths and 60 epochs: no
+    K1 or K2 launch, accuracy floors below har_tpu's, train time and peak
+    memory;
+19. with ``--profile`` only: one DT, one RF and one transformer fit, one
+    default run, one parity run, one GBDT fit and a 2-epoch BiLSTM fit
+    under torch.profiler, with K1's and K2's shares of the device time;
+20. the kernels line (K1's launches over every path that grows trees),
+    a short ``summary`` line, then ``{"ok": true, "device": {...}}``.
 
 ``--flash-only`` runs phases 1, 2 and 4 and stops there, without the last
 two lines: the quick way to time K2, or to time another checkout's K2 by
@@ -109,7 +134,10 @@ from har_tpu_torch.features.wisdm_pipeline import FeatureSet  # noqa: E402
 from har_tpu_torch.models import lbfgs  # noqa: E402
 from har_tpu_torch.models import _jvm_native  # noqa: E402
 from har_tpu_torch.models import logistic_regression as lr_ops  # noqa: E402
+from har_tpu_torch.features.raw_features import extract_features  # noqa: E402
 from har_tpu_torch.models.forest import TREE_BATCH, RandomForestClassifier  # noqa: E402
+from har_tpu_torch.models.gbdt import GradientBoostedTreesClassifier  # noqa: E402
+from har_tpu_torch.models.neural import build_model  # noqa: E402
 from har_tpu_torch.models.transformer import Transformer1D  # noqa: E402
 from har_tpu_torch.models.tree import DecisionTreeClassifier  # noqa: E402
 from har_tpu_torch.ops import _build  # noqa: E402
@@ -222,6 +250,37 @@ LR_LOSS_RTOL = 1e-5
 LR_MAX_LABEL_FLIPS = 0.001  # share of rows
 # cv_agree's forest: one chunk of TREE_BATCH trees and one of 4
 CV_AGREE_TREES = TREE_BATCH + 4
+
+# boosted trees: each level of a round is one hist_rows launch with 2K
+# channels (g and h of each class tree) at the level's live width; d is 13
+# on the synthetic table's numeric view, 43 on the raw windows' features
+# (and on the real CSV's view with its binned columns)
+GBDT = GradientBoostedTreesClassifier()
+GBDT_CHANNELS = 2 * C
+GBDT_LAUNCHES = GBDT.num_rounds * GBDT.max_depth
+GBDT_LEVEL_SHAPES = {
+    f"gbdt_d{d}_L{level}": dict(n=N, d=d, bins=GBDT.max_bins, wc=2**level,
+                               trees=GBDT_CHANNELS)
+    for d in (13, 43) for level in range(GBDT.max_depth)
+}
+# the kernel against its plain version at float weights: each element
+# within rtol 1e-5 plus 1e-5 times its own sum of |w| (the float atomics
+# add in any order; an element of k rows rounds by about sqrt(k) ulps of
+# that sum)
+GBDT_HIST_RTOL, GBDT_HIST_ATOL_PER_ABS_SUM = 1e-5, 1e-5
+# har_tpu on the CPU (raw_accuracy_band.py, PERF.md §2): gbt 1.0 on the
+# synthetic table; on the raw windows' features dt 0.92978 (1,099/1,182)
+# and gbt 1.0; the floors sit below
+GBT_MIN_ACCURACY = 0.995
+RAW_DT_MIN_ACCURACY = 0.9
+# card against CPU: the card's float atomics sum the level histograms in
+# another order, so an exact tie between two splits may break the other way
+GBT_MIN_LABEL_AGREEMENT = 0.99
+# the neural paths' floors, below har_tpu's own accuracy for the same
+# command on the CPU (raw_accuracy_band.py, PERF.md §2)
+MLP_MIN_ACCURACY = 0.95
+CNN1D_MIN_ACCURACY = 0.95
+BILSTM_MIN_ACCURACY = 0.95
 
 
 def emit(phase: str, **fields) -> None:
@@ -469,8 +528,9 @@ def phase_hist_rows() -> dict:
     """The row-sparse kernel against ``hist_rows_plain`` at the test
     shapes and every main-path level shape: integer weights bit for bit,
     float32 weights within rtol 1e-5 (its merges add in any order); then
-    kernel, plain and one-hot-matmul times at each level shape, the
-    matmul's dense ``m`` built outside the timed region."""
+    kernel, plain, one-hot-matmul and one-call index_add_ times at each
+    level shape, the matmul's dense ``m`` and the index_add_'s index
+    built outside the timed region."""
     torch.backends.cuda.matmul.allow_tf32 = False
     max_err = 0.0
     for name, s in ROW_CHECK_SHAPES.items():
@@ -501,6 +561,9 @@ def phase_hist_rows() -> dict:
         m = dense_m(slot, w, wc)
         if not torch.equal(library_hist(b, m, bins), out):
             raise AssertionError(f"one-hot matmul disagrees with hist_rows at {name}")
+        index, values = index_add_inputs(b, slot, w, wc, bins)
+        if not torch.equal(library_index_add(index, values, out.numel()).view_as(out), out):
+            raise AssertionError(f"index_add_ disagrees with hist_rows at {name}")
         bound_ms, bound_by = rows_bound(b, slot, w, out)
         plan = hist_ops.rows_plan(s["n"], s["d"], bins, wc, s["trees"],
                                   hist_ops.sm_count(b.device.index))
@@ -511,12 +574,13 @@ def phase_hist_rows() -> dict:
             kernel_graph_ms=graph_ms(lambda: hist_ops.hist_rows(b, slot, w, wc, bins)),
             plain_ms=cuda_ms(lambda: hist_ops.hist_rows_plain(b, slot, w, wc, bins)),
             library_ms=cuda_ms(lambda: library_hist(b, m, bins)),
+            index_add_ms=cuda_ms(lambda: library_index_add(index, values, out.numel())),
             bound_ms=bound_ms,
             bound_by=bound_by,
             **rows_memset(out, plan[3]),
         )
         emit("hist_rows_time", name=name, **timings[name])
-        del m
+        del m, index, values
     return dict(max_abs_err=max_err, timings=timings)
 
 
@@ -735,7 +799,8 @@ def drive_path(name: str, out_dir: Path, drive, hist_rows: int = 0,
          peak_device_bytes=torch.cuda.max_memory_allocated())
     if launches != expected:
         raise AssertionError(f"{name}: launches {launches}, expected {expected}")
-    return dict(launches=launches, accuracies=accuracies, seconds=seconds)
+    return dict(launches=launches, accuracies=accuracies, seconds=seconds, timing=timing,
+                peak_device_bytes=torch.cuda.max_memory_allocated())
 
 
 def check_floor(name: str, accuracy: float, floor: float) -> None:
@@ -991,6 +1056,266 @@ def phase_parity_main(native_before: dict) -> dict:
                 build_seconds={name: b["seconds"] for name, b in builds.items()})
 
 
+def gbdt_row_inputs(n, d, bins, wc, trees, integer=False, seed=0):
+    """bins, slot and weight as a boosted-tree level hands them to the
+    row-sparse kernel: channels 2k and 2k+1 share tree k's node of each
+    row (every 11th row out of the level, slot -1); weights are the
+    gradient (p − onehot, of both signs) and the hessian (p·(1−p)) of a
+    random p, or with ``integer`` small counts in [0, 3], which the
+    kernel sums in int32."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b = torch.randint(0, bins, (n, d), generator=g, device="cuda", dtype=torch.int32)
+    node = torch.randint(0, wc, (trees // 2, n), generator=g, device="cuda")
+    node[:, ::11] = -1
+    slot = node.repeat_interleave(2, dim=0).to(torch.int32)
+    if integer:
+        w = torch.randint(0, 4, (trees, n), generator=g, device="cuda").float()
+    else:
+        p = torch.rand((trees // 2, n), generator=g, device="cuda")
+        onehot = (torch.rand((trees // 2, n), generator=g, device="cuda") < 1 / 6).float()
+        h = torch.clamp(p * (1 - p), min=1e-6)
+        w = torch.stack([p - onehot, h], dim=1).reshape(trees, n)
+    return b, slot, w
+
+
+def index_add_inputs(b, slot, w, wc, bins):
+    """The flattened (T·wc·d·B) output index and the value of every (kept
+    row, feature) pair: the one-call yardstick's inputs, built outside
+    its timed region."""
+    d = b.shape[1]
+    keep = (w != 0) & (slot >= 0) & (slot < wc)
+    t_idx, r_idx = keep.nonzero(as_tuple=True)
+    features = torch.arange(d, device=b.device)
+    row_slot = t_idx * wc + slot[t_idx, r_idx].long()
+    index = ((row_slot[:, None] * d + features) * bins + b[r_idx].long()).reshape(-1)
+    values = w[t_idx, r_idx][:, None].expand(-1, d).reshape(-1)
+    return index, values
+
+
+def library_index_add(index, values, size: int):
+    """One PyTorch call computing the row-sparse histogram, as a
+    yardstick the port never calls: index_add_ into a zeroed output."""
+    return torch.zeros(size, device=values.device).index_add_(0, index, values)
+
+
+def assert_float_hist_close(name, got, want, abs_sum) -> float:
+    """The float tolerance of the row-sparse kernel (GBDT_HIST_*); returns
+    the largest difference over the allowed one."""
+    allowed = GBDT_HIST_RTOL * want.abs() + GBDT_HIST_ATOL_PER_ABS_SUM * abs_sum
+    excess = float(((got - want).abs() / allowed.clamp(min=1e-30)).max())
+    if not excess <= 1.0:
+        raise AssertionError(f"{name}: float histogram off by {excess} of its tolerance")
+    return excess
+
+
+def phase_gbdt_hist() -> dict:
+    """The row-sparse kernel at every boosted-tree level shape (2K = 12
+    channels, live width 1-16, d 13 and 43): small integer weights bit
+    for bit (the int32 path), signed float weights within the stated
+    tolerance (the float path); then kernel (CUDA events and a CUDA
+    graph), plain and one-call index_add_ times, the byte bound and the
+    output's zeroing."""
+    max_err = 0.0
+    timings = {}
+    for name, s in GBDT_LEVEL_SHAPES.items():
+        wc, bins = s["wc"], s["bins"]
+        b, slot, w = gbdt_row_inputs(**s, integer=True, seed=1)
+        got = hist_ops.hist_rows(b, slot, w, wc, bins)
+        want = hist_ops.hist_rows_plain(b, slot, w, wc, bins)
+        torch.cuda.synchronize()
+        int_diff = float((got - want).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"hist_rows {name}: integer weights differ by {int_diff}")
+        b, slot, w = gbdt_row_inputs(**s, seed=2)
+        got = hist_ops.hist_rows(b, slot, w, wc, bins)
+        want = hist_ops.hist_rows_plain(b, slot, w, wc, bins)
+        abs_sum = hist_ops.hist_rows_plain(b, slot, w.abs(), wc, bins)
+        excess = assert_float_hist_close(f"hist_rows {name}", got, want, abs_sum)
+        f32_diff = float((got - want).abs().max())
+        max_err = max(max_err, int_diff, f32_diff)
+        emit("gbdt_hist_check", shape=name, **s, max_abs_diff_int=int_diff,
+             max_abs_diff_f32=f32_diff, share_of_tolerance_f32=excess)
+
+        b, slot, w = gbdt_row_inputs(**s, seed=3)
+        out = hist_ops.hist_rows(b, slot, w, wc, bins)
+        index, values = index_add_inputs(b, slot, w, wc, bins)
+        library = library_index_add(index, values, out.numel()).view_as(out)
+        assert_float_hist_close(f"index_add_ {name}", library, out,
+                                hist_ops.hist_rows_plain(b, slot, w.abs(), wc, bins))
+        bound_ms, bound_by = rows_bound(b, slot, w, out)
+        plan = hist_ops.rows_plan(s["n"], s["d"], bins, wc, s["trees"],
+                                  hist_ops.sm_count(b.device.index))
+        timings[name] = dict(
+            shape=s,
+            plan=plan,
+            kernel_ms=cuda_ms(lambda: hist_ops.hist_rows(b, slot, w, wc, bins)),
+            kernel_graph_ms=graph_ms(lambda: hist_ops.hist_rows(b, slot, w, wc, bins)),
+            plain_ms=cuda_ms(lambda: hist_ops.hist_rows_plain(b, slot, w, wc, bins)),
+            library_ms=cuda_ms(lambda: library_index_add(index, values, out.numel())),
+            bound_ms=bound_ms,
+            bound_by=bound_by,
+            **rows_memset(out, plan[3]),
+        )
+        emit("gbdt_hist_time", name=name, **timings[name])
+    return dict(max_abs_err=max_err, timings=timings)
+
+
+@contextlib.contextmanager
+def recorded_labels():
+    """The predicted labels of every model a run scores, in its order
+    (``runner.evaluate`` wrapped)."""
+    seen = []
+    evaluate = runner.evaluate
+
+    def record(label, raw, num_classes):
+        seen.append(np.asarray(raw).argmax(-1))
+        return evaluate(label, raw, num_classes)
+
+    runner.evaluate = record
+    try:
+        yield seen
+    finally:
+        runner.evaluate = evaluate
+
+
+def phase_gbdt_main() -> dict:
+    """``train --models gbt --no-cv`` on the card (every level one
+    hist_rows launch: rounds x depth), the same command on the CPU (card
+    labels against CPU labels), then the default CV pass (7 fits)."""
+    out_dir = ROOT / "har_tpu_torch" / "_build" / "chip_smoke" / "gbdt_main"
+    cpu_dir = ROOT / "har_tpu_torch" / "_build" / "chip_smoke" / "gbdt_cpu"
+    cv_dir = ROOT / "har_tpu_torch" / "_build" / "chip_smoke" / "gbdt_cv_main"
+    argv = ["train", "--models", "gbt", "--output-dir"]
+    with recorded_labels() as card_labels:
+        path = drive_path("gbdt_main", out_dir,
+                          lambda: run_cli(argv + [str(out_dir), "--no-cv", "--device", "cuda"]),
+                          hist_rows=GBDT_LAUNCHES)
+    t0 = time.perf_counter()
+    with recorded_labels() as cpu_labels:
+        cpu_accuracies = run_cli(argv + [str(cpu_dir), "--no-cv", "--device", "cpu"])
+    cpu_seconds = time.perf_counter() - t0
+    agreement = float((card_labels[0] == cpu_labels[0]).mean())
+    emit("gbdt_main_checks", cpu_accuracies=cpu_accuracies, cpu_seconds=cpu_seconds,
+         label_agreement=agreement, test_rows=len(card_labels[0]))
+    check_floor("gbdt", path["accuracies"]["gbdt"], GBT_MIN_ACCURACY)
+    if agreement < GBT_MIN_LABEL_AGREEMENT:
+        raise AssertionError(f"GBDT labels: card and CPU agree on {agreement}")
+    cv = drive_path("gbdt_cv_main", cv_dir,
+                    lambda: run_cli(argv + [str(cv_dir), "--device", "cuda"]),
+                    hist_rows=(1 + CV_FOLDS + 1) * GBDT_LAUNCHES,
+                    artifacts=ARTIFACTS + ("crossFold_additional_param.csv",))
+    for name in ("gbdt", "gbdt_cv"):
+        check_floor(name, cv["accuracies"][name], GBT_MIN_ACCURACY)
+    return dict(path, cpu_seconds=cpu_seconds, label_agreement=agreement, cv=cv)
+
+
+def phase_raw_features_main() -> dict:
+    """The 43 features of the raw path's 4,000 windows on the card against
+    the CPU (histogram columns exact, the rest within 1e-5), then ``train
+    --dataset wisdm_raw --models dt gbt --no-cv``: DT's and GBDT's levels
+    on hist_rows."""
+    windows = torch.as_tensor(
+        load_dataset(RunConfig(data=DataConfig(dataset="wisdm_raw"))).windows
+    )
+    card = extract_features(windows.cuda())
+    cpu = extract_features(windows)
+    card_host = card.cpu()
+    hist_equal = torch.equal(card_host[:, :30], cpu[:, :30])
+    rest_diff = float((card_host[:, 30:] - cpu[:, 30:]).abs().max())
+    windows_cuda = windows.cuda()
+    emit("raw_features_check", windows=list(windows.shape), histogram_columns_equal=hist_equal,
+         max_abs_diff_other=rest_diff,
+         extract_ms=cuda_ms(lambda: extract_features(windows_cuda)))
+    if not hist_equal:
+        raise AssertionError("raw features: the card's histogram columns differ")
+    torch.testing.assert_close(card_host[:, 30:], cpu[:, 30:], rtol=1e-5, atol=1e-5)
+    out_dir = ROOT / "har_tpu_torch" / "_build" / "chip_smoke" / "raw_features_main"
+    argv = ["train", "--dataset", "wisdm_raw", "--models", "dt", "gbt", "--no-cv",
+            "--device", "cuda", "--output-dir", str(out_dir)]
+    path = drive_path("raw_features_main", out_dir, lambda: run_cli(argv),
+                      hist_rows=DT_DEPTH + GBDT_LAUNCHES)
+    check_floor("raw decision_tree", path["accuracies"]["decision_tree"], RAW_DT_MIN_ACCURACY)
+    check_floor("raw gbdt", path["accuracies"]["gbdt"], GBT_MIN_ACCURACY)
+    return path
+
+
+NEURAL_AGREE_CASES = {
+    "mlp": ("mlp", {}),
+    "cnn1d_max_layer": ("cnn1d", dict(pool="max", norm="layer")),
+    "cnn1d_stride_rms": ("cnn1d", dict(pool="stride", norm="rms")),
+    "bilstm_bf16_stream": ("bilstm", dict(bf16_stream=True)),
+}
+
+
+def phase_neural_agree() -> dict:
+    """Three float32 training steps (dropout 0) of each family at the
+    CLI's widths on the card and on the CPU from the same initial values
+    and batches: losses within rtol 1e-5, logits within 1e-4 (TF32 off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    raw = load_dataset(RunConfig(data=DataConfig(dataset="wisdm_raw", synthetic_rows=64)))
+    inputs = {
+        "raw": (StandardScaler().fit(raw.windows).transform(raw.windows), raw.labels),
+    }
+    config = RunConfig(model=ModelConfig(name="mlp"), data=DataConfig(synthetic_rows=600))
+    tab, _, _ = featurize(config, load_dataset(config))
+    inputs["tabular"] = (StandardScaler().fit(tab.features).transform(tab.features)[:64],
+                         tab.label[:64])
+    cfg = TrainerConfig(batch_size=64, epochs=3, learning_rate=1e-3)
+    out = {}
+    for case, (family, kw) in NEURAL_AGREE_CASES.items():
+        x, y = inputs["tabular" if family == "mlp" else "raw"]
+        kw = dict(kw, dtype="float32", dropout_rate=0.0, in_features=x.shape[-1])
+        init = build_model(family, 6, **kw).state_dict()
+        fits = {
+            device: Trainer(build_model(family, 6, **kw), cfg, device=device).fit(
+                x, y, num_classes=6, init_params=init)
+            for device in ("cuda", "cpu")
+        }
+        card, cpu = fits["cuda"], fits["cpu"]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card.history["loss"],
+                                                          cpu.history["loss"]))
+        logits = [f.predict_logits(x[:32]) for f in (card, cpu)]
+        logit_diff = float(abs(logits[0] - logits[1]).max())
+        out[case] = dict(max_loss_rel_diff=loss_rel, max_logit_diff=logit_diff)
+        emit("neural_agree", case=case, steps=3, losses_card=card.history["loss"],
+             losses_cpu=cpu.history["loss"], **out[case])
+        if not (loss_rel <= 1e-5 and logit_diff <= 1e-4):
+            raise AssertionError(f"{case}: the card's steps disagree with the CPU's")
+    return out
+
+
+# the neural paths at the CLI's widths and 60 epochs: (name, argv, model,
+# accuracy floor)
+NEURAL_PATHS = (
+    ("mlp_main", ["train", "--models", "mlp", "--no-cv"], "mlp", MLP_MIN_ACCURACY),
+    ("cnn1d_main", ["train", "--dataset", "wisdm_raw", "--models", "cnn1d", "--no-cv"],
+     "cnn1d", CNN1D_MIN_ACCURACY),
+    ("cnn1d_augment_main", ["train", "--dataset", "wisdm_raw", "--models", "cnn1d",
+                            "--no-cv", "--augment", "raw_windows"],
+     "cnn1d", CNN1D_MIN_ACCURACY),
+    ("bilstm_main", ["train", "--dataset", "wisdm_raw", "--models", "bilstm", "--no-cv"],
+     "bilstm", BILSTM_MIN_ACCURACY),
+)
+
+
+def phase_neural_main() -> dict:
+    """The MLP on the table's numeric view, the CNN1D (with and without
+    augmentation) and the BiLSTM on the raw windows, each through the CLI
+    on the card: no K1 or K2 launch, an accuracy floor, the train time
+    and peak memory."""
+    out = {}
+    for name, argv, model, floor in NEURAL_PATHS:
+        out_dir = ROOT / "har_tpu_torch" / "_build" / "chip_smoke" / name
+        full = argv + ["--device", "cuda", "--output-dir", str(out_dir)]
+        path = drive_path(name, out_dir, lambda: run_cli(full))
+        check_floor(name, path["accuracies"][model], floor)
+        out[name] = dict(accuracy=path["accuracies"][model], seconds=path["seconds"],
+                         fit_s=path["timing"][f"{model}_fit"],
+                         peak_device_bytes=path["peak_device_bytes"])
+    return out
+
+
 def _profile_fit(label: str, fit) -> None:
     """One warm fit, one timed fit and one fit under torch.profiler:
     kernel time by name, the device's busy share, K1's row-sparse
@@ -1050,7 +1375,8 @@ def _profile_fit(label: str, fit) -> None:
 def phase_profile() -> None:
     """A DT and an RF fit at full width, a 5-epoch fit of the CLI
     transformer on the raw path's training windows (30 steps), the default
-    run and the parity run."""
+    run, the parity run, a GBDT fit on the table's numeric view and a
+    2-epoch BiLSTM fit (12 steps)."""
     config = RunConfig()
     train, _, _ = featurize(config, load_dataset(config))
     for est in (DecisionTreeClassifier(), RandomForestClassifier()):
@@ -1065,19 +1391,28 @@ def phase_profile() -> None:
     out_dir = ROOT / "har_tpu_torch" / "_build" / "chip_smoke" / "parity_profile"
     argv = ["parity", "--device", "cuda", "--output-dir", str(out_dir)]
     _profile_fit("parity (lr lr_cv dt rf)", lambda: run_cli(argv))
+    config = RunConfig(model=ModelConfig(name="gbdt"))
+    train, _, _ = featurize(config, load_dataset(config))
+    _profile_fit("GradientBoostedTrees (numeric view)", lambda: GBDT.fit(train))
+    config = RunConfig(data=DataConfig(dataset="wisdm_raw"), model=ModelConfig(name="bilstm"))
+    train, _, _ = featurize(config, load_dataset(config))
+    est = runner.build_estimator("bilstm", {"epochs": 2}, "cuda")
+    _profile_fit("BiLSTM (2 epochs)", lambda: est.fit(train))
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
-                 checked: dict, shape: str, **extra) -> dict:
+                 checked: dict, shape: str, library: str = "library_ms",
+                 **extra) -> dict:
     """One kernel's entry of the kernels line: its main-path launches, its
-    largest difference from the plain version and its times at ``shape``."""
+    largest difference from the plain version and its times at ``shape``
+    (``library`` names the timing of the one PyTorch call)."""
     t = checked["timings"][shape]
     return dict(
         name=name, route="cuda", source=f"har_tpu_torch/csrc/{source}",
         replaces=replaces, launches=launches, max_abs_err=checked["max_abs_err"],
         max_abs_diff=checked["max_abs_err"], ms=t["kernel_ms"],
         kernel_ms=t["kernel_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-        bound_by=t["bound_by"], library_ms=t["library_ms"], shape=shape,
+        bound_by=t["bound_by"], library_ms=t[library], shape=shape,
         per_shape=checked["timings"], **extra,
     )
 
@@ -1101,6 +1436,11 @@ def main(argv: list[str]) -> int:
     phase_cv_agree()
     default_main = phase_default_main(main_path["accuracies"]["random_forest"])
     parity_main = phase_parity_main(native_before)
+    gbdt_hist = phase_gbdt_hist()
+    gbdt_main = phase_gbdt_main()
+    raw_features_main = phase_raw_features_main()
+    neural_agree = phase_neural_agree()
+    neural_main = phase_neural_main()
     if "--profile" in argv:
         phase_profile()
     flash_launches = {
@@ -1110,12 +1450,20 @@ def main(argv: list[str]) -> int:
     hist_rows_launches = {
         name: path["launches"]["hist_rows"]
         for name, path in (("main", main_path), ("default_main", default_main),
-                           ("parity_main", parity_main))
+                           ("parity_main", parity_main), ("gbdt_main", gbdt_main),
+                           ("gbdt_cv_main", gbdt_main["cv"]),
+                           ("raw_features_main", raw_features_main))
     }
+    rows_checked = dict(
+        max_abs_err=max(hist_rows["max_abs_err"], gbdt_hist["max_abs_err"]),
+        timings={**hist_rows["timings"], **gbdt_hist["timings"]},
+    )
     kernels = [
         kernel_entry(
             "hist_rows", "hist.cu", "har_tpu/ops/pallas_hist.py:56",
-            sum(hist_rows_launches.values()), hist_rows, RF_HEADLINE,
+            sum(hist_rows_launches.values()), rows_checked, RF_HEADLINE,
+            library="index_add_ms",
+            onehot_matmul_ms=hist_rows["timings"][RF_HEADLINE]["library_ms"],
             graph_ms=hist_rows["timings"][RF_HEADLINE]["kernel_graph_ms"],
             launches_per_path=hist_rows_launches,
         ),
@@ -1133,8 +1481,16 @@ def main(argv: list[str]) -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     # the newest paths' numbers once more, short, where a log that keeps
     # only the end of the output still holds them
-    emit("summary", nvidia_smi=nvidia_smi(), default_main=default_main,
-         parity_main=parity_main)
+    emit("summary", nvidia_smi=nvidia_smi(),
+         default_main={k: default_main[k] for k in ("launches", "accuracies", "seconds")},
+         parity_main={k: parity_main[k] for k in ("launches", "accuracies", "seconds")},
+         gbdt_main=dict(launches=gbdt_main["launches"], accuracies=gbdt_main["accuracies"],
+                        seconds=gbdt_main["seconds"], cpu_seconds=gbdt_main["cpu_seconds"],
+                        label_agreement=gbdt_main["label_agreement"],
+                        cv_launches=gbdt_main["cv"]["launches"],
+                        cv_seconds=gbdt_main["cv"]["seconds"]),
+         raw_features_main={k: raw_features_main[k] for k in ("launches", "accuracies")},
+         neural_agree=neural_agree, neural_main=neural_main)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 

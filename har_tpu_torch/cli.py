@@ -7,6 +7,9 @@ Mirrors ``har_tpu/cli.py``'s ``train`` for the ported families and its
   python -m har_tpu_torch.cli train --device cpu
   python -m har_tpu_torch.cli train --models dt rf --no-cv
   python -m har_tpu_torch.cli train --dataset wisdm_raw --models transformer --no-cv
+  python -m har_tpu_torch.cli train --models gbt mlp
+  python -m har_tpu_torch.cli train --dataset wisdm_raw --models cnn1d bilstm dt gbt
+  python -m har_tpu_torch.cli train --dataset wisdm_raw --models cnn1d --augment raw_windows
   python -m har_tpu_torch.cli parity               # the bit-exact replays
   python -m har_tpu_torch.cli parity --blocks dt --device cpu
 
@@ -34,11 +37,11 @@ def _parser() -> argparse.ArgumentParser:
     t.add_argument("--dataset", default="wisdm",
                    choices=["wisdm", "wisdm_raw", "synthetic"],
                    help="wisdm_raw = raw tri-axial windows (the view the "
-                        "transformer trains on)")
+                        "cnn1d/bilstm/transformer models train on; the "
+                        "others train on their 43 WISDM features)")
     t.add_argument("--data-path", default=None)
     t.add_argument("--models", nargs="+", default=["lr", "dt", "rf"],
-                   help="lr dt rf transformer (gbt, mlp, cnn1d and bilstm "
-                        "are not ported yet)")
+                   help="lr dt rf gbt mlp cnn1d bilstm transformer")
     t.add_argument("--train-fraction", type=float, default=0.7)
     t.add_argument("--seed", type=int, default=2018)
     t.add_argument("--split-method", default="auto",
@@ -54,6 +57,10 @@ def _parser() -> argparse.ArgumentParser:
     t.add_argument("--epochs", type=int, default=None)
     t.add_argument("--batch-size", type=int, default=None)
     t.add_argument("--learning-rate", type=float, default=None)
+    t.add_argument("--augment", default=None, choices=["raw_windows", "none"],
+                   help="augmentation inside the train step (raw (T,3) "
+                        "window models): jitter, per-axis scale, 3-D "
+                        "rotation, time masking")
     t.add_argument("--class-weight", default=None, choices=["balanced"],
                    help="reweigh the neural loss by inverse class "
                         "frequency (minority activities pull equally)")
@@ -96,7 +103,8 @@ def main(argv=None) -> int:
     models = [canonical_model_name(m) for m in args.models]
     neural_params = {
         k: getattr(args, k)
-        for k in ("epochs", "batch_size", "learning_rate", "class_weight")
+        for k in ("epochs", "batch_size", "learning_rate", "class_weight",
+                  "augment")
         if getattr(args, k) is not None
     }
     config = RunConfig(

@@ -1,11 +1,12 @@
 """Carry fitted models across from the JAX package's arrays.
 
-A logistic regression, decision tree or forest fitted by ``har_tpu`` is
-plain numpy arrays (``LogisticRegressionModel``, ``TreeArrays`` and
-``RandomForestModel`` fields), as are its bit-exact MLlib replays
-(``MLlibLRModel``'s fields and each ``MLlibRFModel`` node's), and a flax
-transformer's parameters are a tree of arrays; these functions build the port's models
-(or their state_dict) from them, so the same fitted state predicts on
+A logistic regression, decision tree, forest or boosted-tree ensemble
+fitted by ``har_tpu`` is plain numpy arrays (``LogisticRegressionModel``,
+``TreeArrays``, ``RandomForestModel`` and ``GradientBoostedTreesModel``
+fields), as are its bit-exact MLlib replays (``MLlibLRModel``'s fields and
+each ``MLlibRFModel`` node's), and a flax model's parameters (transformer,
+MLP, CNN1D, BiLSTM) are a tree of arrays; these functions build the port's
+models (or their state_dict) from them, so the same fitted state predicts on
 either package.  They take arrays, not ``har_tpu`` objects: the port never
 imports the JAX package.  The arrays are copied (JAX hands out read-only
 views).
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from har_tpu_torch.models.forest import RandomForestModel
+from har_tpu_torch.models.gbdt import GradientBoostedTreesModel
 from har_tpu_torch.models.logistic_regression import LogisticRegressionModel
 from har_tpu_torch.models.mllib_exact import ExactModel
 from har_tpu_torch.models.mllib_lr import MLlibLRModel
@@ -72,6 +74,24 @@ def forest_from_arrays(
         leaf_probs=leaf_probs,
         max_depth=int(max_depth),
         num_classes=leaf_probs.shape[-1],
+        device=str(device),
+    )
+
+
+def gbdt_from_arrays(
+    feature, split_bin, leaf_value, thresholds, learning_rate: float,
+    max_depth: int, num_classes: int, device: str = "cuda",
+) -> GradientBoostedTreesModel:
+    """A GradientBoostedTreesModel from (rounds, K, nodes) feature,
+    split_bin and leaf_value arrays and the (d, B-1) thresholds."""
+    return GradientBoostedTreesModel(
+        feature=np.array(feature, np.int32),
+        split_bin=np.array(split_bin, np.int32),
+        leaf_value=np.array(leaf_value, np.float32),
+        thresholds=np.array(thresholds, np.float32),
+        learning_rate=float(learning_rate),
+        max_depth=int(max_depth),
+        num_classes=int(num_classes),
         device=str(device),
     )
 
@@ -176,4 +196,54 @@ def transformer_params_from_flax(params) -> dict:
             convert(f"blocks.{i}.{port_name}", block[flax_name], out)
     _norm("norm", params["LayerNorm_0"], out)
     _dense("head", params["head"], out)
+    return _state_dict(out)
+
+
+def _state_dict(out: dict) -> dict:
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+
+
+def mlp_params_from_flax(params) -> dict:
+    """The port's ``MLP`` state_dict from a flax ``MLP`` parameter tree:
+    ``Dense_0 .. Dense_{L-1}`` are the hidden layers, the last the head."""
+    count = sum(1 for key in params if key.startswith("Dense_"))
+    out: dict = {}
+    for i in range(count - 1):
+        _dense(f"layers.{i}", params[f"Dense_{i}"], out)
+    _dense("head", params[f"Dense_{count - 1}"], out)
+    return _state_dict(out)
+
+
+def cnn1d_params_from_flax(params) -> dict:
+    """The port's ``CNN1D`` state_dict from a flax ``CNN1D`` parameter
+    tree: each ``ConvBlock_i``'s conv kernel (k, in, out) becomes torch's
+    (out, in, k), its ``LayerNorm_0`` or ``RMSNorm_0`` the block's norm;
+    ``Dense_0`` and ``Dense_1`` are the hidden and the output layer."""
+    out: dict = {}
+    i = 0
+    while f"ConvBlock_{i}" in params:
+        block = params[f"ConvBlock_{i}"]
+        out[f"blocks.{i}.weight"] = _leaf(block["Conv_0"]["kernel"]).transpose(2, 1, 0)
+        out[f"blocks.{i}.bias"] = _leaf(block["Conv_0"]["bias"])
+        if "LayerNorm_0" in block:
+            _norm(f"blocks.{i}.norm", block["LayerNorm_0"], out)
+        elif "RMSNorm_0" in block:
+            out[f"blocks.{i}.norm.weight"] = _leaf(block["RMSNorm_0"]["scale"])
+        i += 1
+    _dense("fc", params["Dense_0"], out)
+    _dense("head", params["Dense_1"], out)
+    return _state_dict(out)
+
+
+def bilstm_params_from_flax(params) -> dict:
+    """The port's ``BiLSTM`` state_dict from a flax ``BiLSTM`` parameter
+    tree: each ``FusedBiLSTMLayer_i``'s ``wx``, ``wh`` and ``bias`` keep
+    their shapes; ``Dense_0`` is the head."""
+    out: dict = {}
+    i = 0
+    while f"FusedBiLSTMLayer_{i}" in params:
+        for name in ("wx", "wh", "bias"):
+            out[f"layers.{i}.{name}"] = _leaf(params[f"FusedBiLSTMLayer_{i}"][name])
+        i += 1
+    _dense("head", params["Dense_0"], out)
+    return _state_dict(out)

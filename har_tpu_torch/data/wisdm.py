@@ -9,6 +9,8 @@ features, 3 string PEAK features, and the ACTIVITY label.
 
 from __future__ import annotations
 
+import numpy as np
+
 from har_tpu_torch.data.csv_loader import read_csv
 from har_tpu_torch.data.table import Table
 
@@ -59,3 +61,29 @@ def load_wisdm(
         drops.extend(BINNED_COLUMNS)
     return table.drop(drops) if drops else table
 
+
+
+def numeric_feature_view(
+    table: Table,
+    include_binned: bool = False,
+    missing_value: float = -1.0,
+) -> tuple[np.ndarray, tuple[str, ...]]:
+    """The *numeric* reading of the WISDM features: the 10 numeric columns,
+    then the PEAK columns parsed as floats ('?' and '' →
+    ``missing_value``) instead of one-hot categories, then, with
+    ``include_binned``, the 30 histogram-bin columns.  (n, 13) or (n, 43)
+    float32, and the column names."""
+    names: list[str] = list(WISDM_NUMERIC_COLUMNS)
+    cols = [np.asarray(table[c], np.float64) for c in WISDM_NUMERIC_COLUMNS]
+    for c in WISDM_CATEGORICAL_COLUMNS:
+        vals = np.array(
+            [float(v) if v not in ("?", "") else missing_value for v in table[c]],
+            np.float64,
+        )
+        cols.append(vals)
+        names.append(c)
+    if include_binned:
+        for c in BINNED_COLUMNS:
+            cols.append(np.asarray(table[c], np.float64))
+            names.append(c)
+    return np.stack(cols, axis=1).astype(np.float32), tuple(names)

@@ -2,10 +2,12 @@
 
 Port of ``har_tpu/models/neural_classifier.py``: gives the neural family
 the fit/transform surface of the classical models, so the runner and the
-report writer treat a transformer as they treat a tree.  Inputs are
+report writer treat a neural model as they treat a tree.  Inputs are
 standardized over axis 0 (per step and axis for raw windows) by a scaler
-fitted on the training rows.  The JAX package's warm-refit cache (a
-bench-only optimisation) is not ported.
+fitted on the training rows; ``augment`` names the policy
+(``data/augment.py``) the trainer applies to each standardized batch.
+The module is built for the width of the rows it is fitted on.  The JAX
+package's warm-refit cache (a bench-only optimisation) is not ported.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Any, Mapping
 
 import numpy as np
 
+from har_tpu_torch.data.augment import build_augment
 from har_tpu_torch.features.scaler import FittedScaler, StandardScaler
 from har_tpu_torch.models.base import Predictions
 from har_tpu_torch.models.neural import build_model
@@ -28,16 +31,12 @@ class NeuralClassifier:
     model_kwargs: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     standardize: bool = True
     num_classes: int | None = None
-    # augmentation policy name; only None / "none" are ported
+    # augmentation policy name (data.augment.build_augment): "raw_windows"
+    # for raw (B, T, 3) window models, None / "none" for no augmentation
     augment: str | None = None
     device: str = "cuda"
 
     def fit(self, data) -> "NeuralClassifierModel":
-        if self.augment not in (None, "none"):
-            raise NotImplementedError(
-                f"augment={self.augment!r} is not ported to har_tpu_torch yet: "
-                "ROADMAP.md Queue 1 item 9 (data/augment.py)"
-            )
         x = np.asarray(data.features, np.float32)
         y = np.asarray(data.label, np.int32)
         num_classes = self.num_classes or int(y.max()) + 1
@@ -45,9 +44,11 @@ class NeuralClassifier:
         if scaler is not None:
             x = scaler.transform(x)
         module = build_model(
-            self.model_name, num_classes=num_classes, **self.model_kwargs
+            self.model_name, num_classes=num_classes,
+            in_features=x.shape[-1], **self.model_kwargs
         )
-        trainer = Trainer(module, self.config, device=self.device)
+        trainer = Trainer(module, self.config, device=self.device,
+                          augment=build_augment(self.augment))
         trained = trainer.fit(x, y, num_classes=num_classes)
         return NeuralClassifierModel(
             inner=trained, scaler=scaler, num_classes=num_classes

@@ -82,6 +82,35 @@ def mllib_split_candidates(x: np.ndarray, max_bins: int) -> np.ndarray:
     return out.astype(np.float32)
 
 
+def quantile_thresholds(x: torch.Tensor, max_bins: int) -> torch.Tensor:
+    """(d, max_bins-1) per-feature thresholds: evenly spaced quantiles of
+    each feature, ``jnp.quantile``'s linear method in float32 step for
+    step, so the thresholds and the bins they give equal the JAX
+    package's: q = i · (1/B), position q·(n-1), and the neighbours lo and
+    hi combined as XLA's CPU compiles ``lo·(1-w) + hi·w``, one fused
+    multiply-add over the rounded ``hi·w`` (taken here in float64, where
+    the product is exact).  A feature holding a NaN gets NaN
+    thresholds."""
+    n = x.shape[0]
+    x = x.to(torch.float32)
+    # jnp.linspace's i / B, which XLA computes as i · (1 / B)
+    step = torch.tensor(1.0, dtype=torch.float32) / max_bins
+    q = torch.arange(1, max_bins, dtype=torch.float32, device=x.device) * step.to(
+        x.device
+    ) * torch.tensor(n - 1, dtype=torch.float32)
+    low, high = torch.floor(q), torch.ceil(q)
+    high_weight = q - low
+    low_weight = 1.0 - high_weight
+    last = float(n - 1)
+    low_idx = low.clamp(0.0, last).long()
+    high_idx = high.clamp(0.0, last).long()
+    s = torch.sort(x, dim=0).values
+    s = torch.where(torch.isnan(x).any(dim=0), torch.nan, s)
+    high_part = (s[high_idx] * high_weight[:, None]).double()
+    out = s[low_idx].double() * low_weight.double()[:, None] + high_part
+    return out.float().T.contiguous()
+
+
 def binize(x: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
     """Quantize features: bin id = number of thresholds strictly below x.
 

@@ -13,13 +13,15 @@ compute it, each with its own hand-written kernel in ``csrc/hist.cu``:
 
 - :func:`hist` takes any dense ``m`` (float weights in any column).  No
   path of the port calls it since the tree grower moved to
-  :func:`hist_rows`; boosted trees will use :func:`hist_rows` too (their
-  ``m`` is row one-hot per gradient channel), and this entry goes then.
+  :func:`hist_rows`; boosted trees use :func:`hist_rows` too (their ``m``
+  is row one-hot per gradient channel).
   :func:`hist_plain` is its plain PyTorch version, a one-hot matmul over
   feature chunks; ``HIST_LAUNCHES`` counts its kernel's launches.
 - :func:`hist_rows` takes ``m`` row one-hot, as a tree level builds it:
   row ``r`` of tree ``t`` puts ``weight[t, r]`` into column
-  ``slot[t, r]`` and nothing elsewhere.  The tree grower calls this one.
+  ``slot[t, r]`` and nothing elsewhere.  The tree grower calls this one,
+  and so does a boosting round's level, with one (tree) channel for the
+  gradients and one for the hessians of each class tree.
   :func:`hist_rows_plain` is its plain version, an ``index_add_`` over
   (tree, slot, feature, bin); ``HIST_ROWS_LAUNCHES`` counts its kernel's
   launches.

@@ -1,19 +1,21 @@
 """End-to-end pipeline runner: the reference's `main.py` flow on PyTorch.
 
-Port of ``har_tpu/runner.py::run`` for logistic regression, the tree
-families and the transformer:
+Port of ``har_tpu/runner.py::run`` for every family of ``har train``:
 
 - tabular WISDM: load the table → report its schema, samples and summary
-  → the one-hot feature pipeline → the Spark-exact 70/30 split → fit and
-  score each model, then (CV on, the default) its 5-fold CrossValidator
-  over the reference's grid (LR's 9 points; ``{}`` for the others);
-- ``wisdm_raw``: synthetic raw windows → report their shape and class
-  counts → the Bernoulli 70/30 split of the windows → fit and score the
-  transformer;
+  → each model's feature view, featurized once per view: the one-hot
+  pipeline (LR, DT, RF) or the numeric view (GBDT and MLP: the 10 numeric
+  columns and the parsed PEAK columns, plus the 30 histogram-bin columns
+  for GBDT where the table kept them) → the Spark-exact 70/30 split → fit
+  and score each model, then (CV on, the default) its 5-fold
+  CrossValidator over the reference's grid (LR's 9 points; ``{}`` for
+  the others);
+- ``wisdm_raw``: raw windows → report their shape and class counts → the
+  windows themselves for CNN1D, BiLSTM and the transformer, their 43
+  WISDM features (``features/raw_features.py``, on ``device``) for the
+  others → the Bernoulli 70/30 split → fit, score and CV as above;
 
 then result.txt, the metrics CSV, the cross-fold CSV and timing.csv.
-GBDT and the other neural families are not ported yet; asking for them
-raises NotImplementedError naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -30,14 +32,22 @@ from har_tpu_torch.config import RunConfig
 from har_tpu_torch.data.raw_loader import load_raw_stream, stream_windows
 from har_tpu_torch.data.raw_windows import WindowedDataset, synthetic_raw_stream
 from har_tpu_torch.data.synthetic import synthetic_wisdm
-from har_tpu_torch.data.wisdm import ACTIVITIES, load_wisdm
+from har_tpu_torch.data.wisdm import (
+    ACTIVITIES,
+    BINNED_COLUMNS,
+    load_wisdm,
+    numeric_feature_view,
+)
 from har_tpu_torch.device import resolve_device
+from har_tpu_torch.features.raw_features import extract_features
+from har_tpu_torch.features.string_indexer import StringIndexer
 from har_tpu_torch.features.wisdm_pipeline import (
     FeatureSet,
     build_wisdm_pipeline,
     make_feature_set,
 )
 from har_tpu_torch.models.forest import RandomForestClassifier
+from har_tpu_torch.models.gbdt import GradientBoostedTreesClassifier
 from har_tpu_torch.models.logistic_regression import LogisticRegression
 from har_tpu_torch.models.neural import MODEL_REGISTRY
 from har_tpu_torch.models.neural_classifier import NeuralClassifier
@@ -59,19 +69,12 @@ _ESTIMATORS = {
     "logistic_regression": LogisticRegression,
     "decision_tree": DecisionTreeClassifier,
     "random_forest": RandomForestClassifier,
+    "gbdt": GradientBoostedTreesClassifier,
 }
 
 _NEURAL = tuple(MODEL_REGISTRY)
 # models that consume (n, T, 3) raw windows, not tabular feature vectors
 _RAW_MODELS = ("cnn1d", "bilstm", "transformer")
-
-# families of the JAX package that later slices port (ROADMAP.md, Queue 1)
-_NOT_PORTED = {
-    "gbdt": "Queue 1 item 8 (GBDT and ensembles)",
-    "mlp": "Queue 1 item 9 (neural training)",
-    "cnn1d": "Queue 1 item 9 (neural training)",
-    "bilstm": "Queue 1 item 9 (neural training)",
-}
 
 
 def canonical_model_name(name: str) -> str:
@@ -84,9 +87,10 @@ def effective_synthetic_rows(data) -> int:
 
 
 def _neural_model_fields(name: str) -> set[str]:
-    """Constructor arguments of a neural family's module."""
+    """Constructor arguments of a neural family's module (the flax
+    fields): the input width is the data's, not a hyperparameter."""
     params = inspect.signature(MODEL_REGISTRY[name]).parameters
-    return set(params) - {"self"}
+    return set(params) - {"self", "in_features"}
 
 
 def _known_params() -> set[str]:
@@ -105,11 +109,6 @@ def build_estimator(name: str, params: dict | None = None, device="cuda"):
     """The estimator for ``name``; each keeps only the knobs it has from
     the shared ``params`` dict, and a knob no estimator has is an error."""
     name = canonical_model_name(name)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} is not ported to har_tpu_torch yet: ROADMAP.md "
-            f"{_NOT_PORTED[name]}"
-        )
     if name not in _ESTIMATORS and name not in _NEURAL:
         raise ValueError(f"unknown model {name!r}")
     params = dict(params or {})
@@ -188,19 +187,15 @@ def _feature_mode(config: RunConfig) -> str:
     """Which feature view this config's model trains on."""
     name = canonical_model_name(config.model.name)
     if config.data.dataset == "wisdm_raw":
-        if name in _RAW_MODELS:
-            return "raw"
-        raise NotImplementedError(
-            f"{name} on wisdm_raw trains on the 43-feature transform of the "
-            "windows (features/raw_features.py), which is not ported to "
-            "har_tpu_torch yet: ROADMAP.md Queue 1 item 9"
-        )
+        # raw-window models consume the windows; every other model the
+        # 43-feature WISDM transform of them
+        return "raw" if name in _RAW_MODELS else "raw_features"
     if name in _RAW_MODELS:
         raise ValueError(
             f"{name} trains on raw (T, 3) windows — use --dataset wisdm_raw, "
             f"not a tabular dataset ({config.data.dataset})"
         )
-    return "onehot"
+    return "numeric" if name in ("mlp", "gbdt") else "onehot"
 
 
 def resolve_split_method(data) -> str:
@@ -247,13 +242,20 @@ def derive_split(full: FeatureSet, table, data) -> tuple[FeatureSet, FeatureSet]
     return full.train_test(data.train_fraction, data.seed)
 
 
-def featurize(config: RunConfig, table):
+def featurize(config: RunConfig, table, device: str | torch.device = "cuda"):
     """(train, test, fitted pipeline or None) for this config's model: the
-    raw windows split by a Bernoulli draw, or the one-hot pipeline and
-    the split of the tabular table."""
-    if _feature_mode(config) == "raw":
+    raw windows or their 43 features (computed on ``device``) split by a
+    Bernoulli draw, or the numeric view or the one-hot pipeline and the
+    split of the tabular table."""
+    mode = _feature_mode(config)
+    if mode in ("raw", "raw_features"):
+        if mode == "raw":
+            x = np.asarray(table.windows, np.float32)
+        else:
+            windows = torch.as_tensor(np.asarray(table.windows, np.float32))
+            x = extract_features(windows.to(resolve_device(device))).cpu().numpy()
         full = FeatureSet(
-            features=np.asarray(table.windows, np.float32),
+            features=x,
             label=np.asarray(table.labels, np.int32),
             class_names=(
                 tuple(table.class_names) if table.class_names else None
@@ -263,18 +265,48 @@ def featurize(config: RunConfig, table):
             config.data.train_fraction, config.data.seed
         )
         return train, test, None
-    pipe_model = build_wisdm_pipeline().fit(table)
-    label_vocab = next(
-        (
-            s.vocab
-            for s in pipe_model.stages
-            if getattr(s, "output_col", None) == "label"
-        ),
-        None,
-    )
-    full = make_feature_set(pipe_model.transform(table), class_names=label_vocab)
+    if mode == "numeric":
+        # GBDT takes the 30 histogram-bin columns where the loader kept
+        # them; the MLP keeps the 13-column view
+        has_bins = canonical_model_name(config.model.name) == "gbdt" and all(
+            c in table.column_names for c in BINNED_COLUMNS
+        )
+        x, _ = numeric_feature_view(table, include_binned=has_bins)
+        indexer = StringIndexer("ACTIVITY", "label").fit(table)
+        y = np.asarray(indexer.transform(table)["label"], np.int32)
+        uid = table["UID"] if "UID" in table.column_names else None
+        full = FeatureSet(features=x, label=y, uid=uid, class_names=indexer.vocab)
+        pipe_model = None
+    else:
+        pipe_model = build_wisdm_pipeline().fit(table)
+        label_vocab = next(
+            (
+                s.vocab
+                for s in pipe_model.stages
+                if getattr(s, "output_col", None) == "label"
+            ),
+            None,
+        )
+        full = make_feature_set(
+            pipe_model.transform(table), class_names=label_vocab
+        )
     train, test = derive_split(full, table, config.data)
     return train, test, pipe_model
+
+
+def _views_for(models, config: RunConfig, table, timer, device):
+    """(modes, view_cache): each model's feature view, featurized once per
+    view; ``view_cache[mode]`` is the (train, test, pipeline or None) every
+    model of that view trains on."""
+    modes = {name: _feature_mode(_model_config(config, name)) for name in models}
+    view_cache: dict[str, tuple] = {}
+    for name in models:
+        if modes[name] not in view_cache:
+            with timer("featurize"):
+                view_cache[modes[name]] = featurize(
+                    _model_config(config, name), table, device
+                )
+    return modes, view_cache
 
 
 @dataclasses.dataclass
@@ -293,6 +325,7 @@ _SPARK_NAMES = {
     "logistic_regression": ("LogisticRegression", "Logistic Regression"),
     "decision_tree": ("DecisionTreeClassifier", "Decision Tree"),
     "random_forest": ("RandomForestClassifier", "Random Forest"),
+    "gbdt": ("GBTClassifier", "Gradient Boosted Trees"),
 }
 
 
@@ -320,6 +353,8 @@ def _spark_display_name(name: str, model, is_cv: bool) -> str | None:
             f"RandomForestClassificationModel (uid={est_cls}_{uid}) "
             f"with {model.num_trees} trees"
         )
+    if base == "gbdt":
+        return f"GBTClassificationModel (uid={est_cls}_{uid})"
     return f"{est_cls}_{uid}"
 
 
@@ -391,7 +426,7 @@ def run(
             "item 14 (the parallel layer)"
         )
     # every model's feature view, resolved before any work: it raises for a
-    # model that cannot run on this dataset, so the dataset fixes one view
+    # model that cannot run on this dataset
     for name in models:
         _feature_mode(_model_config(config, name))
 
@@ -419,29 +454,34 @@ def run(
             report.class_counts(table["ACTIVITY"])
             report.summary(table)
 
-    with timer("featurize"):
-        train, test, _ = featurize(_model_config(config, models[0]), table)
+    modes, view_cache = _views_for(models, config, table, timer, device)
+    train, test = view_cache[modes[models[0]]][:2]
     with timer("report"):
         report.class_names = (
             list(train.class_names) if train.class_names else None
         )
-        if not is_raw:
+        oh_feats = None
+        if "onehot" in view_cache:
             # MODELING PIPELINE + sample/table blocks (reference
             # result.txt:59-138): the design matrix reassembled from the
-            # splits
+            # one-hot view's splits
+            oh_train, oh_test, _ = view_cache["onehot"]
             report.pipeline_schema(table)
-            feats = np.empty((len(table), train.num_features), np.float32)
-            labels = np.empty((len(table),), np.float64)
-            for part in (train, test):
-                feats[part.rows] = part.features
-                labels[part.rows] = part.label
-            report.sample_feature_data(table, labels, feats)
+            oh_feats = np.empty((len(table), oh_train.num_features), np.float32)
+            oh_labels = np.empty((len(table),), np.float64)
+            for part in (oh_train, oh_test):
+                oh_feats[part.rows] = part.features
+                oh_labels[part.rows] = part.label
+            report.sample_feature_data(table, oh_labels, oh_feats)
         report.split_counts(len(train), len(test))
-        if not is_raw:
-            report.split_sample_tables(table, feats, labels, train.rows, test.rows)
+        if oh_feats is not None:
+            report.split_sample_tables(
+                table, oh_feats, oh_labels, oh_train.rows, oh_test.rows
+            )
 
     results = []
     for name, est in zip(models, estimators):
+        train, test = view_cache[modes[name]][:2]
         results.append(_fit_eval(est, name, train, test, report, timer))
         if with_cv:
             cv = _cross_validator(config, name, est)

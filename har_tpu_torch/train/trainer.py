@@ -15,10 +15,14 @@ Port of the single-device scanned path of ``har_tpu/train/trainer.py``
   holds the last step's loss of each epoch;
 - the optimizer is optax's ``adamw`` over ``warmup_cosine_decay_schedule``,
   computed as optax computes it (:class:`AdamW`): the schedule is read at
-  the count before the step, so the first step has learning rate 0.
+  the count before the step, so the first step has learning rate 0;
+- an ``augment`` policy (``data/augment.py``) transforms each batch inside
+  the step, before the forward, with draws from its own generator, seeded
+  apart from the dropout generator (the JAX package folds the step key
+  once more for it).
 
-Checkpointing, early stopping, augmentation, the ``dp``/``tp``/``zero1``
-meshes and ``compute_flops`` are not ported yet; asking for them raises
+Checkpointing, early stopping, the ``dp``/``tp``/``zero1`` meshes and
+``compute_flops`` are not ported yet; asking for them raises
 NotImplementedError naming the ROADMAP item that ports them.
 """
 
@@ -26,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Iterator
+from typing import Any, Callable, Iterator
 
 import numpy as np
 import torch
@@ -196,14 +200,21 @@ class NeuralModel:
         return Predictions.from_raw(logits, probs)
 
 
+# the augmentation generator's seed is the trainer seed plus this
+_AUGMENT_SEED_OFFSET = 0x9E3779B9
+
+
 class Trainer:
-    """Fits a module on (x, y) arrays on one device."""
+    """Fits a module on (x, y) arrays on one device; ``augment(generator,
+    xb) -> xb`` transforms each training batch inside the step."""
 
     def __init__(self, module: nn.Module, config: TrainerConfig | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 augment: Callable | None = None):
         self.module = module
         self.config = config or TrainerConfig()
         self.device = resolve_device(device)
+        self.augment = augment
 
     def fit(
         self,
@@ -262,6 +273,9 @@ class Trainer:
         y_dev = torch.from_numpy(y).long().to(device)
         idx_dev = torch.from_numpy(batch_idx).to(device)
         dropout_rng = torch.Generator(device=device).manual_seed(cfg.seed)
+        augment_rng = torch.Generator(device=device).manual_seed(
+            cfg.seed + _AUGMENT_SEED_OFFSET
+        )
 
         epoch_losses = []
         if device.type == "cuda":
@@ -271,6 +285,8 @@ class Trainer:
         for step in range(total_steps):
             idx = idx_dev[step]
             xb, yb = x_dev[idx], y_dev[idx]
+            if self.augment is not None:
+                xb = self.augment(augment_rng, xb)
             wb = (
                 weights[yb] if weights is not None
                 else torch.ones(yb.shape, device=device)

@@ -43,6 +43,11 @@ def test_port_has_files():
         "har_tpu_torch/parity.py",
         "har_tpu_torch/models/mllib_exact.py",
         "har_tpu_torch/data/_native_build.py",
+        "har_tpu_torch/models/gbdt.py",
+        "har_tpu_torch/models/ensemble.py",
+        "har_tpu_torch/models/neural.py",
+        "har_tpu_torch/features/raw_features.py",
+        "har_tpu_torch/data/augment.py",
     ):
         assert required in names
 

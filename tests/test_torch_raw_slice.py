@@ -123,6 +123,46 @@ def test_report_identical_outside_model_lines(tmp_path):
     assert 0.0 <= outcome.accuracies["transformer"] <= 1.0
 
 
+RAW_FAMILIES = ["cnn1d", "bilstm", "dt", "gbt"]
+RAW_TINY = {"channels": (8, 8), "hidden": 8, "epochs": 1, "batch_size": 64,
+            "num_rounds": 3}
+
+
+def test_raw_families_run_matches_jax(tmp_path):
+    """`run(dataset="wisdm_raw", models=["cnn1d", "bilstm", "dt", "gbt"])`
+    with CV: CNN1D and BiLSTM on the windows, DT and GBDT on their 43
+    features.  The report equals har_tpu's up to the first model block,
+    and then block for block outside the fitted models' numbers; DT's
+    model line (depth and node count) and GBDT's are equal."""
+    jax_cfg, port_cfg = _configs(tmp_path, params=RAW_TINY)
+    jax_runner.run(jax_cfg, models=RAW_FAMILIES)
+    outcome = port_runner.run(port_cfg, models=RAW_FAMILIES, device="cpu")
+    want = (tmp_path / "jax" / "result.txt").read_text().splitlines()
+    got = (tmp_path / "port" / "result.txt").read_text().splitlines()
+    banner = next(i for i, line in enumerate(want) if "CLASSIFICATION AND" in line)
+    assert got[: banner + 1] == want[: banner + 1]
+    assert _model_block_skeleton(got[banner:]) == _model_block_skeleton(want[banner:])
+    assert any(line.startswith("DecisionTreeClassificationModel (uid=") for line in got)
+    assert any(line.startswith("GBTClassificationModel (uid=") for line in got)
+    assert set(outcome.accuracies) == {f"{m}{cv}" for m in
+                                       ("cnn1d", "bilstm", "decision_tree", "gbdt")
+                                       for cv in ("", "_cv")}
+    assert set(outcome.report_paths) == {"result", "csv", "cv_csv", "timing"}
+
+
+def test_cli_raw_families_and_augment_on_the_cpu(tmp_path, capsys, small_raw_dataset):
+    rc = cli.main(
+        ["train", "--dataset", "wisdm_raw", "--models", "cnn1d", "gbt", "--no-cv",
+         "--epochs", "1", "--augment", "raw_windows", "--device", "cpu",
+         "--output-dir", str(tmp_path)]
+    )
+    assert rc == 0
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(printed["accuracies"]) == {"cnn1d", "gbdt"}
+    for name in ("result.txt", "additional_param.csv", "timing.csv"):
+        assert (tmp_path / name).is_file()
+
+
 @pytest.fixture
 def small_raw_dataset(monkeypatch):
     """The CLI's wisdm_raw run at 200 windows instead of 4,000."""
@@ -156,14 +196,14 @@ def test_cli_without_gpu_raises(tmp_path, monkeypatch, small_raw_dataset):
 @pytest.mark.parametrize(
     "dataset,models,path,error",
     [
-        ("wisdm_raw", ["dt"], None, NotImplementedError),  # raw_features
+        ("ucihar", ["dt"], None, NotImplementedError),  # not ported yet
         ("wisdm", ["transformer"], None, ValueError),  # needs raw windows
         # the native raw parser reads --data-path: a missing file raises
         ("wisdm_raw", ["transformer"], "raw.txt", FileNotFoundError),
-        ("wisdm_raw", ["cnn1d"], None, NotImplementedError),
+        ("ucihar", ["cnn1d"], None, ValueError),  # needs raw windows
     ],
-    # ids fixed: the parser case was named for NotImplementedError before
-    # the raw parser was ported
+    # ids fixed: the cases were named for the combinations they checked
+    # before the raw parser, the raw features and CNN1D were ported
     ids=[
         "wisdm_raw-models0-None-NotImplementedError",
         "wisdm-models1-None-ValueError",

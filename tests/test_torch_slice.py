@@ -21,7 +21,7 @@ from har_tpu.config import ModelConfig as JaxModelConfig
 from har_tpu.config import RunConfig as JaxRunConfig
 from har_tpu_torch import cli
 from har_tpu_torch import runner as port_runner
-from har_tpu_torch.config import DataConfig, ModelConfig, RunConfig
+from har_tpu_torch.config import DataConfig, MeshConfig, ModelConfig, RunConfig
 
 torch.set_num_threads(1)
 
@@ -235,13 +235,84 @@ def test_cli_without_gpu_raises_unless_cpu_is_named(tmp_path, monkeypatch):
 @pytest.mark.parametrize(
     "kwargs",
     [
-        {"models": ["cnn1d"]},
-        {"models": ["gbt"]},
-        {"models": ["mlp"]},
-        {"models": ["bilstm"]},
+        {"models": ["dt"], "data": {"dataset": "ucihar"}},
+        {"models": ["mlp"], "mesh": {"dp": 2}},
+        {"models": ["mlp"], "params": {"early_stop_patience": 2}},
+        {"models": ["mlp"], "params": {"checkpoint_dir": "ckpt"}},
     ],
 )
 def test_unported_parts_raise_not_implemented(tmp_path, kwargs):
-    config = RunConfig(data=DataConfig(synthetic_rows=ROWS), output_dir=str(tmp_path))
+    """Parts of `train` still to port (ROADMAP.md Queue 1): the UCI-HAR
+    dataset, the data-parallel mesh, early stopping and checkpoints."""
+    config = RunConfig(
+        data=DataConfig(synthetic_rows=ROWS, **kwargs.get("data", {})),
+        model=ModelConfig(params=dict(kwargs.get("params", {}), epochs=1)),
+        mesh=MeshConfig(**kwargs.get("mesh", {})),
+        output_dir=str(tmp_path),
+    )
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_runner.run(config, device="cpu", **kwargs)
+        port_runner.run(config, models=kwargs["models"], device="cpu")
+
+
+def assert_same_report_structure(port_dir, jax_dir) -> None:
+    """result.txt of both packages: equal up to the first model block
+    (data, split and pipeline blocks), and then the same model lines (the
+    line atop each block, uid masked) and metric names in the same order.
+    A block's metric digits and the rows of its sample of wrong
+    predictions depend on the fit (neural weights come from other
+    draws)."""
+
+    def parts(path):
+        lines = (path / "result.txt").read_text().splitlines()
+        start = next(i for i, ln in enumerate(lines) if "CLASSIFICATION AND EVALUATION" in ln)
+        model_lines = [_masked(lines[i - 1]) for i, ln in enumerate(lines)
+                       if ln.startswith("Classifier trained in")]
+        metric_names = [ln.split(":")[0] for ln in lines[start:] if "-: " in ln]
+        return [_masked(ln) for ln in lines[:start]], model_lines, metric_names
+
+    assert parts(port_dir) == parts(jax_dir)
+
+
+def test_gbt_and_mlp_run_matches_jax(tmp_path):
+    """`run(models=["gbt", "mlp"], with_cv=True)`: both on the numeric
+    view (no one-hot pipeline blocks), each with its CV; GBDT's model
+    lines are Spark's GBTClassificationModel ones."""
+    params = {"epochs": 2, "num_rounds": 5, "hidden": (16,)}
+    jax_out, port_out = tmp_path / "jax", tmp_path / "port"
+    jax_runner.run(
+        JaxRunConfig(data=JaxDataConfig(synthetic_rows=ROWS),
+                     model=JaxModelConfig(params=dict(params)), output_dir=str(jax_out)),
+        models=["gbt", "mlp"],
+    )
+    outcome = port_runner.run(
+        RunConfig(data=DataConfig(synthetic_rows=ROWS),
+                  model=ModelConfig(params=dict(params)), output_dir=str(port_out)),
+        models=["gbt", "mlp"],
+        device="cpu",
+    )
+    assert set(outcome.report_paths) == {"result", "csv", "cv_csv", "timing"}
+    assert set(outcome.accuracies) == {"gbdt", "gbdt_cv", "mlp", "mlp_cv"}
+    assert_same_report_structure(port_out, jax_out)
+    text = (port_out / "result.txt").read_text()
+    assert text.count("Classifier trained in") == 4
+    assert "GBTClassificationModel (uid=GBTClassifier_" in text
+    assert "for Gradient Boosted Trees" in text
+    assert "MODELING PIPELINE" not in (jax_out / "result.txt").read_text()
+    with open(port_out / "timing.csv", newline="") as f:
+        sections = [row["section"] for row in csv.DictReader(f)]
+    assert sections == [
+        "load", "report", "featurize",
+        "gbdt_fit", "gbdt_transform", "gbdt_cv_fit", "gbdt_cv_transform",
+        "mlp_fit", "mlp_transform", "mlp_cv_fit", "mlp_cv_transform",
+    ]
+
+
+def test_cli_gbt_on_the_cpu(tmp_path, capsys, monkeypatch):
+    monkeypatch.setattr(port_runner, "effective_synthetic_rows", lambda data: 300)
+    rc = cli.main(["train", "--models", "gbt", "--no-cv", "--device", "cpu",
+                   "--output-dir", str(tmp_path)])
+    assert rc == 0
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(printed["accuracies"]) == {"gbdt"}
+    for name in ("result.txt", "additional_param.csv", "timing.csv"):
+        assert (tmp_path / name).is_file()
