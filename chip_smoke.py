@@ -90,10 +90,27 @@ exits nonzero without the final ``ok`` line:
     raw_windows``) and the BiLSTM, at the CLI's widths and 60 epochs: no
     K1 or K2 launch, accuracy floors below har_tpu's, train time and peak
     memory;
-19. with ``--profile`` only: one DT, one RF and one transformer fit, one
+19. lifecycle_main: the saved models' life on the card.  Phases 8, 12,
+    15 (its ``--no-cv`` run) and 18 (its plain CNN1D run) pass
+    ``--save-models-dir``, which launches nothing: LR, DT, RF and their
+    CVs, GBDT, the transformer and the CNN1D.  ``cli evaluate`` of each
+    on the card scores exactly its train run's accuracy; ``cli predict``
+    of each on the card and with ``--device cpu`` gives equal prediction
+    columns, and its probabilities on the two devices agree within 1e-6
+    (float32 models) or 1e-2 (the bfloat16 neural defaults); K1 launches 0 times and K2 layers x
+    prediction chunks a transformer scoring.  Then an MLP at the CLI's
+    widths (dropout 0.2), 6 epochs with a snapshot every 2, crashed after
+    its first snapshot and resumed, against the unbroken run (losses
+    within rtol 1e-4, parameters within rtol 1e-3 / atol 1e-6, exactness
+    printed); ``train --models mlp --no-cv --early-stop-patience 3
+    --checkpoint-dir`` twice (best and stopped epochs; the second run
+    trains nothing and scores the same); and ``finetune`` of the CNN1D
+    with ``--freeze ConvBlock_0 ConvBlock_1 --output`` (frozen tensors
+    bit-identical to the checkpoint's, accuracy after at the CNN1D floor);
+20. with ``--profile`` only: one DT, one RF and one transformer fit, one
     default run, one parity run, one GBDT fit and a 2-epoch BiLSTM fit
     under torch.profiler, with K1's and K2's shares of the device time;
-20. the kernels line (K1's launches over every path that grows trees),
+21. the kernels line (K1's launches over every path that grows trees),
     a short ``summary`` line, then ``{"ok": true, "device": {...}}``.
 
 ``--flash-only`` runs phases 1, 2 and 4 and stops there, without the last
@@ -102,7 +119,8 @@ running a copy of this script from that checkout's root (a package that
 predates ``flash_plan`` reports no plan).
 
 It needs one CUDA card and the repository beside it; it writes the main
-paths' artifacts under har_tpu_torch/_build/chip_smoke/ (git-ignored).
+paths' artifacts and saved models under har_tpu_torch/_build/chip_smoke/
+(git-ignored).
 """
 
 from __future__ import annotations
@@ -114,6 +132,7 @@ import io
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -126,7 +145,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-from har_tpu_torch import cli, runner  # noqa: E402
+from har_tpu_torch import checkpoint, cli, runner  # noqa: E402
 from har_tpu_torch.config import DataConfig, ModelConfig, RunConfig  # noqa: E402
 from har_tpu_torch.data import raw_loader  # noqa: E402
 from har_tpu_torch.features.scaler import StandardScaler  # noqa: E402
@@ -281,6 +300,15 @@ GBT_MIN_LABEL_AGREEMENT = 0.99
 MLP_MIN_ACCURACY = 0.95
 CNN1D_MIN_ACCURACY = 0.95
 BILSTM_MIN_ACCURACY = 0.95
+
+# where the main paths save their models, and the lifecycle's tolerances:
+# card against CPU probabilities of a saved float32 model, and of the
+# neural defaults, whose bfloat16 matmuls round on the two devices apart
+OUT = ROOT / "har_tpu_torch" / "_build" / "chip_smoke"
+MODELS_DIR = OUT / "models"
+PREDICT_PROB_ATOL = 1e-6
+PREDICT_PROB_ATOL_BF16 = 1e-2
+SAVE = ["--save-models-dir", str(MODELS_DIR)]
 
 
 def emit(phase: str, **fields) -> None:
@@ -757,14 +785,19 @@ def expected_flash_launches(config: RunConfig) -> int:
     return layers * (steps + math.ceil(len(test) / PREDICT_CHUNK))
 
 
-def run_cli(argv: list[str]) -> dict:
-    """``cli.main(argv)`` with its printout captured: the accuracies."""
+def run_cli_json(argv: list[str]) -> dict:
+    """``cli.main(argv)`` with its printout captured: the JSON it prints."""
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
         rc = cli.main(argv)
     if rc != 0:
         raise AssertionError(f"cli {argv} returned {rc}")
-    return json.loads(printed.getvalue().strip().splitlines()[-1])["accuracies"]
+    return json.loads(printed.getvalue().strip().splitlines()[-1])
+
+
+def run_cli(argv: list[str]) -> dict:
+    """``cli.main(argv)`` with its printout captured: the accuracies."""
+    return run_cli_json(argv)["accuracies"]
 
 
 ARTIFACTS = ("result.txt", "additional_param.csv", "timing.csv")
@@ -835,7 +868,7 @@ def phase_raw_main() -> dict:
         output_dir=str(out_dir),
     )
     argv = ["train", "--dataset", "wisdm_raw", "--models", "transformer",
-            "--no-cv", "--device", "cuda", "--output-dir", str(out_dir)]
+            "--no-cv", "--device", "cuda", "--output-dir", str(out_dir)] + SAVE
     path = drive_path("raw_main", out_dir, lambda: run_cli(argv),
                       flash=expected_flash_launches(config))
     check_floor("raw_main", path["accuracies"]["transformer"], RAW_MAIN_MIN_ACCURACY)
@@ -953,7 +986,7 @@ def phase_default_main(rf_accuracy: float) -> dict:
     """The reference's default command, ``train`` with no model flags: LR,
     DT and RF, each followed by its 5-fold CrossValidator."""
     out_dir = ROOT / "har_tpu_torch" / "_build" / "chip_smoke" / "default_main"
-    argv = ["train", "--device", "cuda", "--output-dir", str(out_dir)]
+    argv = ["train", "--device", "cuda", "--output-dir", str(out_dir)] + SAVE
     path = drive_path(
         "default_main", out_dir, lambda: run_cli(argv), hist_rows=default_launches(),
         artifacts=ARTIFACTS + ("crossFold_additional_param.csv",),
@@ -1188,7 +1221,8 @@ def phase_gbdt_main() -> dict:
     argv = ["train", "--models", "gbt", "--output-dir"]
     with recorded_labels() as card_labels:
         path = drive_path("gbdt_main", out_dir,
-                          lambda: run_cli(argv + [str(out_dir), "--no-cv", "--device", "cuda"]),
+                          lambda: run_cli(argv + [str(out_dir), "--no-cv", "--device", "cuda"]
+                                          + SAVE),
                           hist_rows=GBDT_LAUNCHES)
     t0 = time.perf_counter()
     with recorded_labels() as cpu_labels:
@@ -1289,8 +1323,8 @@ def phase_neural_agree() -> dict:
 # accuracy floor)
 NEURAL_PATHS = (
     ("mlp_main", ["train", "--models", "mlp", "--no-cv"], "mlp", MLP_MIN_ACCURACY),
-    ("cnn1d_main", ["train", "--dataset", "wisdm_raw", "--models", "cnn1d", "--no-cv"],
-     "cnn1d", CNN1D_MIN_ACCURACY),
+    ("cnn1d_main", ["train", "--dataset", "wisdm_raw", "--models", "cnn1d", "--no-cv"]
+     + SAVE, "cnn1d", CNN1D_MIN_ACCURACY),
     ("cnn1d_augment_main", ["train", "--dataset", "wisdm_raw", "--models", "cnn1d",
                             "--no-cv", "--augment", "raw_windows"],
      "cnn1d", CNN1D_MIN_ACCURACY),
@@ -1314,6 +1348,230 @@ def phase_neural_main() -> dict:
                          fit_s=path["timing"][f"{model}_fit"],
                          peak_device_bytes=path["peak_device_bytes"])
     return out
+
+
+@contextlib.contextmanager
+def launch_counts():
+    """Every kernel's launches inside the block (each count set to 0 on
+    entry, read on exit)."""
+    hist_ops.HIST_LAUNCHES = 0
+    hist_ops.HIST_ROWS_LAUNCHES = 0
+    flash_ops.FLASH_LAUNCHES = 0
+    counts: dict = {}
+    yield counts
+    counts.update(hist=hist_ops.HIST_LAUNCHES, hist_rows=hist_ops.HIST_ROWS_LAUNCHES,
+                  flash_attention=flash_ops.FLASH_LAUNCHES)
+
+
+@contextlib.contextmanager
+def recorded_histories():
+    """The history of every neural fit inside the block (``Trainer.fit``
+    wrapped)."""
+    seen = []
+    fit = Trainer.fit
+
+    def record(self, *args, **kwargs):
+        model = fit(self, *args, **kwargs)
+        seen.append(model.history)
+        return model
+
+    Trainer.fit = record
+    try:
+        yield seen
+    finally:
+        Trainer.fit = fit
+
+
+def _csv_rows(path: Path) -> list:
+    """The UID, label and prediction columns of a predictions CSV."""
+    with open(path, newline="") as f:
+        return [r[:3] for r in csv.reader(f)]
+
+
+def _probabilities(path: str, device: str) -> np.ndarray:
+    """A saved model's probabilities on its held-out rows, unrounded (the
+    CSV prints 6 digits, so its strings differ where a value sits at a
+    rounding boundary)."""
+    model, test = checkpoint._load_checkpoint_for_scoring(
+        path, None, None, None, None, None, device)
+    return np.asarray(model.transform(test).probability, np.float64)
+
+
+def lifecycle_scoring(trained: dict) -> dict:
+    """``evaluate`` and ``predict`` of every saved model on the card
+    (counted: K1 never, K2 once a layer a prediction chunk of a
+    transformer), then ``predict`` with ``--device cpu``: its CSV's
+    prediction columns against the card's, and the model's probabilities
+    on the two devices."""
+    out, expected_flash = {}, 0
+    with launch_counts() as launches:
+        for name in trained:
+            path = str(MODELS_DIR / name)
+            t0 = time.perf_counter()
+            scored = run_cli_json(["evaluate", "--checkpoint", path, "--device", "cuda"])
+            t1 = time.perf_counter()
+            run_cli_json(["predict", "--checkpoint", path, "--device", "cuda",
+                          "--output", str(OUT / "predict" / f"{name}_cuda.csv")])
+            t2 = time.perf_counter()
+            meta = checkpoint.load_model_meta(path)
+            if meta["model_name"] == "transformer":
+                layers = len(checkpoint.load_model(path, "cpu").inner.module.blocks)
+                expected_flash += 2 * layers * math.ceil(scored["n_test"] / PREDICT_CHUNK)
+            out[name] = dict(accuracy=scored["accuracy"], trained=trained[name],
+                             n_test=scored["n_test"], evaluate_s=t1 - t0,
+                             predict_s=t2 - t1)
+    for name in trained:
+        path = str(MODELS_DIR / name)
+        t0 = time.perf_counter()
+        run_cli_json(["predict", "--checkpoint", path, "--device", "cpu",
+                      "--output", str(OUT / "predict" / f"{name}_cpu.csv")])
+        cpu_s = time.perf_counter() - t0
+        card_rows = _csv_rows(OUT / "predict" / f"{name}_cuda.csv")
+        cpu_rows = _csv_rows(OUT / "predict" / f"{name}_cpu.csv")
+        prob_diff = np.abs(_probabilities(path, "cuda") - _probabilities(path, "cpu")).max()
+        meta = checkpoint.load_model_meta(path)
+        bf16 = (meta.get("format") != "classical"
+                and meta["model_kwargs"].get("dtype", "bfloat16") == "bfloat16")
+        out[name].update(
+            predictions_equal=card_rows == cpu_rows,
+            max_prob_diff=float(prob_diff),
+            prob_atol=PREDICT_PROB_ATOL_BF16 if bf16 else PREDICT_PROB_ATOL,
+            cpu_predict_s=cpu_s,
+        )
+    expected = dict(hist=0, hist_rows=0, flash_attention=expected_flash)
+    emit("lifecycle_scoring", models=out, launches=launches, expected_launches=expected)
+    if launches != expected:
+        raise AssertionError(f"lifecycle scoring: launches {launches}, expected {expected}")
+    for name, r in out.items():
+        if r["accuracy"] != r["trained"]:
+            raise AssertionError(f"evaluate {name}: {r['accuracy']} != train's {r['trained']}")
+        if not (r["predictions_equal"] and r["max_prob_diff"] <= r["prob_atol"]):
+            raise AssertionError(f"predict {name}: card and CPU disagree: {r}")
+    return dict(models=out, launches=launches)
+
+
+def lifecycle_resume() -> dict:
+    """An MLP at the CLI's widths on the table's numeric view, 6 epochs
+    with a snapshot every 2: crashed after its first snapshot, resumed,
+    and held to the unbroken run."""
+    config = RunConfig(model=ModelConfig(name="mlp"))
+    train, _, _ = featurize(config, load_dataset(config), "cuda")
+    x = StandardScaler().fit(train.features).transform(train.features)
+    ckdir = OUT / "resume_checkpoints"
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+    def fit(**kw):
+        module = build_model("mlp", C, in_features=x.shape[-1])
+        return Trainer(module, TrainerConfig(epochs=6, **kw), device="cuda").fit(
+            x, train.label, num_classes=C)
+
+    t0 = time.perf_counter()
+    straight = fit()
+    save = checkpoint.TrainCheckpointer.save
+
+    def crashing_save(self, epoch, params, opt_state, extra=None):
+        save(self, epoch, params, opt_state, extra)
+        raise RuntimeError("simulated crash")
+
+    checkpoint.TrainCheckpointer.save = crashing_save
+    try:
+        fit(checkpoint_dir=str(ckdir), save_every_epochs=2)
+        raise AssertionError("the crashing run did not crash")
+    except RuntimeError as err:
+        if "simulated crash" not in str(err):
+            raise
+    finally:
+        checkpoint.TrainCheckpointer.save = save
+    resumed = fit(checkpoint_dir=str(ckdir), save_every_epochs=2)
+    seconds = time.perf_counter() - t0
+    want, got = straight.history["loss"][2:], resumed.history["loss"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    pairs = list(zip(resumed.module.state_dict().values(),
+                     straight.module.state_dict().values()))
+    exact = got == want and all(torch.equal(a, b) for a, b in pairs)
+    param_diff = max(float((a - b).abs().max()) for a, b in pairs)
+    out = dict(resumed_from_epoch=resumed.history["resumed_from_epoch"], exact=exact,
+               max_loss_rel_diff=loss_rel, max_param_diff=param_diff, seconds=seconds)
+    emit("lifecycle_resume", losses_unbroken=want, losses_resumed=got, **out)
+    if out["resumed_from_epoch"] != 2 or len(got) != len(want):
+        raise AssertionError(f"resume: {out}")
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    for a, b in pairs:
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-6)
+    return out
+
+
+def lifecycle_early_stop() -> dict:
+    """``train --models mlp --no-cv --early-stop-patience 3
+    --checkpoint-dir`` twice: the second run resumes the finished search,
+    trains nothing and scores the same."""
+    ckdir = OUT / "early_stop_checkpoints"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    argv = ["train", "--models", "mlp", "--no-cv", "--early-stop-patience", "3",
+            "--checkpoint-dir", str(ckdir), "--device", "cuda",
+            "--output-dir", str(OUT / "early_stop")]
+    runs, seconds = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        with recorded_histories() as histories:
+            runs.append((run_cli(argv), histories[0]))
+        seconds.append(time.perf_counter() - t0)
+    (first_acc, first), (second_acc, second) = runs
+    out = dict(seconds=seconds, best_epoch=first["best_epoch"],
+               stopped_epoch=first["stopped_epoch"],
+               val_accuracy=first["val_accuracy"], accuracy=first_acc["mlp"],
+               second_resumed_from_epoch=second.get("resumed_from_epoch"),
+               second_epochs_trained=len(second["loss"]),
+               second_accuracy=second_acc["mlp"])
+    emit("lifecycle_early_stop", **out)
+    if not (out["second_epochs_trained"] == 0
+            and out["second_resumed_from_epoch"] == out["stopped_epoch"]
+            and second["best_epoch"] == out["best_epoch"]
+            and out["second_accuracy"] == out["accuracy"]):
+        raise AssertionError(f"early stop: the second run differs: {out}")
+    check_floor("early-stopped mlp", out["accuracy"], MLP_MIN_ACCURACY)
+    return out
+
+
+FROZEN = ("ConvBlock_0", "ConvBlock_1")
+
+
+def lifecycle_finetune() -> dict:
+    """``finetune`` of the saved CNN1D on the card with its first two
+    blocks frozen: those tensors bit-identical to the checkpoint's."""
+    ft_dir = OUT / "finetuned_cnn1d"
+    shutil.rmtree(ft_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    with launch_counts() as launches:
+        out = run_cli_json(["finetune", "--checkpoint", str(MODELS_DIR / "cnn1d"),
+                            "--freeze", *FROZEN, "--output", str(ft_dir),
+                            "--device", "cuda"])
+    seconds = time.perf_counter() - t0
+    with np.load(MODELS_DIR / "cnn1d" / "params.npz") as a, np.load(ft_dir / "params.npz") as b:
+        frozen = {k: bool(np.array_equal(a[k], b[k])) for k in a.files
+                  if k.split("/")[0] in FROZEN}
+        head_moved = not np.array_equal(a["Dense_1/kernel"], b["Dense_1/kernel"])
+    out.update(frozen_equal=all(frozen.values()), frozen_tensors=len(frozen),
+               head_moved=head_moved, launches=launches, seconds=seconds)
+    emit("lifecycle_finetune", **out)
+    if not (frozen and out["frozen_equal"] and head_moved):
+        raise AssertionError(f"finetune: frozen tensors moved or the head did not: {out}")
+    if launches != dict(hist=0, hist_rows=0, flash_attention=0):
+        raise AssertionError(f"finetune launched {launches}")
+    check_floor("finetuned cnn1d", out["accuracy_after"], CNN1D_MIN_ACCURACY)
+    return out
+
+
+def phase_lifecycle_main(trained: dict) -> dict:
+    """The saved models of the main paths, scored and predicted on the
+    card against the CPU; resume, early stopping and fine-tuning."""
+    t0 = time.perf_counter()
+    scoring = lifecycle_scoring(trained)
+    resume = lifecycle_resume()
+    early_stop = lifecycle_early_stop()
+    finetune = lifecycle_finetune()
+    return dict(scoring=scoring, resume=resume, early_stop=early_stop,
+                finetune=finetune, seconds=time.perf_counter() - t0)
 
 
 def _profile_fit(label: str, fit) -> None:
@@ -1419,6 +1677,7 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int,
 
 def main(argv: list[str]) -> int:
     native_before = native_hashes()
+    shutil.rmtree(MODELS_DIR, ignore_errors=True)
     device = phase_device()
     phase_build()
     if "--flash-only" in argv:
@@ -1441,18 +1700,24 @@ def main(argv: list[str]) -> int:
     raw_features_main = phase_raw_features_main()
     neural_agree = phase_neural_agree()
     neural_main = phase_neural_main()
+    trained = dict(default_main["accuracies"], gbdt=gbdt_main["accuracies"]["gbdt"],
+                   transformer=raw_main["accuracies"]["transformer"],
+                   cnn1d=neural_main["cnn1d_main"]["accuracy"])
+    lifecycle = phase_lifecycle_main(trained)
     if "--profile" in argv:
         phase_profile()
     flash_launches = {
         name: path["launches"]["flash_attention"]
-        for name, path in (("raw_main", raw_main), ("raw_packed", raw_packed))
+        for name, path in (("raw_main", raw_main), ("raw_packed", raw_packed),
+                           ("lifecycle_main", lifecycle["scoring"]))
     }
     hist_rows_launches = {
         name: path["launches"]["hist_rows"]
         for name, path in (("main", main_path), ("default_main", default_main),
                            ("parity_main", parity_main), ("gbdt_main", gbdt_main),
                            ("gbdt_cv_main", gbdt_main["cv"]),
-                           ("raw_features_main", raw_features_main))
+                           ("raw_features_main", raw_features_main),
+                           ("lifecycle_main", lifecycle["scoring"]))
     }
     rows_checked = dict(
         max_abs_err=max(hist_rows["max_abs_err"], gbdt_hist["max_abs_err"]),
@@ -1490,7 +1755,18 @@ def main(argv: list[str]) -> int:
                         cv_launches=gbdt_main["cv"]["launches"],
                         cv_seconds=gbdt_main["cv"]["seconds"]),
          raw_features_main={k: raw_features_main[k] for k in ("launches", "accuracies")},
-         neural_agree=neural_agree, neural_main=neural_main)
+         neural_agree=neural_agree, neural_main=neural_main,
+         lifecycle_main=dict(
+             seconds=lifecycle["seconds"],
+             scoring={name: {k: r[k] for k in ("accuracy", "max_prob_diff")}
+                      for name, r in lifecycle["scoring"]["models"].items()},
+             scoring_launches=lifecycle["scoring"]["launches"],
+             resume={k: lifecycle["resume"][k] for k in
+                     ("exact", "max_loss_rel_diff", "max_param_diff")},
+             early_stop={k: lifecycle["early_stop"][k] for k in
+                         ("best_epoch", "stopped_epoch", "second_epochs_trained")},
+             finetune={k: lifecycle["finetune"][k] for k in
+                       ("accuracy_before", "accuracy_after", "frozen_equal")}))
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 

@@ -9,7 +9,10 @@ MLP, CNN1D, BiLSTM) are a tree of arrays; these functions build the port's
 models (or their state_dict) from them, so the same fitted state predicts on
 either package.  They take arrays, not ``har_tpu`` objects: the port never
 imports the JAX package.  The arrays are copied (JAX hands out read-only
-views).
+views).  The ``*_params_to_flax`` functions are the inverses: the flax
+tree of a port module's parameters, which a saved neural model's
+``params.npz`` holds, and ``flax_module_prefixes`` names each flax
+top-level module's parameters in the port (what ``--freeze`` reads).
 """
 
 from __future__ import annotations
@@ -247,3 +250,183 @@ def bilstm_params_from_flax(params) -> dict:
         i += 1
     _dense("head", params["Dense_0"], out)
     return _state_dict(out)
+
+
+# --------------------------------------------------------------------------
+# The inverses: the port's state_dict -> a flax parameter tree (nested dicts
+# of float32 numpy arrays, flax's names and layouts).  A saved neural
+# model's params.npz holds this tree, flattened with "/".
+
+
+def _np(state_dict, key) -> np.ndarray:
+    return np.ascontiguousarray(state_dict[key].detach().cpu().numpy(), np.float32)
+
+
+def _to_dense(state_dict, prefix: str) -> dict:
+    """torch weight (out, in) -> flax Dense kernel (in, out)."""
+    return {
+        "kernel": np.ascontiguousarray(_np(state_dict, f"{prefix}.weight").T),
+        "bias": _np(state_dict, f"{prefix}.bias"),
+    }
+
+
+def _to_norm(state_dict, prefix: str) -> dict:
+    return {
+        "scale": _np(state_dict, f"{prefix}.weight"),
+        "bias": _np(state_dict, f"{prefix}.bias"),
+    }
+
+
+def _count(state_dict, prefix: str) -> int:
+    """How many ``prefix.<i>.*`` submodules the state_dict holds."""
+    return len({k.split(".")[1] for k in state_dict if k.startswith(prefix + ".")})
+
+
+def mlp_params_to_flax(state_dict) -> dict:
+    """Inverse of :func:`mlp_params_from_flax`."""
+    hidden = _count(state_dict, "layers")
+    tree = {f"Dense_{i}": _to_dense(state_dict, f"layers.{i}") for i in range(hidden)}
+    tree[f"Dense_{hidden}"] = _to_dense(state_dict, "head")
+    return tree
+
+
+def cnn1d_params_to_flax(state_dict) -> dict:
+    """Inverse of :func:`cnn1d_params_from_flax`: a block's norm is a
+    LayerNorm where it has a bias, an RMSNorm where it has only a scale."""
+    tree: dict = {}
+    for i in range(_count(state_dict, "blocks")):
+        p = f"blocks.{i}"
+        block = {
+            "Conv_0": {
+                "kernel": np.ascontiguousarray(
+                    _np(state_dict, f"{p}.weight").transpose(2, 1, 0)
+                ),
+                "bias": _np(state_dict, f"{p}.bias"),
+            }
+        }
+        if f"{p}.norm.bias" in state_dict:
+            block["LayerNorm_0"] = _to_norm(state_dict, f"{p}.norm")
+        elif f"{p}.norm.weight" in state_dict:
+            block["RMSNorm_0"] = {"scale": _np(state_dict, f"{p}.norm.weight")}
+        tree[f"ConvBlock_{i}"] = block
+    tree["Dense_0"] = _to_dense(state_dict, "fc")
+    tree["Dense_1"] = _to_dense(state_dict, "head")
+    return tree
+
+
+def bilstm_params_to_flax(state_dict) -> dict:
+    """Inverse of :func:`bilstm_params_from_flax`."""
+    tree: dict = {
+        f"FusedBiLSTMLayer_{i}": {
+            name: _np(state_dict, f"layers.{i}.{name}") for name in ("wx", "wh", "bias")
+        }
+        for i in range(_count(state_dict, "layers"))
+    }
+    tree["Dense_0"] = _to_dense(state_dict, "head")
+    return tree
+
+
+def transformer_params_to_flax(state_dict, patch_size: int = 1,
+                               scan_layers: bool = False) -> dict:
+    """Inverse of :func:`transformer_params_from_flax`, in the unrolled
+    layout or (``scan_layers``) the stacked ``blocks/EncoderBlock_0`` one;
+    a patch embedding's (out, patch·in) weight becomes the conv kernel
+    (patch, in, out)."""
+    tree: dict = {}
+    if "patch_embed.weight" in state_dict:
+        weight = _np(state_dict, "patch_embed.weight")
+        tree["patch_embed"] = {
+            "kernel": np.ascontiguousarray(
+                weight.T.reshape(patch_size, -1, weight.shape[0])
+            ),
+            "bias": _np(state_dict, "patch_embed.bias"),
+        }
+    else:
+        tree["embed"] = _to_dense(state_dict, "embed")
+    blocks = []
+    for i in range(_count(state_dict, "blocks")):
+        blocks.append({
+            flax_name: (_to_norm if flax_name.startswith("LayerNorm") else _to_dense)(
+                state_dict, f"blocks.{i}.{port_name}"
+            )
+            for flax_name, port_name in _BLOCK_NAMES.items()
+        })
+    if scan_layers:
+        tree["blocks"] = {
+            "EncoderBlock_0": {
+                name: {
+                    key: np.stack([b[name][key] for b in blocks])
+                    for key in blocks[0][name]
+                }
+                for name in blocks[0]
+            }
+        }
+    else:
+        for i, block in enumerate(blocks):
+            tree[f"EncoderBlock_{i}"] = block
+    tree["LayerNorm_0"] = _to_norm(state_dict, "norm")
+    tree["head"] = _to_dense(state_dict, "head")
+    return tree
+
+
+def neural_params_to_flax(model_name: str, module) -> dict:
+    """A neural module's parameters as the flax tree of its family."""
+    state_dict = module.state_dict()
+    if model_name == "transformer":
+        return transformer_params_to_flax(
+            state_dict, patch_size=module.patch_size, scan_layers=module.scan_layers
+        )
+    return _TO_FLAX[model_name](state_dict)
+
+
+def neural_params_from_flax(model_name: str, tree) -> dict:
+    """The port's state_dict from the flax tree of its family."""
+    return _FROM_FLAX[model_name](tree)
+
+
+_TO_FLAX = {
+    "mlp": mlp_params_to_flax,
+    "cnn1d": cnn1d_params_to_flax,
+    "bilstm": bilstm_params_to_flax,
+}
+_FROM_FLAX = {
+    "mlp": mlp_params_from_flax,
+    "cnn1d": cnn1d_params_from_flax,
+    "bilstm": bilstm_params_from_flax,
+    "transformer": transformer_params_from_flax,
+}
+
+
+def flax_module_prefixes(model_name: str, module) -> dict[str, tuple[str, ...]]:
+    """flax's top-level parameter names -> the port's state_dict prefixes
+    that hold the same parameters (what ``transfer.freeze_mask`` reads):
+    ``ConvBlock_i`` is ``blocks.i``, the CNN's ``Dense_0`` and ``Dense_1``
+    are ``fc`` and ``head``, the MLP's last ``Dense`` is ``head``, a
+    transformer's ``EncoderBlock_i`` is ``blocks.i`` (``blocks``, in the
+    ``scan_layers`` layout, every block) and its ``LayerNorm_0`` is
+    ``norm``."""
+    state_dict = module.state_dict()
+    if model_name == "mlp":
+        hidden = _count(state_dict, "layers")
+        table = {f"Dense_{i}": (f"layers.{i}",) for i in range(hidden)}
+        table[f"Dense_{hidden}"] = ("head",)
+    elif model_name == "cnn1d":
+        table = {f"ConvBlock_{i}": (f"blocks.{i}",)
+                 for i in range(_count(state_dict, "blocks"))}
+        table.update(Dense_0=("fc",), Dense_1=("head",))
+    elif model_name == "bilstm":
+        table = {f"FusedBiLSTMLayer_{i}": (f"layers.{i}",)
+                 for i in range(_count(state_dict, "layers"))}
+        table["Dense_0"] = ("head",)
+    elif model_name == "transformer":
+        embed = "patch_embed" if "patch_embed.weight" in state_dict else "embed"
+        table = {embed: (embed,)}
+        if module.scan_layers:
+            table["blocks"] = ("blocks",)
+        else:
+            table.update({f"EncoderBlock_{i}": (f"blocks.{i}",)
+                          for i in range(_count(state_dict, "blocks"))})
+        table.update(LayerNorm_0=("norm",), head=("head",))
+    else:
+        raise ValueError(f"unknown neural model {model_name!r}")
+    return table

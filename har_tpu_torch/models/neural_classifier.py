@@ -36,6 +36,16 @@ class NeuralClassifier:
     augment: str | None = None
     device: str = "cuda"
 
+    def copy_with(self, **params) -> "NeuralClassifier":
+        """A copy with ``params`` set: the estimator's own fields directly,
+        any other name on its TrainerConfig (a CV grid's learning_rate)."""
+        known = {f.name for f in dataclasses.fields(self)}
+        direct = {k: v for k, v in params.items() if k in known}
+        extra = {k: v for k, v in params.items() if k not in known}
+        if extra:
+            direct["config"] = dataclasses.replace(self.config, **extra)
+        return dataclasses.replace(self, **direct)
+
     def fit(self, data) -> "NeuralClassifierModel":
         x = np.asarray(data.features, np.float32)
         y = np.asarray(data.label, np.int32)

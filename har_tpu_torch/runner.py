@@ -15,7 +15,9 @@ Port of ``har_tpu/runner.py::run`` for every family of ``har train``:
   WISDM features (``features/raw_features.py``, on ``device``) for the
   others → the Bernoulli 70/30 split → fit, score and CV as above;
 
-then result.txt, the metrics CSV, the cross-fold CSV and timing.csv.
+then result.txt, the metrics CSV, the cross-fold CSV and timing.csv, and
+with ``save_models_dir`` every fitted model as a saved artifact
+(``checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -390,7 +392,35 @@ def _fit_eval(est, name, train, test, report, timer, is_cv=False):
         report.model_block(
             result, sample_text=report.prediction_sample(test, preds)
         )
-    return result
+    return result, model
+
+
+def _save_fitted(base_dir: str, job_name: str, model, est, config: RunConfig,
+                 pipe_model, input_shape: tuple | None = None) -> str:
+    """Persist one fitted model under ``base_dir/job_name``: a neural one
+    as parameters and meta, a classical one as arrays and meta with the
+    fitted one-hot pipeline's vocabularies where it trained on them."""
+    from har_tpu_torch.checkpoint import save_classical_model, save_model
+    from har_tpu_torch.models.neural_classifier import NeuralClassifierModel
+
+    path = os.path.join(base_dir, job_name)
+    synthetic_rows = None
+    if config.data.resolved_path() is None:
+        # the effective row count, so scoring's provenance guard fires
+        # for runs that never set synthetic_rows
+        synthetic_rows = effective_synthetic_rows(config.data)
+    provenance = dict(
+        dataset=config.data.dataset,
+        synthetic_rows=synthetic_rows,
+        drop_binned=config.data.drop_binned,
+        split_method=resolve_split_method(config.data),
+        split_seed=config.data.seed,
+        train_fraction=config.data.train_fraction,
+    )
+    if isinstance(model, NeuralClassifierModel):
+        return save_model(path, model, est.model_name, dict(est.model_kwargs),
+                          input_shape=input_shape, **provenance)
+    return save_classical_model(path, model, pipeline=pipe_model, **provenance)
 
 
 def _model_config(config: RunConfig, name: str) -> RunConfig:
@@ -404,9 +434,12 @@ def run(
     models=None,
     with_cv: bool = True,
     device: str | torch.device = "cuda",
+    save_models_dir: str | None = None,
 ) -> RunOutcome:
     """The reference pipeline for the ported families on ``device``: each
-    model's fit and, with ``with_cv``, its CrossValidator."""
+    model's fit and, with ``with_cv``, its CrossValidator; with
+    ``save_models_dir``, every fitted model saved there as ``<name>`` and
+    ``<name>_cv`` (the CV's refit, saved with the tuned estimator)."""
     device = resolve_device(device)
     models = [
         canonical_model_name(m)
@@ -481,13 +514,25 @@ def run(
 
     results = []
     for name, est in zip(models, estimators):
-        train, test = view_cache[modes[name]][:2]
-        results.append(_fit_eval(est, name, train, test, report, timer))
+        train, test, pipe_model = view_cache[modes[name]]
+        input_shape = np.asarray(train.features).shape[1:]
+        result, model = _fit_eval(est, name, train, test, report, timer)
+        results.append(result)
+        if save_models_dir:
+            _save_fitted(save_models_dir, name, model, est, config, pipe_model,
+                         input_shape)
         if with_cv:
             cv = _cross_validator(config, name, est)
-            results.append(
-                _fit_eval(cv, f"{name}_cv", train, test, report, timer, is_cv=True)
-            )
+            result, cv_model = _fit_eval(cv, f"{name}_cv", train, test, report,
+                                         timer, is_cv=True)
+            results.append(result)
+            if save_models_dir:
+                # the tuned estimator, so a neural artifact's meta
+                # describes the refit's architecture
+                tuned = (est.copy_with(**cv_model.best_params)
+                         if cv_model.best_params else est)
+                _save_fitted(save_models_dir, f"{name}_cv", cv_model.best_model,
+                             tuned, config, pipe_model, input_shape)
     with timer("report"):
         paths = report.save()
     paths["timing"] = write_timing_csv(

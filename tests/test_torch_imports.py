@@ -11,7 +11,7 @@ import torch
 torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "har_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "har_tpu")
 # the package's sources; _build/ holds generated files, not sources
 FILES = sorted(
     p
@@ -48,6 +48,8 @@ def test_port_has_files():
         "har_tpu_torch/models/neural.py",
         "har_tpu_torch/features/raw_features.py",
         "har_tpu_torch/data/augment.py",
+        "har_tpu_torch/checkpoint.py",
+        "har_tpu_torch/transfer.py",
     ):
         assert required in names
 

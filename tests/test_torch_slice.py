@@ -19,9 +19,12 @@ import har_tpu.runner as jax_runner
 from har_tpu.config import DataConfig as JaxDataConfig
 from har_tpu.config import ModelConfig as JaxModelConfig
 from har_tpu.config import RunConfig as JaxRunConfig
+from har_tpu.config import TuningConfig as JaxTuningConfig
+from har_tpu.models.neural_classifier import NeuralClassifier as JaxNeural
 from har_tpu_torch import cli
 from har_tpu_torch import runner as port_runner
-from har_tpu_torch.config import DataConfig, MeshConfig, ModelConfig, RunConfig
+from har_tpu_torch.config import DataConfig, MeshConfig, ModelConfig, RunConfig, TuningConfig
+from har_tpu_torch.models.neural_classifier import NeuralClassifier
 
 torch.set_num_threads(1)
 
@@ -237,13 +240,14 @@ def test_cli_without_gpu_raises_unless_cpu_is_named(tmp_path, monkeypatch):
     [
         {"models": ["dt"], "data": {"dataset": "ucihar"}},
         {"models": ["mlp"], "mesh": {"dp": 2}},
-        {"models": ["mlp"], "params": {"early_stop_patience": 2}},
-        {"models": ["mlp"], "params": {"checkpoint_dir": "ckpt"}},
+        {"models": ["mlp"], "params": {"compute_flops": True}},
+        {"models": ["lr"], "mesh": {"dp": 2}},
     ],
 )
 def test_unported_parts_raise_not_implemented(tmp_path, kwargs):
     """Parts of `train` still to port (ROADMAP.md Queue 1): the UCI-HAR
-    dataset, the data-parallel mesh, early stopping and checkpoints."""
+    dataset, the data-parallel mesh (neural training and LR's sharded
+    sweep) and the trainer's FLOP count."""
     config = RunConfig(
         data=DataConfig(synthetic_rows=ROWS, **kwargs.get("data", {})),
         model=ModelConfig(params=dict(kwargs.get("params", {}), epochs=1)),
@@ -316,3 +320,34 @@ def test_cli_gbt_on_the_cpu(tmp_path, capsys, monkeypatch):
     assert set(printed["accuracies"]) == {"gbdt"}
     for name in ("result.txt", "additional_param.csv", "timing.csv"):
         assert (tmp_path / name).is_file()
+
+
+def test_mlp_with_a_tuning_grid_matches_jax(tmp_path):
+    """A neural model's CV over a grid (the estimator's copy_with): the
+    port runs it, with the JAX package's report structure."""
+    params = {"epochs": 1, "hidden": (16,)}
+    tuning = dict(grid={"learning_rate": [1e-3, 3e-3]}, num_folds=2)
+    jax_out, port_out = tmp_path / "jax", tmp_path / "port"
+    jax_runner.run(
+        JaxRunConfig(data=JaxDataConfig(synthetic_rows=ROWS),
+                     model=JaxModelConfig(params=dict(params)),
+                     tuning=JaxTuningConfig(**tuning), output_dir=str(jax_out)),
+        models=["mlp"],
+    )
+    outcome = port_runner.run(
+        RunConfig(data=DataConfig(synthetic_rows=ROWS),
+                  model=ModelConfig(params=dict(params)),
+                  tuning=TuningConfig(**tuning), output_dir=str(port_out)),
+        models=["mlp"], device="cpu", save_models_dir=str(tmp_path / "models"),
+    )
+    assert set(outcome.accuracies) == {"mlp", "mlp_cv"}
+    assert_same_report_structure(port_out, jax_out)
+    assert sorted(p.name for p in (tmp_path / "models").iterdir()) == ["mlp", "mlp_cv"]
+
+
+def test_neural_copy_with_sets_trainer_fields():
+    port = NeuralClassifier("mlp").copy_with(learning_rate=1e-2, augment="none")
+    jax = JaxNeural("mlp").copy_with(learning_rate=1e-2, augment="none")
+    assert port.config.learning_rate == jax.config.learning_rate == 1e-2
+    assert port.augment == jax.augment == "none"
+    assert NeuralClassifier("mlp").config.learning_rate == 3e-3

@@ -131,8 +131,9 @@ def test_balanced_weights_are_the_jax_formula():
 
 @pytest.mark.parametrize(
     "option",
-    [dict(checkpoint_dir="/nonexistent"), dict(early_stop_patience=2),
-     dict(compute_flops=True), dict(save_every_epochs=1)],
+    [dict(checkpoint_dir="/nonexistent", compute_flops=True),
+     dict(early_stop_patience=2, compute_flops=True),
+     dict(compute_flops=True), dict(save_every_epochs=1, compute_flops=True)],
 )
 def test_unported_options_raise(option):
     x, y = _data(n=8)
