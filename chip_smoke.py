@@ -14,7 +14,8 @@ exits nonzero without the final ``ok`` line:
    shapes it served before the tree path moved to the row-sparse kernel,
    and the row-sparse kernel at the test shapes and every level shape of
    the main path (each level at its live width; at the full training
-   split and at a CV fold's 3,034 rows); exact for integer
+   split and at a CV fold's 3,034 rows) and of the UCI-HAR paths (7,209
+   rows, d = 561); exact for integer
    weights, rtol 1e-5 for random float32 weights; kernel, plain and
    one-hot-matmul times from CUDA events and the least time the card
    could take (and apart from it, the time of the output's zeroing where
@@ -67,8 +68,8 @@ exits nonzero without the final ``ok`` line:
     result.txt equal to a ``--device cpu`` run's outside the uid and timing
     lines, and native/*.so byte-identical before and after the run;
 14. gbdt_hist: K1's row-sparse kernel at every boosted-tree level shape
-    (2K = 12 channels: g and h of 6 class trees; live width 1-16; d 13
-    and 43; B 32) against its plain version: small integer weights bit
+    (2K = 12 channels: g and h of 6 class trees; live width 1-16; d 13,
+    43 and UCI-HAR's 561; B 32) against its plain version: small integer weights bit
     for bit (the int32 path), signed float gradients and hessians within
     rtol 1e-5 plus 1e-5 times each element's sum of |w| (the float path);
     kernel times (CUDA events and graph), plain and one-call index_add_
@@ -107,11 +108,35 @@ exits nonzero without the final ``ok`` line:
     trains nothing and scores the same); and ``finetune`` of the CNN1D
     with ``--freeze ConvBlock_0 ConvBlock_1 --output`` (frozen tensors
     bit-identical to the checkpoint's, accuracy after at the CNN1D floor);
-20. with ``--profile`` only: one DT, one RF and one transformer fit, one
+20. ucihar_main: a UCI-HAR fixture tree at the published size (7,352 +
+    2,947 rows, 561 features; written once), then ``cli train --dataset
+    ucihar --data-path <tree> --device cuda`` with no model flags (K1 as
+    on the default run, 385; DT and DT-CV exactly har_tpu's accuracy on
+    the same tree, LR and RF floors; its models saved), the host's split
+    candidates over the 561 features timed once, and ``cli evaluate`` of
+    the saved DT (the train run's accuracy exactly, no launch); K1 is
+    held against its plain version and timed at every UCI-HAR level
+    shape in phases 3 and 14;
+21. ucihar_gbt_main: ``--models gbt mlp --no-cv`` on the tree (K1 500,
+    floors below har_tpu's);
+22. ucihar_parity_lane: ``parity.ucihar_parity_lane`` on the tree (LR's
+    9-point 5-fold CV on the card): har_tpu's split, best grid point and
+    accuracy within one test row, no launch;
+23. sweep_main: ``cli sweep --device cuda`` at its defaults (LR, DT, RF at
+    70/80/90 % train, LR's CV): K1 three tree paths (165), 12 rows in
+    sweep.csv and sweep.txt, DT equal to har_tpu's at each split;
+24. raw_lane_main: ``cli parity --raw`` on a raw-format file of
+    ``synthetic_raw_stream(5418)`` (1,083,600 lines, written once): all
+    5,418 windows, the lane's CNN1D at or above a floor below har_tpu's,
+    no launch;
+25. with ``--profile`` only: one DT, one RF and one transformer fit, one
     default run, one parity run, one GBDT fit and a 2-epoch BiLSTM fit
     under torch.profiler, with K1's and K2's shares of the device time;
-21. the kernels line (K1's launches over every path that grows trees),
+26. the kernels line (K1's launches over every path that grows trees),
     a short ``summary`` line, then ``{"ok": true, "device": {...}}``.
+
+``train --eda`` (host matplotlib, no kernel) is not driven here: the card's
+machine has no matplotlib; the CPU tests hold it to har_tpu's files.
 
 ``--flash-only`` runs phases 1, 2 and 4 and stops there, without the last
 two lines: the quick way to time K2, or to time another checkout's K2 by
@@ -145,9 +170,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-from har_tpu_torch import checkpoint, cli, runner  # noqa: E402
+from har_tpu_torch import checkpoint, cli, parity, runner  # noqa: E402
 from har_tpu_torch.config import DataConfig, ModelConfig, RunConfig  # noqa: E402
 from har_tpu_torch.data import raw_loader  # noqa: E402
+from har_tpu_torch.data.split import split_indices  # noqa: E402
+from har_tpu_torch.data.ucihar import write_ucihar_fixture  # noqa: E402
 from har_tpu_torch.features.scaler import StandardScaler  # noqa: E402
 from har_tpu_torch.features.wisdm_pipeline import FeatureSet  # noqa: E402
 from har_tpu_torch.models import lbfgs  # noqa: E402
@@ -159,6 +186,7 @@ from har_tpu_torch.models.gbdt import GradientBoostedTreesClassifier  # noqa: E4
 from har_tpu_torch.models.neural import build_model  # noqa: E402
 from har_tpu_torch.models.transformer import Transformer1D  # noqa: E402
 from har_tpu_torch.models.tree import DecisionTreeClassifier  # noqa: E402
+from har_tpu_torch.models.tree import mllib_split_candidates  # noqa: E402
 from har_tpu_torch.ops import _build  # noqa: E402
 from har_tpu_torch.ops import flash_attention as flash_ops  # noqa: E402
 from har_tpu_torch.ops import hist as hist_ops  # noqa: E402
@@ -201,6 +229,14 @@ ROW_LEVEL_SHAPES = {
 }
 # the kernels line's headline shape: an RF chunk's deepest level
 RF_HEADLINE = f"rf_chunk_L{RF_DEPTH - 1}"
+# UCI-HAR (the ucihar_* phases): a fixture tree of the published
+# archive's 7,352 + 2,947 rows and 561 features; the seed-2018 Bernoulli
+# 70/30 split trains on UCIHAR_N of them, each tree level at d = 561
+UCIHAR_TRAIN, UCIHAR_TEST, UCIHAR_D = 7352, 2947, 561
+UCIHAR_N = len(split_indices(UCIHAR_TRAIN + UCIHAR_TEST, [0.7, 0.3], 2018)[0])
+UCIHAR_ROW_LEVEL_SHAPES = {
+    f"ucihar_{name}": dict(s, n=UCIHAR_N, d=UCIHAR_D) for name, s in ROW_LEVEL_SHAPES.items()
+}
 # the default run's CV fold fits: a 5-fold split of the training rows
 # leaves 3,034 or 3,035 rows a fold fit
 CV_FOLDS = 5
@@ -211,6 +247,7 @@ ROW_CHECK_SHAPES = {
     "test_257x9_b32_wc12_t3": dict(n=257, d=9, bins=32, wc=12, trees=3),
     **ROW_LEVEL_SHAPES,
     **{f"fold_{name}": dict(s, n=FOLD_N) for name, s in ROW_LEVEL_SHAPES.items()},
+    **UCIHAR_ROW_LEVEL_SHAPES,
 }
 # har_tpu on the CPU, same synthetic table and split: 1494 of 1625 right
 DT_EXPECTED_CORRECT, TEST_ROWS = 1494, 1625
@@ -278,9 +315,12 @@ GBDT = GradientBoostedTreesClassifier()
 GBDT_CHANNELS = 2 * C
 GBDT_LAUNCHES = GBDT.num_rounds * GBDT.max_depth
 GBDT_LEVEL_SHAPES = {
-    f"gbdt_d{d}_L{level}": dict(n=N, d=d, bins=GBDT.max_bins, wc=2**level,
-                               trees=GBDT_CHANNELS)
-    for d in (13, 43) for level in range(GBDT.max_depth)
+    **{f"gbdt_d{d}_L{level}": dict(n=N, d=d, bins=GBDT.max_bins, wc=2**level,
+                                  trees=GBDT_CHANNELS)
+       for d in (13, 43) for level in range(GBDT.max_depth)},
+    **{f"ucihar_gbdt_L{level}": dict(n=UCIHAR_N, d=UCIHAR_D, bins=GBDT.max_bins,
+                                    wc=2**level, trees=GBDT_CHANNELS)
+       for level in range(GBDT.max_depth)},
 }
 # the kernel against its plain version at float weights: each element
 # within rtol 1e-5 plus 1e-5 times its own sum of |w| (the float atomics
@@ -309,6 +349,35 @@ MODELS_DIR = OUT / "models"
 PREDICT_PROB_ATOL = 1e-6
 PREDICT_PROB_ATOL_BF16 = 1e-2
 SAVE = ["--save-models-dir", str(MODELS_DIR)]
+
+# the UCI-HAR phases: the fixture tree and the default run's saved models;
+# har_tpu on the CPU, the same tree (raw_accuracy_band.py ucihar, ucihar_rf
+# and ucihar_gbt_mlp, PERF.md §2): DT and DT-CV 0.9799352750809062, LR,
+# LR-CV, GBDT and MLP 1.0, RF 1.0 over RF seeds 0-2 (the port's CPU runs:
+# 1.0 over seeds 0-3); the floors sit below
+UCIHAR_DIR = OUT / "ucihar"
+UCIHAR_MODELS_DIR = OUT / "ucihar_models"
+UCIHAR_DT_ACCURACY = 0.9799352750809062
+UCIHAR_LR_MIN_ACCURACY = 1.0
+UCIHAR_RF_MIN_ACCURACY = 0.99
+UCIHAR_GBT_MIN_ACCURACY = 0.99
+UCIHAR_MLP_MIN_ACCURACY = 0.99
+# har_tpu's ucihar_parity_lane on the tree (raw_accuracy_band.py
+# ucihar_parity): the split, the CV's best grid point and the accuracy
+UCIHAR_LANE = dict(n_train=7209, n_test=3090,
+                   best_params={"elastic_net_param": 0.0, "reg_param": 0.1}, accuracy=1.0)
+# sweep at its defaults on the default table (raw_accuracy_band.py sweep):
+# har_tpu's DT accuracy per split, and its LR and LR-CV ones
+SWEEP_SPLITS = ("70-30", "80-20", "90-10")
+SWEEP_DT_ACCURACY = {"70-30": 0.919385, "80-20": 0.929368, "90-10": 0.918216}
+SWEEP_LR_MIN_ACCURACY = 1.0
+# parity --raw on a raw-format file of synthetic_raw_stream(5418, seed 0);
+# its floor is the CNN1D paths' 0.95: har_tpu's lane at its defaults
+# (raw_accuracy_band.py raw_lane) has not finished on a CPU, so the floor
+# is not yet checked against har_tpu's result (PERF.md §2)
+RAW_LANE_WINDOWS = 5418
+RAW_LANE_FILE = OUT / "WISDM_ar_v1.1_raw.txt"
+RAW_LANE_MIN_ACCURACY = 0.95
 
 
 def emit(phase: str, **fields) -> None:
@@ -582,7 +651,7 @@ def phase_hist_rows() -> dict:
              max_abs_diff_f32=diffs[False], max_rel_diff_f32=rel)
 
     timings = {}
-    for name, s in ROW_LEVEL_SHAPES.items():
+    for name, s in {**ROW_LEVEL_SHAPES, **UCIHAR_ROW_LEVEL_SHAPES}.items():
         wc, bins = s["wc"], s["bins"]
         b, slot, w = tree_row_inputs(**s, seed=3)
         out = hist_ops.hist_rows(b, slot, w, wc, bins)
@@ -1574,6 +1643,159 @@ def phase_lifecycle_main(trained: dict) -> dict:
                 finetune=finetune, seconds=time.perf_counter() - t0)
 
 
+def ucihar_fixture() -> str:
+    """The UCI-HAR fixture tree at the published size, written once (its
+    test subjects are the writer's last file); returns its root."""
+    base = UCIHAR_DIR / "UCI HAR Dataset"
+    if not (base / "test" / "subject_test.txt").is_file():
+        t0 = time.perf_counter()
+        write_ucihar_fixture(str(UCIHAR_DIR), n_train=UCIHAR_TRAIN, n_test=UCIHAR_TEST,
+                             seed=0)
+        emit("ucihar_fixture", rows=UCIHAR_TRAIN + UCIHAR_TEST, features=UCIHAR_D,
+             seconds=time.perf_counter() - t0,
+             bytes=sum(p.stat().st_size for p in base.rglob("*") if p.is_file()))
+    return str(base)
+
+
+def phase_ucihar_main(root: str) -> dict:
+    """``train --dataset ucihar`` with no model flags (LR, DT, RF and their
+    CVs) on the fixture tree, saving its models: K1 as on the default run
+    (the level loop never stops early), DT and DT-CV exactly har_tpu's,
+    LR and RF floors; the host's split candidates over 561 features timed
+    once; then ``evaluate`` of the saved DT on the card scores exactly the
+    train run's accuracy without a launch."""
+    out_dir = OUT / "ucihar_main"
+    shutil.rmtree(UCIHAR_MODELS_DIR, ignore_errors=True)
+    argv = ["train", "--dataset", "ucihar", "--data-path", root, "--device", "cuda",
+            "--output-dir", str(out_dir), "--save-models-dir", str(UCIHAR_MODELS_DIR)]
+    path = drive_path(
+        "ucihar_main", out_dir, lambda: run_cli(argv), hist_rows=default_launches(),
+        artifacts=ARTIFACTS + ("crossFold_additional_param.csv",),
+    )
+    acc = path["accuracies"]
+    for name in ("decision_tree", "decision_tree_cv"):
+        if acc[name] != UCIHAR_DT_ACCURACY:
+            raise AssertionError(f"ucihar {name} accuracy {acc[name]} != {UCIHAR_DT_ACCURACY}")
+    for name in ("logistic_regression", "logistic_regression_cv"):
+        check_floor(f"ucihar {name}", acc[name], UCIHAR_LR_MIN_ACCURACY)
+    for name in ("random_forest", "random_forest_cv"):
+        check_floor(f"ucihar {name}", acc[name], UCIHAR_RF_MIN_ACCURACY)
+
+    config = RunConfig(data=DataConfig(dataset="ucihar", path=root))
+    train, _, _ = featurize(config, load_dataset(config), "cuda")
+    t0 = time.perf_counter()
+    mllib_split_candidates(train.features, B)
+    candidates_s = time.perf_counter() - t0
+    with launch_counts() as launches:
+        t0 = time.perf_counter()
+        scored = run_cli_json(["evaluate", "--checkpoint", str(UCIHAR_MODELS_DIR / "decision_tree"),
+                               "--data-path", root, "--device", "cuda"])
+        evaluate_s = time.perf_counter() - t0
+    emit("ucihar_main_checks", train_rows=len(train), features=train.num_features,
+         split_candidates_s=candidates_s, dt_fit_s=path["timing"]["decision_tree_fit"],
+         evaluate=scored, evaluate_s=evaluate_s, evaluate_launches=launches)
+    if (len(train), train.num_features) != (UCIHAR_N, UCIHAR_D):
+        raise AssertionError(f"ucihar training view {len(train)} x {train.num_features}")
+    if scored["accuracy"] != acc["decision_tree"] or any(launches.values()):
+        raise AssertionError(f"ucihar evaluate: {scored['accuracy']}, launches {launches}")
+    return dict(path, split_candidates_s=candidates_s, evaluate_s=evaluate_s)
+
+
+def phase_ucihar_gbt_main(root: str) -> dict:
+    """``train --dataset ucihar --models gbt mlp --no-cv``: one K1 launch a
+    boosting level (rounds x depth, d = 561), none of K2, floors below
+    har_tpu's."""
+    out_dir = OUT / "ucihar_gbt_main"
+    argv = ["train", "--dataset", "ucihar", "--data-path", root, "--models", "gbt", "mlp",
+            "--no-cv", "--device", "cuda", "--output-dir", str(out_dir)]
+    path = drive_path("ucihar_gbt_main", out_dir, lambda: run_cli(argv),
+                      hist_rows=GBDT_LAUNCHES)
+    check_floor("ucihar gbdt", path["accuracies"]["gbdt"], UCIHAR_GBT_MIN_ACCURACY)
+    check_floor("ucihar mlp", path["accuracies"]["mlp"], UCIHAR_MLP_MIN_ACCURACY)
+    return path
+
+
+def phase_ucihar_parity_lane(root: str) -> dict:
+    """``parity.ucihar_parity_lane`` on the fixture tree (LR's 9-point
+    5-fold CV on the card): har_tpu's split and best grid point, its
+    accuracy within one test row; no K1 or K2 launch."""
+    lane = {}
+
+    def drive():
+        lane.update(parity.ucihar_parity_lane(root, device="cuda"))
+        return {"logistic_regression_cv": lane["accuracy"]}
+
+    path = drive_path("ucihar_parity_lane", OUT, drive, artifacts=())
+    emit("ucihar_parity_lane_checks", lane=lane, expected=UCIHAR_LANE)
+    if (lane["n_train"], lane["n_test"], lane["best_params"]) != (
+            UCIHAR_LANE["n_train"], UCIHAR_LANE["n_test"], UCIHAR_LANE["best_params"]):
+        raise AssertionError(f"ucihar lane {lane} != {UCIHAR_LANE}")
+    if abs(lane["accuracy"] - UCIHAR_LANE["accuracy"]) > 1.0 / lane["n_test"]:
+        raise AssertionError(f"ucihar lane accuracy {lane['accuracy']}")
+    return dict(path, lane=lane)
+
+
+def phase_sweep_main() -> dict:
+    """``sweep`` at its defaults (LR, DT, RF at 70/80/90 % train, LR's CV)
+    on the default table: K1 as three tree paths (LR launches none), 12
+    rows in sweep.csv and sweep.txt, DT's accuracies equal to har_tpu's at
+    each split, LR floors, RF at the tree path's floor."""
+    out_dir = OUT / "sweep_main"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = ["sweep", "--device", "cuda", "--output-dir", str(out_dir)]
+
+    def drive():
+        with contextlib.redirect_stdout(io.StringIO()):
+            if cli.main(argv) != 0:
+                raise AssertionError(f"cli {argv} failed")
+        with open(out_dir / "sweep.csv", newline="") as f:
+            return {f"{r['split']} {r['model']}": float(r["accuracy"])
+                    for r in csv.DictReader(f)}
+
+    tree_path = DT_DEPTH + math.ceil(RF_TREES / TREE_BATCH) * RF_DEPTH
+    path = drive_path("sweep_main", out_dir, drive, hist_rows=len(SWEEP_SPLITS) * tree_path,
+                      artifacts=("sweep.csv", "sweep.txt"))
+    acc = path["accuracies"]
+    models = ("logistic_regression", "logistic_regression_cv", "decision_tree",
+              "random_forest")
+    if list(acc) != [f"{split} {m}" for split in SWEEP_SPLITS for m in models]:
+        raise AssertionError(f"sweep rows {list(acc)}")
+    for split in SWEEP_SPLITS:
+        if acc[f"{split} decision_tree"] != SWEEP_DT_ACCURACY[split]:
+            raise AssertionError(f"sweep {split} DT {acc[f'{split} decision_tree']} != "
+                                 f"{SWEEP_DT_ACCURACY[split]}")
+        for m in models[:2]:
+            check_floor(f"sweep {split} {m}", acc[f"{split} {m}"], SWEEP_LR_MIN_ACCURACY)
+        check_floor(f"sweep {split} random_forest", acc[f"{split} random_forest"],
+                    RF_MIN_ACCURACY)
+    return path
+
+
+def phase_raw_lane_main() -> dict:
+    """``parity --raw`` on a raw-format file of the published stream's size
+    (written once): the lane's CNN1D at its defaults on the card, all
+    5,418 windows, an accuracy floor below har_tpu's; no K1 or K2
+    launch."""
+    if not RAW_LANE_FILE.is_file():
+        t0 = time.perf_counter()
+        raw_loader.write_raw_fixture(str(RAW_LANE_FILE), n_windows=RAW_LANE_WINDOWS, seed=0)
+        emit("raw_lane_file", windows=RAW_LANE_WINDOWS, lines=RAW_LANE_WINDOWS * 200,
+             bytes=RAW_LANE_FILE.stat().st_size, seconds=time.perf_counter() - t0)
+    lane = {}
+
+    def drive():
+        lane.update(run_cli_json(["parity", "--raw", "--data-path", str(RAW_LANE_FILE),
+                                  "--device", "cuda"]))
+        return {"cnn1d": lane["accuracy"]}
+
+    path = drive_path("raw_lane_main", OUT, drive, artifacts=())
+    emit("raw_lane_main_checks", lane=lane)
+    if (lane["n_windows"], lane["n_used"]) != (RAW_LANE_WINDOWS, RAW_LANE_WINDOWS):
+        raise AssertionError(f"raw lane windows {lane['n_windows']}, {lane['n_used']}")
+    check_floor("raw lane", lane["accuracy"], RAW_LANE_MIN_ACCURACY)
+    return dict(path, lane=lane)
+
+
 def _profile_fit(label: str, fit) -> None:
     """One warm fit, one timed fit and one fit under torch.profiler:
     kernel time by name, the device's busy share, K1's row-sparse
@@ -1704,6 +1926,12 @@ def main(argv: list[str]) -> int:
                    transformer=raw_main["accuracies"]["transformer"],
                    cnn1d=neural_main["cnn1d_main"]["accuracy"])
     lifecycle = phase_lifecycle_main(trained)
+    ucihar_root = ucihar_fixture()
+    ucihar_main = phase_ucihar_main(ucihar_root)
+    ucihar_gbt_main = phase_ucihar_gbt_main(ucihar_root)
+    ucihar_lane = phase_ucihar_parity_lane(ucihar_root)
+    sweep_main = phase_sweep_main()
+    raw_lane_main = phase_raw_lane_main()
     if "--profile" in argv:
         phase_profile()
     flash_launches = {
@@ -1717,7 +1945,10 @@ def main(argv: list[str]) -> int:
                            ("parity_main", parity_main), ("gbdt_main", gbdt_main),
                            ("gbdt_cv_main", gbdt_main["cv"]),
                            ("raw_features_main", raw_features_main),
-                           ("lifecycle_main", lifecycle["scoring"]))
+                           ("lifecycle_main", lifecycle["scoring"]),
+                           ("ucihar_main", ucihar_main), ("ucihar_gbt_main", ucihar_gbt_main),
+                           ("ucihar_parity_lane", ucihar_lane), ("sweep_main", sweep_main),
+                           ("raw_lane_main", raw_lane_main))
     }
     rows_checked = dict(
         max_abs_err=max(hist_rows["max_abs_err"], gbdt_hist["max_abs_err"]),
@@ -1766,7 +1997,14 @@ def main(argv: list[str]) -> int:
              early_stop={k: lifecycle["early_stop"][k] for k in
                          ("best_epoch", "stopped_epoch", "second_epochs_trained")},
              finetune={k: lifecycle["finetune"][k] for k in
-                       ("accuracy_before", "accuracy_after", "frozen_equal")}))
+                       ("accuracy_before", "accuracy_after", "frozen_equal")}),
+         **{name: {k: path[k] for k in ("launches", "accuracies", "seconds")}
+            for name, path in (("ucihar_main", ucihar_main),
+                               ("ucihar_gbt_main", ucihar_gbt_main),
+                               ("ucihar_parity_lane", ucihar_lane),
+                               ("sweep_main", sweep_main), ("raw_lane_main", raw_lane_main))},
+         ucihar_split_candidates_s=ucihar_main["split_candidates_s"],
+         ucihar_parity_lane_result=ucihar_lane["lane"], raw_lane_result=raw_lane_main["lane"])
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 

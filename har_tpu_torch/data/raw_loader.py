@@ -15,7 +15,9 @@ module loads that format into columnar arrays:
   - :func:`stream_windows` — group the stream into contiguous
     (user, activity) bouts and segment each into fixed-length windows
     (a :class:`har_tpu_torch.data.raw_windows.WindowedDataset` for the
-    neural models).
+    neural models);
+  - :func:`write_raw_fixture` — a file in this format from synthetic
+    windows, for runs without the real stream.
 """
 
 from __future__ import annotations
@@ -199,3 +201,24 @@ def stream_windows(
         labels=np.concatenate(labels),
         class_names=stream.activity_names,
     )
+
+
+def write_raw_fixture(path: str, n_windows: int = 120, seed: int = 0) -> WindowedDataset:
+    """Write ``synthetic_raw_stream(n_windows, seed)`` to ``path`` in the raw
+    format, one ``1,<activity>,<ns>,x,y,z;`` record a line at 20 Hz (user
+    1, six decimals), byte for byte as the JAX package's raw-lane tests
+    write it; :func:`stream_windows` cuts the file back into the same
+    ``n_windows`` windows.  Returns the windows written."""
+    from har_tpu_torch.data.raw_windows import synthetic_raw_stream
+
+    raw = synthetic_raw_stream(n_windows=n_windows, seed=seed)
+    lines = []
+    t = 0
+    for w, label in zip(raw.windows, raw.labels):
+        name = raw.class_names[label]
+        for x, y, z in w:
+            t += 50_000_000  # 20 Hz in nanoseconds
+            lines.append(f"1,{name},{t},{x:.6f},{y:.6f},{z:.6f};")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return raw

@@ -19,6 +19,12 @@ and writes the same artifacts as ``har_tpu.parity.parity_run``:
 
 The replays stay in numpy and C++ because their bit-exactness rests on the
 JVM's order of double-precision operations.
+
+Two lanes measure the paper's claims on data the repository does not ship,
+and return a ``skipped`` marker until it is present:
+:func:`ucihar_parity_lane` (LR with its 5-fold CV on a "UCI HAR Dataset"
+tree, against the paper's 0.9102-0.919) and :func:`wisdm_raw_lane` (a
+CNN1D on the windows of a real ``WISDM_ar_v1.1_raw.txt``, against 0.97).
 """
 
 from __future__ import annotations
@@ -123,3 +129,157 @@ def parity_run(
         paths["charts"] = os.path.dirname(charts[0])
     return {"accuracies": accuracies, "artifacts": paths}
 
+
+
+def ucihar_parity_lane(root: str | None = None,
+                       device: str | torch.device = "cuda") -> dict:
+    """The paper's second benchmark: LR with its 5-fold CrossValidator over
+    the 9-point reg × elasticNet grid on a 70/30 split (seed 2018) of a
+    "UCI HAR Dataset" tree (``root``, else the one
+    ``data/ucihar.resolve_ucihar_root`` finds), fitted on ``device``;
+    without a tree, a skipped marker instead of a number.
+
+    The paper reports 91.9% (its Fig. 2-3) and 91.02% (its conclusion);
+    its split seed is unknown, so parity means within ±0.02 of that band.
+    """
+    from har_tpu_torch.data.split import split_indices
+    from har_tpu_torch.data.ucihar import (
+        load_ucihar,
+        resolve_ucihar_root,
+        ucihar_feature_set,
+    )
+    from har_tpu_torch.models.logistic_regression import LogisticRegression
+    from har_tpu_torch.tuning import CrossValidator, param_grid
+
+    device = resolve_device(device)
+    expected = {"fig2_accuracy": 0.919, "conclusion_accuracy": 0.9102}
+    root = root if root is not None else resolve_ucihar_root()
+    if root is None:
+        return {
+            "skipped": (
+                "no 'UCI HAR Dataset' tree found — set "
+                "HAR_TPU_UCIHAR_ROOT (or drop the published archive in "
+                "./data) to run the paper-parity lane"
+            ),
+            "expected": expected,
+        }
+    data = ucihar_feature_set(load_ucihar(root, "all"))
+    tr, te = split_indices(len(data), [0.7, 0.3], seed=2018)
+    train, test = data.take(tr), data.take(te)
+    grid = param_grid(reg_param=[0.1, 0.3, 0.5], elastic_net_param=[0.0, 0.1, 0.2])
+    cv = CrossValidator(estimator=LogisticRegression(device=str(device)), grid=grid,
+                        num_folds=5, seed=2018)
+    t0 = time.perf_counter()
+    model = cv.fit(train)
+    preds = model.transform(test)
+    train_time = time.perf_counter() - t0
+    m = evaluate(test.label, preds.raw, int(data.label.max()) + 1)
+    acc = float(m["accuracy"])
+    return {
+        "root": root,
+        "n_train": len(tr),
+        "n_test": len(te),
+        "accuracy": round(acc, 4),
+        "weighted_f1": round(float(m["f1"]), 4),
+        "train_time_s": round(train_time, 3),
+        "best_params": model.best_params,
+        "expected": expected,
+        "within_tolerance": bool(
+            expected["conclusion_accuracy"] - 0.02 <= acc <= expected["fig2_accuracy"] + 0.02
+        ),
+        "reference_train_time_s": 271.196,  # the paper's Table 2, 70-30 LR+CV
+    }
+
+
+def resolve_wisdm_raw() -> str | None:
+    """A real ``WISDM_ar_v1.1_raw.txt``, or None: ``$HAR_TPU_WISDM_RAW`` (a
+    file path) first, then ./, ./data and ~/data, as the JAX package
+    probes."""
+    candidates = [
+        os.environ.get("HAR_TPU_WISDM_RAW"),
+        "./WISDM_ar_v1.1_raw.txt",
+        "./data/WISDM_ar_v1.1_raw.txt",
+        os.path.expanduser("~/data/WISDM_ar_v1.1_raw.txt"),
+    ]
+    for cand in candidates:
+        if cand and os.path.isfile(cand):
+            return cand
+    return None
+
+
+def wisdm_raw_lane(
+    path: str | None = None,
+    *,
+    epochs: int = 40,
+    seed: int = 7,
+    batch_size: int = 1024,
+    channels: tuple = (128, 128, 128),
+    max_windows: int | None = None,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """The ≥97% raw-window claim on real data: window a
+    ``WISDM_ar_v1.1_raw.txt`` (``path``, else :func:`resolve_wisdm_raw`'s)
+    into 200-sample windows per (user, activity) bout, split them 85/15,
+    train a CNN1D on ``device`` and report held-out accuracy against 0.97;
+    without a file (or with under 100 windows), a skipped marker instead
+    of a number.  ``max_windows`` caps the windows by a seeded subsample.
+    """
+    from har_tpu_torch.data.raw_loader import load_raw_stream, stream_windows
+    from har_tpu_torch.data.split import split_indices
+    from har_tpu_torch.features.wisdm_pipeline import FeatureSet
+    from har_tpu_torch.models.neural_classifier import NeuralClassifier
+    from har_tpu_torch.train.trainer import TrainerConfig
+
+    device = resolve_device(device)
+    target = 0.97
+    path = path if path is not None else resolve_wisdm_raw()
+    if path is None:
+        return {
+            "skipped": (
+                "no WISDM_ar_v1.1_raw.txt found — set "
+                "HAR_TPU_WISDM_RAW (or drop the file in ./data) to "
+                "measure the >=0.97 raw-window claim on real data"
+            ),
+            "target_accuracy": target,
+        }
+    data = stream_windows(load_raw_stream(path), window=200)
+    if len(data.labels) < 100:
+        return {
+            "path": path,
+            "skipped": (
+                f"only {len(data.labels)} complete 200-sample windows — "
+                "too few to train/evaluate the claim"
+            ),
+            "target_accuracy": target,
+        }
+    n_total = int(len(data.labels))
+    if max_windows is not None and n_total > max_windows:
+        pick = np.random.default_rng(seed).choice(n_total, size=max_windows, replace=False)
+        data = dataclasses.replace(data, windows=data.windows[pick], labels=data.labels[pick])
+    tr, te = split_indices(len(data.labels), [0.85, 0.15], seed=seed)
+    est = NeuralClassifier(
+        "cnn1d",
+        config=TrainerConfig(batch_size=batch_size, epochs=epochs, learning_rate=2e-3,
+                             seed=0),
+        model_kwargs={"channels": tuple(channels)},
+        device=str(device),
+    )
+    t0 = time.perf_counter()
+    model = est.fit(FeatureSet(features=data.windows[tr],
+                               label=data.labels[tr].astype(np.int32)))
+    train_time = time.perf_counter() - t0
+    m = evaluate(data.labels[te].astype(np.int32), model.transform(data.windows[te]).raw,
+                 len(data.class_names))
+    acc = float(m["accuracy"])
+    return {
+        "path": path,
+        "n_windows": n_total,
+        "n_used": int(len(data.labels)),
+        "n_train": int(len(tr)),
+        "n_test": int(len(te)),
+        "accuracy": round(acc, 4),
+        "weighted_f1": round(float(m["f1"]), 4),
+        "train_time_s": round(train_time, 3),
+        "target_accuracy": target,
+        "target_met": bool(acc >= target),
+    }

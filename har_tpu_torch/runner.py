@@ -14,14 +14,21 @@ Port of ``har_tpu/runner.py::run`` for every family of ``har train``:
   windows themselves for CNN1D, BiLSTM and the transformer, their 43
   WISDM features (``features/raw_features.py``, on ``device``) for the
   others → the Bernoulli 70/30 split → fit, score and CV as above;
+- ``ucihar``: the 561 precomputed features of a "UCI HAR Dataset" tree
+  (``data/ucihar.py``; its synthetic stand-in without a path), labels
+  by the StringIndexer → the Bernoulli 70/30 split → fit, score and CV
+  as above;
 
-then result.txt, the metrics CSV, the cross-fold CSV and timing.csv, and
-with ``save_models_dir`` every fitted model as a saved artifact
-(``checkpoint.py``).
+then result.txt, the metrics CSV, the cross-fold CSV and timing.csv, with
+``save_models_dir`` every fitted model as a saved artifact
+(``checkpoint.py``), and with ``with_eda`` the hexbin plots of the WISDM
+table's numeric columns (``reporting/eda.py``).  :func:`sweep` is the
+paper's split-ratio experiment over the same views.
 """
 
 from __future__ import annotations
 
+import csv
 import dataclasses
 import hashlib
 import inspect
@@ -34,9 +41,11 @@ from har_tpu_torch.config import RunConfig
 from har_tpu_torch.data.raw_loader import load_raw_stream, stream_windows
 from har_tpu_torch.data.raw_windows import WindowedDataset, synthetic_raw_stream
 from har_tpu_torch.data.synthetic import synthetic_wisdm
+from har_tpu_torch.data.ucihar import load_ucihar, synthetic_ucihar, ucihar_feature_set
 from har_tpu_torch.data.wisdm import (
     ACTIVITIES,
     BINNED_COLUMNS,
+    WISDM_NUMERIC_COLUMNS,
     load_wisdm,
     numeric_feature_view,
 )
@@ -55,7 +64,7 @@ from har_tpu_torch.models.neural import MODEL_REGISTRY
 from har_tpu_torch.models.neural_classifier import NeuralClassifier
 from har_tpu_torch.models.tree import DecisionTreeClassifier
 from har_tpu_torch.ops.metrics import evaluate
-from har_tpu_torch.reporting import ModelResult, ReportWriter
+from har_tpu_torch.reporting import ModelResult, ReportWriter, show
 from har_tpu_torch.train.trainer import TrainerConfig
 from har_tpu_torch.tuning import CrossValidator, param_grid
 from har_tpu_torch.utils.profiling import StepTimer, write_timing_csv
@@ -84,8 +93,10 @@ def canonical_model_name(name: str) -> str:
 
 
 def effective_synthetic_rows(data) -> int:
-    """Row count a synthetic fallback generates for this config."""
-    return data.synthetic_rows or (4000 if data.dataset == "wisdm_raw" else 5418)
+    """Row count a synthetic fallback generates for this config, shared by
+    load_dataset and the saved models' provenance."""
+    defaults = {"wisdm_raw": 4000, "ucihar": 2000}
+    return data.synthetic_rows or defaults.get(data.dataset, 5418)
 
 
 def _neural_model_fields(name: str) -> set[str]:
@@ -150,8 +161,9 @@ REFERENCE_GRIDS = {
 
 def load_dataset(config: RunConfig):
     """The WISDM table (the CSV when a path resolves, else the same-shape
-    synthetic table), or for ``wisdm_raw`` the raw windows (of the stream
-    at ``--data-path``, else synthetic)."""
+    synthetic table), for ``wisdm_raw`` the raw windows (of the stream at
+    ``--data-path``, else synthetic), for ``ucihar`` the UCI-HAR table (of
+    the tree at ``--data-path``, else synthetic)."""
     data = config.data
     if data.dataset == "wisdm_raw":
         if data.path is not None:
@@ -159,11 +171,14 @@ def load_dataset(config: RunConfig):
         return synthetic_raw_stream(
             n_windows=effective_synthetic_rows(data), seed=data.seed
         )
-    if data.dataset not in ("wisdm", "synthetic"):
-        raise NotImplementedError(
-            f"dataset {data.dataset!r} is not ported to har_tpu_torch yet: "
-            "ROADMAP.md Queue 1 item 1"
+    if data.dataset == "ucihar":
+        if data.path is not None:
+            return load_ucihar(data.path)
+        return synthetic_ucihar(
+            n_rows=effective_synthetic_rows(data), seed=data.seed
         )
+    if data.dataset not in ("wisdm", "synthetic"):
+        raise ValueError(f"unknown dataset {data.dataset!r}")
     path = data.resolved_path()
     if data.dataset == "wisdm" and path is not None:
         return load_wisdm(path, drop_binned=data.drop_binned)
@@ -197,6 +212,8 @@ def _feature_mode(config: RunConfig) -> str:
             f"{name} trains on raw (T, 3) windows — use --dataset wisdm_raw, "
             f"not a tabular dataset ({config.data.dataset})"
         )
+    if config.data.dataset == "ucihar":
+        return "ucihar"
     return "numeric" if name in ("mlp", "gbdt") else "onehot"
 
 
@@ -246,10 +263,16 @@ def derive_split(full: FeatureSet, table, data) -> tuple[FeatureSet, FeatureSet]
 
 def featurize(config: RunConfig, table, device: str | torch.device = "cuda"):
     """(train, test, fitted pipeline or None) for this config's model: the
-    raw windows or their 43 features (computed on ``device``) split by a
-    Bernoulli draw, or the numeric view or the one-hot pipeline and the
-    split of the tabular table."""
+    UCI-HAR features, the raw windows or their 43 features (computed on
+    ``device``) split by a Bernoulli draw, or the numeric view or the
+    one-hot pipeline and the split of the tabular table."""
     mode = _feature_mode(config)
+    if mode == "ucihar":
+        resolve_split_method(config.data)  # refuses the WISDM-only replay
+        train, test = ucihar_feature_set(table).train_test(
+            config.data.train_fraction, config.data.seed
+        )
+        return train, test, None
     if mode in ("raw", "raw_features"):
         if mode == "raw":
             x = np.asarray(table.windows, np.float32)
@@ -429,27 +452,9 @@ def _model_config(config: RunConfig, name: str) -> RunConfig:
     )
 
 
-def run(
-    config: RunConfig,
-    models=None,
-    with_cv: bool = True,
-    device: str | torch.device = "cuda",
-    save_models_dir: str | None = None,
-) -> RunOutcome:
-    """The reference pipeline for the ported families on ``device``: each
-    model's fit and, with ``with_cv``, its CrossValidator; with
-    ``save_models_dir``, every fitted model saved there as ``<name>`` and
-    ``<name>_cv`` (the CV's refit, saved with the tuned estimator)."""
-    device = resolve_device(device)
-    models = [
-        canonical_model_name(m)
-        for m in (
-            models or ["logistic_regression", "decision_tree", "random_forest"]
-        )
-    ]
-    estimators = [
-        build_estimator(name, config.model.params, device) for name in models
-    ]
+def _refuse_unported_mesh(config: RunConfig, models) -> None:
+    """A dp/tp mesh reaches the neural trainers and LR's sharded sweep,
+    which wait for the parallel layer; the trees ignore it."""
     if (config.mesh.dp, config.mesh.tp) != (1, 1) and any(
         name in _NEURAL or name == "logistic_regression" for name in models
     ):
@@ -458,6 +463,124 @@ def run(
             "LR sweep are not ported to har_tpu_torch yet: ROADMAP.md Queue 1 "
             "item 14 (the parallel layer)"
         )
+
+
+def _model_names(models) -> list[str]:
+    return [
+        canonical_model_name(m)
+        for m in (
+            models or ["logistic_regression", "decision_tree", "random_forest"]
+        )
+    ]
+
+
+def sweep(
+    config: RunConfig,
+    models=None,
+    fractions=(0.7, 0.8, 0.9),
+    with_cv: bool = True,
+    device: str | torch.device = "cuda",
+) -> list[dict]:
+    """Split-ratio sweep, the paper's Table 1/2 experiment: one fit per
+    (train fraction, model) on the view :func:`run` gives that model, plus
+    a 5-fold CrossValidator for the models with a reference grid (LR).
+    Returns one row per fit (split, model, row counts, seconds, accuracy
+    and f1) and writes them to ``sweep.csv`` and, as a Spark-``show()``
+    table, ``sweep.txt`` under ``config.output_dir``."""
+    device = resolve_device(device)
+    models = _model_names(models)
+    if not models or not fractions:
+        raise ValueError("sweep needs at least one model and one fraction")
+    _refuse_unported_mesh(config, models)
+    table = load_dataset(config)
+    timer = StepTimer(device)
+    rows: list[dict] = []
+    for frac in fractions:
+        cfg = dataclasses.replace(
+            config, data=dataclasses.replace(config.data, train_fraction=frac)
+        )
+        # each model trains on the view run() gives it, featurized once
+        # per view and split
+        modes, view_cache = _views_for(models, cfg, table, timer, device)
+        split_name = f"{round(frac * 100)}-{round((1 - frac) * 100)}"
+        for name in models:
+            train, test = view_cache[modes[name]][:2]
+            est = build_estimator(name, config.model.params, device)
+            jobs = [(name, est)]
+            if with_cv and name in REFERENCE_GRIDS:
+                jobs.append((f"{name}_cv", CrossValidator(
+                    estimator=est,
+                    grid=param_grid(**REFERENCE_GRIDS[name]),
+                    num_folds=5,
+                    selection_metric=(config.tuning.selection_metric
+                                      if config.tuning else "accuracy"),
+                    seed=config.data.seed,
+                )))
+            for job_name, job_est in jobs:
+                with timer(f"{job_name}_fit") as fit_sec:
+                    model = job_est.fit(train)
+                with timer(f"{job_name}_transform") as tf_sec:
+                    preds = model.transform(test)
+                metrics = evaluate(test.label, preds.raw, model.num_classes)
+                rows.append({
+                    "split": split_name,
+                    "model": job_name,
+                    "n_train": len(train),
+                    "n_test": len(test),
+                    "train_time_s": round(fit_sec.seconds, 3),
+                    "test_time_s": round(tf_sec.seconds, 3),
+                    "accuracy": round(float(metrics["accuracy"]), 6),
+                    "f1": round(float(metrics["f1"]), 6),
+                })
+
+    os.makedirs(config.output_dir, exist_ok=True)
+    columns = list(rows[0])
+    with open(os.path.join(config.output_dir, "sweep.csv"), "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=columns)
+        writer.writeheader()
+        writer.writerows(rows)
+    txt = show(columns, [[r[c] for c in columns] for r in rows], max_rows=None)
+    with open(os.path.join(config.output_dir, "sweep.txt"), "w") as f:
+        f.write(txt)
+    print(txt, end="")
+    return rows
+
+
+def _eda_columns(table) -> list[str]:
+    """The WISDM numeric columns EDA plots; raises where the table has
+    none (UCI-HAR's), before any fit.  ``har_tpu`` raises the same
+    ValueError from matplotlib after its fits (ROADMAP Queue 3)."""
+    import matplotlib  # noqa: F401  (EDA needs it: fail before the fits)
+
+    numeric = [c for c in WISDM_NUMERIC_COLUMNS if c in table.column_names]
+    if not numeric:
+        raise ValueError(
+            "--eda plots the WISDM table's numeric columns; this table has "
+            "none of them"
+        )
+    return numeric
+
+
+def run(
+    config: RunConfig,
+    models=None,
+    with_cv: bool = True,
+    device: str | torch.device = "cuda",
+    save_models_dir: str | None = None,
+    with_eda: bool = False,
+) -> RunOutcome:
+    """The reference pipeline for the ported families on ``device``: each
+    model's fit and, with ``with_cv``, its CrossValidator; with
+    ``save_models_dir``, every fitted model saved there as ``<name>`` and
+    ``<name>_cv`` (the CV's refit, saved with the tuned estimator); with
+    ``with_eda``, the hexbin pair plots and scatter matrix of a tabular
+    table's numeric columns under ``<output_dir>/plot``."""
+    device = resolve_device(device)
+    models = _model_names(models)
+    estimators = [
+        build_estimator(name, config.model.params, device) for name in models
+    ]
+    _refuse_unported_mesh(config, models)
     # every model's feature view, resolved before any work: it raises for a
     # model that cannot run on this dataset
     for name in models:
@@ -469,6 +592,7 @@ def run(
     with timer("load"):
         table = load_dataset(config)
     is_raw = isinstance(table, WindowedDataset)
+    eda_columns = _eda_columns(table) if with_eda and not is_raw else None
     report = ReportWriter(config.output_dir)
     with timer("report"):
         report.line("Loading Data Set...")
@@ -533,6 +657,11 @@ def run(
                          if cv_model.best_params else est)
                 _save_fitted(save_models_dir, f"{name}_cv", cv_model.best_model,
                              tuned, config, pipe_model, input_shape)
+    if eda_columns is not None:
+        from har_tpu_torch.reporting.eda import save_eda_plots
+
+        with timer("eda"):
+            save_eda_plots(table, eda_columns, config.output_dir + "/plot")
     with timer("report"):
         paths = report.save()
     paths["timing"] = write_timing_csv(

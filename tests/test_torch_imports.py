@@ -50,6 +50,8 @@ def test_port_has_files():
         "har_tpu_torch/data/augment.py",
         "har_tpu_torch/checkpoint.py",
         "har_tpu_torch/transfer.py",
+        "har_tpu_torch/data/ucihar.py",
+        "har_tpu_torch/reporting/eda.py",
     ):
         assert required in names
 

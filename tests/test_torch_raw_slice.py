@@ -196,14 +196,14 @@ def test_cli_without_gpu_raises(tmp_path, monkeypatch, small_raw_dataset):
 @pytest.mark.parametrize(
     "dataset,models,path,error",
     [
-        ("ucihar", ["dt"], None, NotImplementedError),  # not ported yet
+        ("ucihar", ["bilstm"], None, ValueError),  # needs raw windows
         ("wisdm", ["transformer"], None, ValueError),  # needs raw windows
         # the native raw parser reads --data-path: a missing file raises
         ("wisdm_raw", ["transformer"], "raw.txt", FileNotFoundError),
         ("ucihar", ["cnn1d"], None, ValueError),  # needs raw windows
     ],
     # ids fixed: the cases were named for the combinations they checked
-    # before the raw parser, the raw features and CNN1D were ported
+    # before the raw parser, the raw features, CNN1D and UCI-HAR were ported
     ids=[
         "wisdm_raw-models0-None-NotImplementedError",
         "wisdm-models1-None-ValueError",

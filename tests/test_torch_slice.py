@@ -238,16 +238,16 @@ def test_cli_without_gpu_raises_unless_cpu_is_named(tmp_path, monkeypatch):
 @pytest.mark.parametrize(
     "kwargs",
     [
-        {"models": ["dt"], "data": {"dataset": "ucihar"}},
+        {"models": ["mlp"], "mesh": {"tp": 2}},
         {"models": ["mlp"], "mesh": {"dp": 2}},
         {"models": ["mlp"], "params": {"compute_flops": True}},
         {"models": ["lr"], "mesh": {"dp": 2}},
     ],
 )
 def test_unported_parts_raise_not_implemented(tmp_path, kwargs):
-    """Parts of `train` still to port (ROADMAP.md Queue 1): the UCI-HAR
-    dataset, the data-parallel mesh (neural training and LR's sharded
-    sweep) and the trainer's FLOP count."""
+    """Parts of `train` still to port (ROADMAP.md Queue 1): the tensor- and
+    data-parallel meshes (neural training and LR's sharded sweep) and the
+    trainer's FLOP count."""
     config = RunConfig(
         data=DataConfig(synthetic_rows=ROWS, **kwargs.get("data", {})),
         model=ModelConfig(params=dict(kwargs.get("params", {}), epochs=1)),
