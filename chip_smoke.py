@@ -20,13 +20,15 @@ exits nonzero without the final ``ok`` line:
    one-hot-matmul times from CUDA events and the least time the card
    could take (and apart from it, the time of the output's zeroing where
    a launch merges row chunks);
-4. flash: kernel K2 against its plain PyTorch version on the card, at the
-   CPU tests' shapes (a ragged T, D = 16), the raw path's training,
-   prediction and packed shapes (the resident route) and one long T (the
-   streamed route), with and without lse, read through the fused-qkv
+4. flash: kernel K2 (launched through its registered op
+   ``har_tpu_torch::flash_attention_fwd``) against its plain PyTorch
+   version on the card, at the CPU tests' shapes (a ragged T, D = 16), the
+   raw path's training, prediction and packed shapes, ``stream``'s hop
+   (batch 1) and largest burst (256) (the resident route) and one long T
+   (the streamed route), with and without lse, read through the fused-qkv
    strides: float32 out and lse within rtol 1e-5 (atol 1e-6), bfloat16 out
    within 1e-2 (it is rounded to bf16; both sides accumulate in f32) and
-   lse within rtol 1e-5; then, at the four main-path shapes, each launch's
+   lse within rtol 1e-5; then, at the six main-path shapes, each launch's
    plan, kernel times from CUDA events and from a CUDA graph's replay,
    plain and scaled_dot_product_attention times and the card's bound;
 5. agree: the port's DT and RF grown on the card equal the same trees grown
@@ -108,7 +110,23 @@ exits nonzero without the final ``ok`` line:
     trains nothing and scores the same); and ``finetune`` of the CNN1D
     with ``--freeze ConvBlock_0 ConvBlock_1 --output`` (frozen tensors
     bit-identical to the checkpoint's, accuracy after at the CNN1D floor);
-20. ucihar_main: a UCI-HAR fixture tree at the published size (7,352 +
+20. serving_main: single-stream serving from phase 19's saved transformer
+    (bf16, 2 layers) and CNN1D.  ``cli stream --device cuda`` on the demo
+    recording (111 hops of 20 samples), plain and with ``--monitor``: K2
+    exactly (111 hops + 17 calibration calls) x 2 layers a run; against
+    ``--device cpu``: events, raw and smoothed labels equal, probabilities
+    within 1e-2, drift blocks equal; per-hop steady, device and host
+    milliseconds printed.  The stream with smoothing ``none`` against
+    ``classify_session`` of the recording in one batch: raw labels equal,
+    the largest probability difference printed.  ``cli export`` of the
+    transformer and of the CNN1D, float and ``--quantize int8`` (traced on
+    the CPU, no launch), then ``evaluate`` and ``predict --artifact`` on
+    the card: the float artifacts score their checkpoints' accuracies, the
+    int8 one within 0.01; predictions equal a ``--device cpu`` run's; K2
+    2 x layers x prediction chunks for the loaded transformer program (0
+    would mean the export left the kernel out); artifact bytes and the
+    int8 ratio;
+21. ucihar_main: a UCI-HAR fixture tree at the published size (7,352 +
     2,947 rows, 561 features; written once), then ``cli train --dataset
     ucihar --data-path <tree> --device cuda`` with no model flags (K1 as
     on the default run, 385; DT and DT-CV exactly har_tpu's accuracy on
@@ -117,22 +135,22 @@ exits nonzero without the final ``ok`` line:
     the saved DT (the train run's accuracy exactly, no launch); K1 is
     held against its plain version and timed at every UCI-HAR level
     shape in phases 3 and 14;
-21. ucihar_gbt_main: ``--models gbt mlp --no-cv`` on the tree (K1 500,
+22. ucihar_gbt_main: ``--models gbt mlp --no-cv`` on the tree (K1 500,
     floors below har_tpu's);
-22. ucihar_parity_lane: ``parity.ucihar_parity_lane`` on the tree (LR's
+23. ucihar_parity_lane: ``parity.ucihar_parity_lane`` on the tree (LR's
     9-point 5-fold CV on the card): har_tpu's split, best grid point and
     accuracy within one test row, no launch;
-23. sweep_main: ``cli sweep --device cuda`` at its defaults (LR, DT, RF at
+24. sweep_main: ``cli sweep --device cuda`` at its defaults (LR, DT, RF at
     70/80/90 % train, LR's CV): K1 three tree paths (165), 12 rows in
     sweep.csv and sweep.txt, DT equal to har_tpu's at each split;
-24. raw_lane_main: ``cli parity --raw`` on a raw-format file of
+25. raw_lane_main: ``cli parity --raw`` on a raw-format file of
     ``synthetic_raw_stream(5418)`` (1,083,600 lines, written once): all
     5,418 windows, the lane's CNN1D at or above a floor below har_tpu's,
     no launch;
-25. with ``--profile`` only: one DT, one RF and one transformer fit, one
+26. with ``--profile`` only: one DT, one RF and one transformer fit, one
     default run, one parity run, one GBDT fit and a 2-epoch BiLSTM fit
     under torch.profiler, with K1's and K2's shares of the device time;
-26. the kernels line (K1's launches over every path that grows trees),
+27. the kernels line (K1's launches over every path that grows trees),
     a short ``summary`` line, then ``{"ok": true, "device": {...}}``.
 
 ``train --eda`` (host matplotlib, no kernel) is not driven here: the card's
@@ -170,7 +188,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-from har_tpu_torch import checkpoint, cli, parity, runner  # noqa: E402
+from har_tpu_torch import checkpoint, cli, parity, runner, serving  # noqa: E402
 from har_tpu_torch.config import DataConfig, ModelConfig, RunConfig  # noqa: E402
 from har_tpu_torch.data import raw_loader  # noqa: E402
 from har_tpu_torch.data.split import split_indices  # noqa: E402
@@ -273,6 +291,10 @@ FLASH_PACKED_PREDICT = dict(b=1184, t=25, h=8, d=32)
 # a T whose K and V pass the kernel's shared-memory budget: flash_plan
 # takes the streamed route
 FLASH_STREAMED = dict(b=2, t=4096, h=2, d=64)
+# `stream`: one window a hop, and a catch-up burst at the serving path's
+# largest padded batch (StreamingClassifier._MAX_BATCH)
+FLASH_STREAM_HOP = dict(b=1, t=200, h=4, d=16)
+FLASH_STREAM_BURST = dict(b=serving.StreamingClassifier._MAX_BATCH, t=200, h=4, d=16)
 FLASH_CHECK_SHAPES = {
     "test_2x64x2x32": dict(b=2, t=64, h=2, d=32),
     "test_2x96x2x32": dict(b=2, t=96, h=2, d=32),
@@ -285,12 +307,16 @@ FLASH_CHECK_SHAPES = {
     "packed_train": FLASH_PACKED,
     "packed_predict": FLASH_PACKED_PREDICT,
     "streamed_2x4096x2x64": FLASH_STREAMED,
+    "stream_hop": FLASH_STREAM_HOP,
+    "stream_burst": FLASH_STREAM_BURST,
 }
 FLASH_TIME_SHAPES = {
     "cli_train": FLASH_TRAIN,
     "cli_predict": FLASH_PREDICT,
     "packed_train": FLASH_PACKED,
     "packed_predict": FLASH_PACKED_PREDICT,
+    "stream_hop": FLASH_STREAM_HOP,
+    "stream_burst": FLASH_STREAM_BURST,
 }
 # accuracy floors 0.05 below har_tpu's own band on the CPU for the same
 # command over trainer seeds 0-2 (1.0 at both widths, PERF.md §2): the
@@ -1643,6 +1669,180 @@ def phase_lifecycle_main(trained: dict) -> dict:
                 finetune=finetune, seconds=time.perf_counter() - t0)
 
 
+# `stream` replays at the live cadence: one forward a hop, then the batch-1
+# device calibration (serving.measure_device_latency: one warm call and
+# StreamingClassifier.device_latency_ms's 16 timed ones)
+STREAM_HOP = 20
+STREAM_CALIBRATION_CALLS = 1 + 16
+INT8_MAX_ACCURACY_DROP = 0.01
+SERVING_DIR = OUT / "serving"
+
+
+def _events(path: Path) -> tuple[list, np.ndarray]:
+    """(t_index, label, raw_label) rows and the probabilities of a
+    ``stream --events-csv`` file."""
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))[1:]
+    return ([tuple(int(v) for v in r[:3]) for r in rows],
+            np.array([[float(v) for v in r[4:]] for r in rows]))
+
+
+def serving_stream(path: str, layers: int, hops: int) -> dict:
+    """``stream`` of the saved transformer on the demo recording, plain
+    and with ``--monitor``: on the card (K2 exactly (hops + calibration
+    calls) x layers a run), then with ``--device cpu``: events, raw and
+    smoothed labels equal, probabilities within the bf16 tolerance, the
+    drift blocks equal."""
+    out = {}
+    for tag, extra in (("plain", []), ("monitor", ["--monitor"])):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            csv_path = SERVING_DIR / f"events_{tag}_{device}.csv"
+            argv = ["stream", "--checkpoint", path, "--device", device,
+                    "--events-csv", str(csv_path), *extra]
+            t0 = time.perf_counter()
+            with launch_counts() as launches:
+                printed = run_cli_json(argv)
+            runs[device] = dict(printed=printed, seconds=time.perf_counter() - t0,
+                                launches=launches, events=_events(csv_path))
+        card, cpu = runs["cuda"], runs["cpu"]
+        expected = dict(hist=0, hist_rows=0,
+                        flash_attention=(hops + STREAM_CALIBRATION_CALLS) * layers)
+        prob_diff = float(np.abs(card["events"][1] - cpu["events"][1]).max())
+        latency = card["printed"]["latency"]
+        out[tag] = dict(
+            n_events=card["printed"]["n_events"], launches=card["launches"],
+            expected_launches=expected, labels_equal=card["events"][0] == cpu["events"][0],
+            max_prob_diff=prob_diff, drift=card["printed"]["drift"],
+            drift_equal=card["printed"]["drift"] == cpu["printed"]["drift"],
+            timeline=card["printed"]["timeline"],
+            latency={k: latency.get(k) for k in (
+                "count", "p50_ms", "p95_ms", "max_ms", "steady_p50_ms", "device_p50_ms",
+                "host_overhead_p50_ms")},
+            cpu_latency={k: cpu["printed"]["latency"].get(k) for k in (
+                "steady_p50_ms", "device_p50_ms", "host_overhead_p50_ms")},
+            seconds=card["seconds"], cpu_seconds=cpu["seconds"],
+        )
+        emit("serving_stream", run=tag, **out[tag])
+        r = out[tag]
+        if r["n_events"] != hops or r["launches"] != expected:
+            raise AssertionError(f"stream {tag}: {r['n_events']} events, launches "
+                                 f"{r['launches']}, expected {hops} and {expected}")
+        if not (r["labels_equal"] and prob_diff <= PREDICT_PROB_ATOL_BF16 and r["drift_equal"]):
+            raise AssertionError(f"stream {tag}: card and CPU disagree: {r}")
+    return out
+
+
+def serving_offline(path: str, layers: int, hops: int) -> dict:
+    """The same recording streamed on the card with smoothing ``none``,
+    and ``classify_session`` of it in one batch: raw labels equal (a
+    batch of 1 and one of 111 may take different GEMM kernels, so the
+    probabilities are compared, not required equal)."""
+    rec = cli.demo_recording()
+    sc = serving.StreamingClassifier.from_checkpoint(path, device="cuda", smoothing="none",
+                                                     hop=STREAM_HOP)
+    with launch_counts() as launches:
+        events = sc.replay(rec)
+        offline = serving.classify_session(sc.model, rec, window=sc.window, hop=STREAM_HOP)
+    expected = dict(hist=0, hist_rows=0,
+                    flash_attention=(hops + STREAM_CALIBRATION_CALLS + 1) * layers)
+    online = np.stack([e.probability for e in events])
+    out = dict(
+        n_windows=len(offline), launches=launches, expected_launches=expected,
+        labels_equal=[e.raw_label for e in events] == offline.labels.tolist(),
+        max_prob_diff=float(np.abs(online - offline.probability).max()),
+    )
+    emit("serving_offline", **out)
+    if out["launches"] != expected or not out["labels_equal"]:
+        raise AssertionError(f"classify_session against the stream: {out}")
+    return out
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.iterdir())
+
+
+def serving_artifacts(trained: dict, layers: int) -> dict:
+    """``export`` of the saved transformer and CNN1D (float and int8), then
+    ``evaluate`` and ``predict --artifact`` on the card: the float
+    artifacts score the checkpoints' accuracies, the int8 one within
+    0.01; predictions equal a ``--device cpu`` run's; K2 launches layers
+    x prediction chunks a transformer scoring, and none elsewhere."""
+    exports, out = {}, {}
+    with launch_counts() as export_launches:
+        for tag, name, extra in (("transformer", "transformer", []),
+                                 ("cnn1d", "cnn1d", []),
+                                 ("cnn1d_int8", "cnn1d", ["--quantize", "int8"])):
+            t0 = time.perf_counter()
+            exports[tag] = run_cli_json(["export", "--checkpoint", str(MODELS_DIR / name),
+                                         "--output", str(SERVING_DIR / tag), *extra])
+            exports[tag]["seconds"] = time.perf_counter() - t0
+    if export_launches != dict(hist=0, hist_rows=0, flash_attention=0):
+        raise AssertionError(f"export launched {export_launches}")
+    for tag, name in (("transformer", "transformer"), ("cnn1d", "cnn1d"),
+                      ("cnn1d_int8", "cnn1d")):
+        art = str(SERVING_DIR / tag)
+        with launch_counts() as launches:
+            t0 = time.perf_counter()
+            scored = run_cli_json(["evaluate", "--artifact", art, "--device", "cuda"])
+            t1 = time.perf_counter()
+            run_cli_json(["predict", "--artifact", art, "--device", "cuda",
+                          "--output", str(SERVING_DIR / f"{tag}_cuda.csv")])
+            t2 = time.perf_counter()
+        run_cli_json(["predict", "--artifact", art, "--device", "cpu",
+                      "--output", str(SERVING_DIR / f"{tag}_cpu.csv")])
+        flash = (2 * layers * math.ceil(scored["n_test"] / PREDICT_CHUNK)
+                 if name == "transformer" else 0)
+        out[tag] = dict(
+            accuracy=scored["accuracy"], checkpoint_accuracy=trained[name],
+            quantized=scored["quantized"], n_test=scored["n_test"],
+            launches=launches, expected_launches=dict(hist=0, hist_rows=0, flash_attention=flash),
+            predictions_equal=(_csv_rows(SERVING_DIR / f"{tag}_cuda.csv")
+                               == _csv_rows(SERVING_DIR / f"{tag}_cpu.csv")),
+            bytes=exports[tag]["bytes"], export_s=exports[tag]["seconds"],
+            evaluate_s=t1 - t0, predict_s=t2 - t1,
+        )
+    out["int8_artifact_ratio"] = out["cnn1d_int8"]["bytes"] / out["cnn1d"]["bytes"]
+    out["int8_weight_ratio"] = exports["cnn1d_int8"]["quantized"]["ratio"]
+    emit("serving_artifacts", **out)
+    for tag in ("transformer", "cnn1d", "cnn1d_int8"):
+        r = out[tag]
+        if r["launches"] != r["expected_launches"] or not r["predictions_equal"]:
+            raise AssertionError(f"artifact {tag}: {r}")
+        if tag == "cnn1d_int8":
+            if abs(r["accuracy"] - r["checkpoint_accuracy"]) > INT8_MAX_ACCURACY_DROP:
+                raise AssertionError(f"int8 artifact accuracy {r['accuracy']} vs "
+                                     f"{r['checkpoint_accuracy']}")
+        elif r["accuracy"] != r["checkpoint_accuracy"]:
+            raise AssertionError(f"artifact {tag} accuracy {r['accuracy']} != the "
+                                 f"checkpoint's {r['checkpoint_accuracy']}")
+    return out
+
+
+def phase_serving_main(trained: dict) -> dict:
+    """Single-stream serving on the card from lifecycle_main's saved CLI
+    transformer (bf16) and CNN1D: `stream`, `classify_session`, `export`
+    and the artifacts' `evaluate` / `predict`."""
+    shutil.rmtree(SERVING_DIR, ignore_errors=True)
+    SERVING_DIR.mkdir(parents=True)
+    path = str(MODELS_DIR / "transformer")
+    layers = len(checkpoint.load_model(path, "cpu").inner.module.blocks)
+    window = checkpoint.load_model_meta(path)["input_shape"][0]
+    hops = (len(cli.demo_recording()) - window) // STREAM_HOP + 1
+    t0 = time.perf_counter()
+    stream = serving_stream(path, layers, hops)
+    offline = serving_offline(path, layers, hops)
+    artifacts = serving_artifacts(trained, layers)
+    launches = {
+        "flash_attention": sum(r["launches"]["flash_attention"] for r in stream.values())
+        + offline["launches"]["flash_attention"]
+        + sum(artifacts[t]["launches"]["flash_attention"]
+              for t in ("transformer", "cnn1d", "cnn1d_int8")),
+    }
+    return dict(stream=stream, offline=offline, artifacts=artifacts, launches=launches,
+                seconds=time.perf_counter() - t0)
+
+
 def ucihar_fixture() -> str:
     """The UCI-HAR fixture tree at the published size, written once (its
     test subjects are the writer's last file); returns its root."""
@@ -1926,6 +2126,7 @@ def main(argv: list[str]) -> int:
                    transformer=raw_main["accuracies"]["transformer"],
                    cnn1d=neural_main["cnn1d_main"]["accuracy"])
     lifecycle = phase_lifecycle_main(trained)
+    serving_main = phase_serving_main(trained)
     ucihar_root = ucihar_fixture()
     ucihar_main = phase_ucihar_main(ucihar_root)
     ucihar_gbt_main = phase_ucihar_gbt_main(ucihar_root)
@@ -1937,7 +2138,8 @@ def main(argv: list[str]) -> int:
     flash_launches = {
         name: path["launches"]["flash_attention"]
         for name, path in (("raw_main", raw_main), ("raw_packed", raw_packed),
-                           ("lifecycle_main", lifecycle["scoring"]))
+                           ("lifecycle_main", lifecycle["scoring"]),
+                           ("serving_main", serving_main))
     }
     hist_rows_launches = {
         name: path["launches"]["hist_rows"]
@@ -2003,6 +2205,17 @@ def main(argv: list[str]) -> int:
                                ("ucihar_gbt_main", ucihar_gbt_main),
                                ("ucihar_parity_lane", ucihar_lane),
                                ("sweep_main", sweep_main), ("raw_lane_main", raw_lane_main))},
+         serving_main=dict(
+             seconds=serving_main["seconds"], launches=serving_main["launches"],
+             stream={tag: {k: r[k] for k in ("n_events", "max_prob_diff", "latency")}
+                     for tag, r in serving_main["stream"].items()},
+             offline_max_prob_diff=serving_main["offline"]["max_prob_diff"],
+             artifacts={tag: {k: r[k] for k in ("accuracy", "bytes")}
+                        for tag, r in serving_main["artifacts"].items()
+                        if isinstance(r, dict)},
+             int8_artifact_ratio=serving_main["artifacts"]["int8_artifact_ratio"],
+             stream_hop=flash["timings"]["stream_hop"],
+             stream_burst=flash["timings"]["stream_burst"]),
          ucihar_split_candidates_s=ucihar_main["split_candidates_s"],
          ucihar_parity_lane_result=ucihar_lane["lane"], raw_lane_result=raw_lane_main["lane"])
     print(json.dumps({"ok": True, "device": device}), flush=True)

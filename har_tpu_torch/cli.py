@@ -1,9 +1,9 @@
 """`har` command-line interface of the PyTorch/CUDA port.
 
 Mirrors ``har_tpu/cli.py``'s ``train`` for the ported families, its
-``sweep``, ``parity`` (and ``parity --raw``), ``evaluate``, ``predict`` and
-``finetune`` (the exported ``--artifact`` waits for the port of
-``export``):
+``sweep``, ``parity`` (and ``parity --raw``), ``evaluate``, ``predict``
+(of a checkpoint or an exported ``--artifact``), ``finetune``, ``stream``
+and ``export``:
 
   python -m har_tpu_torch.cli train                # lr dt rf, each with CV
   python -m har_tpu_torch.cli train --device cpu
@@ -25,14 +25,23 @@ Mirrors ``har_tpu/cli.py``'s ``train`` for the ported families, its
   python -m har_tpu_torch.cli train --models mlp --no-cv --checkpoint-dir ckpt \
       --save-every-epochs 5 --early-stop-patience 3
   python -m har_tpu_torch.cli finetune --checkpoint models/cnn1d --freeze ConvBlock_0
+  python -m har_tpu_torch.cli train --models dt --no-cv --trace-dir trace
+
+  python -m har_tpu_torch.cli stream --checkpoint models/transformer --monitor \
+      --events-csv events.csv
+  python -m har_tpu_torch.cli export --checkpoint models/cnn1d --output art --quantize int8
+  python -m har_tpu_torch.cli evaluate --artifact art
+  python -m har_tpu_torch.cli predict --artifact art --output p.csv
 
 ``train`` writes result.txt, additional_param.csv,
 crossFold_additional_param.csv (with CV) and timing.csv into
 ``--output-dir`` (with ``--eda``, the plots under ``plot/``); ``parity``
 writes the first three.  Both print the accuracies and artifact paths as
 JSON; ``sweep`` writes sweep.csv and sweep.txt and prints the table;
-``parity --raw``, ``evaluate``, ``predict`` and ``finetune`` print their
-results as JSON.  Without ``--data-path``, ``ucihar`` is a synthetic
+``parity --raw``, ``evaluate``, ``predict``, ``finetune``, ``stream`` and
+``export`` print their results as JSON (``stream`` replays a recording,
+or a synthetic demo one, through ``serving.StreamingClassifier`` at the
+live cadence; ``export`` writes ``predict.pt2`` and ``export_meta.json``).  Without ``--data-path``, ``ucihar`` is a synthetic
 table of its shape, and ``parity --raw`` reads the file
 ``$HAR_TPU_WISDM_RAW`` names (or skips).
 """
@@ -108,16 +117,27 @@ def _parser() -> argparse.ArgumentParser:
                         "reference drops (gbt's widest view)")
     t.add_argument("--eda", action="store_true",
                    help="write hexbin pair plots + scatter matrix")
+    t.add_argument("--trace-dir", default=None,
+                   help="write a TensorBoard-loadable torch.profiler trace "
+                        "of the whole run to this directory")
     t.add_argument("--output-dir", default="main_result")
     t.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
 
     for command, help_text in (
-        ("evaluate", "score a saved checkpoint on its held-out rows"),
-        ("predict", "batch inference from a saved checkpoint → predictions CSV"),
+        ("evaluate", "score a saved checkpoint (or an exported artifact) "
+                     "on its held-out rows"),
+        ("predict", "batch inference from a saved checkpoint (or exported "
+                    "artifact) → predictions CSV"),
     ):
         c = sub.add_parser(command, help=help_text)
-        c.add_argument("--checkpoint", required=True)
+        src = c.add_mutually_exclusive_group(required=True)
+        src.add_argument("--checkpoint")
+        src.add_argument("--artifact",
+                         help="an exported artifact directory (har export "
+                              "output) instead of a checkpoint: the "
+                              "deployed program itself, no model classes "
+                              "in the loop")
         if command == "predict":
             c.add_argument("--output", default="predictions.csv")
         _scoring_arguments(c)
@@ -138,6 +158,54 @@ def _parser() -> argparse.ArgumentParser:
                          "(e.g. ConvBlock_0 ConvBlock_1)")
     ft.add_argument("--output", default=None,
                     help="save the fine-tuned model as a new checkpoint")
+
+    st = sub.add_parser(
+        "stream",
+        help="real-time sliding-window inference: replay a recorded "
+             "tri-axial stream (CSV: x,y,z per row) through a saved "
+             "checkpoint and emit the activity timeline",
+    )
+    st.add_argument("--checkpoint", required=True,
+                    help="neural checkpoint trained on raw windows")
+    st.add_argument("--input", default=None,
+                    help="recording CSV (one x,y,z row per 20 Hz sample); "
+                         "omit for a synthetic demo recording")
+    st.add_argument("--window", type=int, default=None,
+                    help="defaults to the checkpoint's recorded training "
+                         "window; when the checkpoint records its shape, "
+                         "an explicit mismatch is rejected")
+    st.add_argument("--hop", type=int, default=20)
+    st.add_argument("--smoothing", default="ema",
+                    choices=["ema", "vote", "none"])
+    st.add_argument("--events-csv", default=None,
+                    help="write per-event rows (t_index,label,raw_label,"
+                         "latency_ms,probabilities...)")
+    st.add_argument("--monitor", action="store_true",
+                    help="input-drift detection against the checkpoint's "
+                         "training statistics; events are stamped and the "
+                         "summary carries the final drift report")
+    st.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+    ex = sub.add_parser(
+        "export",
+        help="export a saved neural checkpoint as a self-contained "
+             "torch.export predict artifact (params inside, symbolic "
+             "batch dim)",
+    )
+    ex.add_argument("--checkpoint", required=True)
+    ex.add_argument("--output", required=True,
+                    help="artifact directory (predict.pt2 + meta)")
+    ex.add_argument("--platforms", nargs="+", default=["cuda", "cpu"],
+                    help="devices the artifact may load on (default: cuda "
+                         "cpu); traced on the CPU either way")
+    ex.add_argument("--example-shape", nargs="+", type=int, default=None,
+                    help="per-example feature shape (e.g. 200 3) for "
+                         "checkpoints that record neither a scaler nor "
+                         "input_shape")
+    ex.add_argument("--quantize", default=None, choices=["int8"],
+                    help="weight-only int8 quantization before export "
+                         "(per-output-channel scales; weights stay int8 "
+                         "in the artifact)")
 
     s = sub.add_parser(
         "sweep",
@@ -193,17 +261,124 @@ def _scoring_arguments(c) -> None:
 
 
 def _evaluate_or_predict(args) -> int:
-    from har_tpu_torch import checkpoint
+    from har_tpu_torch import checkpoint, export
 
     scoring = dict(dataset=args.dataset, train_fraction=args.train_fraction,
                    seed=args.seed, device=args.device)
-    if args.command == "predict":
-        out = checkpoint.predict_checkpoint(args.checkpoint, args.output,
-                                            args.data_path, **scoring)
+    if args.artifact is not None:
+        src, evaluate, predict = (args.artifact, export.evaluate_artifact,
+                                  export.predict_artifact)
     else:
-        out = checkpoint.evaluate_checkpoint(args.checkpoint, args.data_path,
-                                             **scoring)
+        src, evaluate, predict = (args.checkpoint, checkpoint.evaluate_checkpoint,
+                                  checkpoint.predict_checkpoint)
+    if args.command == "predict":
+        out = predict(src, args.output, args.data_path, **scoring)
+    else:
+        out = evaluate(src, args.data_path, **scoring)
     print(json.dumps(out))
+    return 0
+
+
+def demo_recording():
+    """``stream``'s synthetic demo recording: three activity stretches
+    (classes 0, 1, 0, four windows each) of the calibrated generator,
+    (2400, 3) float32."""
+    import numpy as np
+
+    from har_tpu_torch.data.raw_windows import synthetic_raw_stream
+
+    raw = synthetic_raw_stream(n_windows=24, seed=0)
+    return np.concatenate([
+        raw.windows[raw.labels == c][:4].reshape(-1, 3) for c in (0, 1, 0)
+    ])
+
+
+def _stream(args) -> int:
+    import csv
+
+    import numpy as np
+
+    from har_tpu_torch.serving import SessionResult, StreamingClassifier
+
+    try:
+        sc = StreamingClassifier.from_checkpoint(
+            args.checkpoint,
+            device=args.device,
+            window=args.window,
+            hop=args.hop,
+            smoothing=args.smoothing,
+            monitor="auto" if args.monitor else None,
+        )
+    except ValueError as e:
+        raise SystemExit(str(e))  # clean message, not a traceback
+    if args.input is not None:
+        rec = np.loadtxt(args.input, delimiter=",", dtype=np.float32)
+    else:
+        rec = demo_recording()
+    # live cadence + device-vs-host latency split: see
+    # StreamingClassifier.replay
+    events = sc.replay(rec)
+    if args.events_csv:
+        with open(args.events_csv, "w", newline="") as f:
+            w = csv.writer(f)
+            n_probs = len(events[0].probability) if events else 0
+            w.writerow(["t_index", "label", "raw_label", "latency_ms"]
+                       + [f"p{i}" for i in range(n_probs)])
+            for e in events:
+                w.writerow([e.t_index, e.label, e.raw_label, round(e.latency_ms, 3)]
+                           + [round(float(p), 6) for p in e.probability])
+    # one run-length merge for both surfaces: a SessionResult over the
+    # (smoothed) event labels
+    sr = SessionResult(
+        t_index=np.array([e.t_index for e in events], np.int64),
+        labels=np.array([e.label for e in events], np.int32),
+        probability=(np.stack([e.probability for e in events]) if events
+                     else np.zeros((0, 0), np.float64)),
+    )
+    timeline = [{"from_t": a, "to_t": b, "label": lab} for a, b, lab in sr.segments()]
+    drift = None
+    if args.monitor and sc.drift_report is not None:
+        rep = sc.drift_report
+        drift = {
+            "drifting": rep.drifting,
+            "events_flagged": sum(1 for e in events if e.drift),
+            "location_z": [round(float(z), 3) for z in rep.location_z],
+            "scale_log_ratio": [round(float(r), 3) for r in rep.scale_log_ratio],
+        }
+    print(json.dumps({
+        "n_samples": int(len(rec)),
+        "n_events": len(events),
+        "timeline": timeline,
+        "latency": sc.latency_stats(),
+        "drift": drift,
+        "events_csv": args.events_csv,
+    }))
+    return 0
+
+
+def _export(args) -> int:
+    import os
+
+    from har_tpu_torch.export import _META, _PROGRAM, export_checkpoint
+
+    try:
+        out = export_checkpoint(
+            args.checkpoint, args.output,
+            platforms=tuple(args.platforms),
+            example_shape=tuple(args.example_shape) if args.example_shape else None,
+            quantize=args.quantize,
+        )
+    except ValueError as e:
+        raise SystemExit(str(e))
+    with open(os.path.join(out, _META)) as f:
+        art_meta = json.load(f)
+    print(json.dumps({
+        "artifact": out,
+        "bytes": sum(os.path.getsize(os.path.join(out, f)) for f in os.listdir(out)),
+        "program_bytes": os.path.getsize(os.path.join(out, _PROGRAM)),
+        "platforms": args.platforms,
+        "quantized": art_meta.get("quantization"),
+    }))
     return 0
 
 
@@ -306,12 +481,17 @@ def main(argv=None) -> int:
         return _finetune(args)
     if args.command == "sweep":
         return _sweep(args)
+    if args.command == "stream":
+        return _stream(args)
+    if args.command == "export":
+        return _export(args)
     if args.validation_fraction is not None and not args.early_stop_patience:
         raise SystemExit(
             "--validation-fraction only takes effect with "
             "--early-stop-patience; set both or neither"
         )
     from har_tpu_torch.runner import canonical_model_name, run
+    from har_tpu_torch.utils.profiling import trace
 
     models = [canonical_model_name(m) for m in args.models]
     neural_params = {
@@ -334,8 +514,9 @@ def main(argv=None) -> int:
         tuning=TuningConfig(selection_metric=args.cv_metric),
         output_dir=args.output_dir,
     )
-    outcome = run(config, models=models, with_cv=not args.no_cv, device=args.device,
-                  save_models_dir=args.save_models_dir, with_eda=args.eda)
+    with trace(args.trace_dir, args.device):
+        outcome = run(config, models=models, with_cv=not args.no_cv, device=args.device,
+                      save_models_dir=args.save_models_dir, with_eda=args.eda)
     print(json.dumps({"accuracies": outcome.accuracies,
                       "artifacts": outcome.report_paths}))
     return 0

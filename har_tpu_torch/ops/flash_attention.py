@@ -11,17 +11,22 @@ forward the JAX package writes in Pallas.  Public functions keep the JAX
     segment_attention(q, k, v, seg)        block-diagonal, plain masked
 
 - The forward of :func:`flash_attention` and :func:`flash_attention_with_lse`
-  launches the hand-written kernel ``csrc/flash_attention.cu`` (built by
-  ``ops._build`` at first use) on CUDA tensors, or raises; on CPU tensors
-  it takes :func:`attention_with_lse_plain`.  There is no fallback from
-  one to the other.
+  is one registered op, ``har_tpu_torch::flash_attention_fwd``
+  (``torch.library.custom_op``): its CUDA registration launches the
+  hand-written kernel ``csrc/flash_attention.cu`` (built by ``ops._build``
+  at first use), or raises; on CPU tensors it is
+  :func:`attention_with_lse_plain`.  Dispatch follows the tensors'
+  device; there is no fallback from one to the other.  Its fake
+  registration gives the output shapes, so ``torch.export`` keeps the op
+  as one opaque node with a symbolic batch (``export.py``); a loaded
+  program needs this module imported first.
 - :func:`attention_with_lse_plain` is the same function in plain PyTorch,
   modelled on ``_attention_with_lse_ref``: float32 scores, ``p`` rounded to
   the input type before the PV product.
-- The backward is plain PyTorch, as the reference's is XLA: a recompute
-  through :func:`attention_with_lse_plain` for T <= ``_BWD_FULL_T``, else
-  :func:`chunked_attention_bwd` (O(T·block) memory), both including the
-  cotangent of ``lse``.
+- The backward, the op's autograd registration, is plain PyTorch, as the
+  reference's is XLA: a recompute through :func:`attention_with_lse_plain`
+  for T <= ``_BWD_FULL_T``, else :func:`chunked_attention_bwd`
+  (O(T·block) memory), both including the cotangent of ``lse``.
 - ``FLASH_LAUNCHES`` counts kernel launches, so a run can show that its
   attention went through the kernel.
 - :func:`flash_plan` plans each bfloat16 launch (the kernel refuses a plan
@@ -297,62 +302,86 @@ def _launch(q, k, v, with_lse: bool):
     return out, lse
 
 
-def _forward(q, k, v, with_lse: bool):
-    """(out, lse or None): the kernel on CUDA tensors, the plain version
-    on CPU tensors."""
-    _check(q, k, v)
-    if all(x.device.type == "cpu" for x in (q, k, v)):
-        out, lse = attention_with_lse_plain(q, k, v)
-        return out, (lse if with_lse else None)
+def _on_one_cuda_device(q, k, v) -> None:
     if not all(x.is_cuda and x.device == q.device for x in (q, k, v)):
         raise ValueError(
             f"flash attention needs q, k, v on one device; got {q.device}, "
             f"{k.device}, {v.device}"
         )
-    return _launch(q, k, v, with_lse)
 
 
-class _FlashAttention(torch.autograd.Function):
-    """Kernel forward; plain-PyTorch backward (``_flash_bwd`` /
-    ``_flash_lse_bwd`` of the reference)."""
+@torch.library.custom_op("har_tpu_torch::flash_attention_fwd", mutates_args=())
+def flash_attention_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward as one registered op: (out (B,T,H,D) contiguous, lse
+    (B,H,T) float32, or an empty (0,) tensor without ``with_lse``).  On CPU
+    tensors it is the plain version; the CUDA registration below launches
+    the kernel.  A traced or exported graph keeps it as one opaque node."""
+    if not all(x.device.type == "cpu" for x in (q, k, v)):
+        _on_one_cuda_device(q, k, v)
+    out, lse = attention_with_lse_plain(q, k, v)
+    return out.contiguous(), lse if with_lse else lse.new_empty((0,))
 
-    @staticmethod
-    def forward(ctx, q, k, v, with_lse: bool):
-        out, lse = _forward(q, k, v, with_lse)
-        ctx.with_lse = with_lse
-        ctx.save_for_backward(q, k, v, out, lse)
-        return (out, lse) if with_lse else out
 
-    @staticmethod
-    def backward(ctx, g_out, g_lse=None):
-        q, k, v, out, lse = ctx.saved_tensors
-        if not ctx.with_lse:
-            g_lse = None
-        if q.shape[1] <= _BWD_FULL_T:
-            with torch.enable_grad():
-                leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-                o, l = attention_with_lse_plain(*leaves)
-                outputs, grads = [o], [g_out]
-                if g_lse is not None:
-                    outputs.append(l)
-                    grads.append(g_lse)
-                dq, dk, dv = torch.autograd.grad(outputs, leaves, grads)
-        else:
-            dq, dk, dv = chunked_attention_bwd(
-                q, k, v, out, g_out, _BWD_BLOCK_K, g_lse=g_lse, lse=lse
-            )
-        return dq, dk, dv, None
+@flash_attention_fwd.register_kernel("cuda")
+def _flash_attention_fwd_cuda(q, k, v, with_lse):
+    _on_one_cuda_device(q, k, v)
+    out, lse = _launch(q, k, v, with_lse)
+    return out, lse if with_lse else out.new_empty((0,), dtype=torch.float32)
+
+
+@flash_attention_fwd.register_fake
+def _flash_attention_fwd_fake(q, k, v, with_lse):
+    b, t, h, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((b, h, t) if with_lse else (0,),
+                                             dtype=torch.float32)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, with_lse = inputs
+    out, lse = output
+    ctx.with_lse = with_lse
+    ctx.save_for_backward(q, k, v, out, lse)
+
+
+def _backward(ctx, g_out, g_lse):
+    """The reference's ``_flash_bwd`` / ``_flash_lse_bwd`` in plain
+    PyTorch: a recompute up to ``_BWD_FULL_T``, the chunked backward
+    beyond, the lse cotangent included."""
+    q, k, v, out, lse = ctx.saved_tensors
+    if not ctx.with_lse:
+        g_lse, lse = None, None
+    if q.shape[1] <= _BWD_FULL_T:
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            o, l = attention_with_lse_plain(*leaves)
+            outputs, grads = [o], [g_out]
+            if g_lse is not None:
+                outputs.append(l)
+                grads.append(g_lse)
+            dq, dk, dv = torch.autograd.grad(outputs, leaves, grads)
+    else:
+        dq, dk, dv = chunked_attention_bwd(
+            q, k, v, out, g_out, _BWD_BLOCK_K, g_lse=g_lse, lse=lse
+        )
+    return dq, dk, dv, None
+
+
+flash_attention_fwd.register_autograd(_backward, setup_context=_setup_context)
 
 
 def flash_attention(q, k, v):
     """Fused attention, (B, T, H, D) layout, bidirectional."""
-    return _FlashAttention.apply(q, k, v, False)
+    _check(q, k, v)
+    return flash_attention_fwd(q, k, v, False)[0]
 
 
 def flash_attention_with_lse(q, k, v):
     """Fused attention returning (out (B,T,H,D), lse (B,H,T) float32);
     ``lse[b,h,t] = log Σ_k exp(q·k/√d)``.  Gradients flow through both."""
-    return _FlashAttention.apply(q, k, v, True)
+    _check(q, k, v)
+    return flash_attention_fwd(q, k, v, True)
 
 
 def _fold_segments(x, seg: int):

@@ -1,9 +1,12 @@
-"""Step timing for the run report and ``timing.csv``.
+"""Tracing and step timing for the run report and ``timing.csv``.
 
 The reference's observability is `time.time()` pairs around each
 fit/transform printed into the report (reference Main/main.py:116-124 and
 five sibling blocks).  :class:`StepTimer` keeps those semantics (label →
 seconds) and :func:`write_timing_csv` persists them next to the metric CSVs.
+:func:`trace` (``train --trace-dir``) wraps a block in ``torch.profiler``
+and writes a TensorBoard-loadable trace to a directory, as the JAX
+package's wraps ``jax.profiler``.
 
 On a CUDA device the timer synchronizes at both ends of a section: PyTorch
 returns before the device finishes, so without the synchronize a section
@@ -20,6 +23,28 @@ import os
 import time
 
 import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None, device: torch.device | str = "cuda"):
+    """``with trace("/tmp/trace", device):`` profiles the block with
+    ``torch.profiler`` and writes its trace (``*.pt.trace.json``, which
+    TensorBoard's profiler plugin and Perfetto read) into ``log_dir``:
+    CPU and CUDA activity on a CUDA device, CPU activity only on the
+    CPU.  Pass None to disable (the context is then free), so a pipeline
+    can accept an optional ``--trace-dir`` and leave the call site
+    unchanged."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield
 
 
 class Section:

@@ -6,7 +6,11 @@ plain version; it must match ``har_tpu.ops.flash_attention`` (the Pallas
 kernel, in interpret mode here) within the JAX package's own flash-vs-XLA
 bound, rtol/atol 2e-5, forward and lse alike.  Gradients go through the
 plain-PyTorch backward (full recompute, or the chunked one) and must match
-``jax.grad`` through the JAX kernel's custom VJP.  The CUDA kernel itself
+``jax.grad`` through the JAX kernel's custom VJP.  The forward is the
+registered op ``har_tpu_torch::flash_attention_fwd``: ``torch.library.
+opcheck`` passes on CPU tensors (schema, fake and autograd registrations),
+and its gradients equal those of the ``torch.autograd.Function`` it
+replaced, kept below as ``_OldFlashAttention``.  The CUDA kernel itself
 is held against the plain version on the card by chip_smoke.py.
 """
 
@@ -218,3 +222,72 @@ def test_wrapper_rejects_mismatched_inputs():
         fa.flash_attention(q, q, torch.zeros((2, 8, 2, 16)))
     with pytest.raises(TypeError):
         fa.flash_attention(q, q, q.bfloat16())
+
+
+class _OldFlashAttention(torch.autograd.Function):
+    """The wrapper the registered op replaced (its forward here the plain
+    version, as the old one took on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, with_lse: bool):
+        out, lse = fa.attention_with_lse_plain(q, k, v)
+        lse = lse if with_lse else None
+        ctx.with_lse = with_lse
+        ctx.save_for_backward(q, k, v, out, lse)
+        return (out, lse) if with_lse else out
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse=None):
+        q, k, v, out, lse = ctx.saved_tensors
+        if not ctx.with_lse:
+            g_lse = None
+        if q.shape[1] <= fa._BWD_FULL_T:
+            with torch.enable_grad():
+                leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+                o, l = fa.attention_with_lse_plain(*leaves)
+                outputs, grads = [o], [g_out]
+                if g_lse is not None:
+                    outputs.append(l)
+                    grads.append(g_lse)
+                dq, dk, dv = torch.autograd.grad(outputs, leaves, grads)
+        else:
+            dq, dk, dv = fa.chunked_attention_bwd(
+                q, k, v, out, g_out, fa._BWD_BLOCK_K, g_lse=g_lse, lse=lse
+            )
+        return dq, dk, dv, None
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_registered_op_passes_opcheck(with_lse):
+    q, k, v = _torch(*_qkv(b=2, t=16, h=2, d=8, seed=12), grad=True)
+    result = torch.library.opcheck(fa.flash_attention_fwd, (q, k, v, with_lse))
+    assert set(result.values()) == {"SUCCESS"}, result
+
+
+@pytest.mark.parametrize("route", ["recompute", "chunked"])
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_op_gradients_equal_the_old_autograd_function(monkeypatch, route, with_lse):
+    """The recompute and the chunked backward (a ragged last key block),
+    with the lse cotangent: the op's gradients are the old wrapper's, bit
+    for bit, and so are its outputs."""
+    if route == "chunked":
+        monkeypatch.setattr(fa, "_BWD_FULL_T", 0)
+        monkeypatch.setattr(fa, "_BWD_BLOCK_K", 16)
+    q, k, v = _qkv(t=40, seed=13)
+    rng = np.random.default_rng(14)
+    w_out = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32))
+    w_lse = torch.from_numpy(rng.normal(size=(2, 2, 40)).astype(np.float32))
+    results = []
+    for apply in (
+        lambda a, b, c: (fa.flash_attention_with_lse(a, b, c) if with_lse
+                         else fa.flash_attention(a, b, c)),
+        lambda a, b, c: _OldFlashAttention.apply(a, b, c, with_lse),
+    ):
+        tq, tk, tv = _torch(q, k, v, grad=True)
+        got = apply(tq, tk, tv)
+        out, lse = got if with_lse else (got, None)
+        loss = (out * w_out).sum() + ((lse * w_lse).sum() if with_lse else 0)
+        loss.backward()
+        results.append((out.detach(), tq.grad, tk.grad, tv.grad))
+    for a, b in zip(*results):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

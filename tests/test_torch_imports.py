@@ -52,6 +52,11 @@ def test_port_has_files():
         "har_tpu_torch/transfer.py",
         "har_tpu_torch/data/ucihar.py",
         "har_tpu_torch/reporting/eda.py",
+        "har_tpu_torch/serving.py",
+        "har_tpu_torch/monitoring.py",
+        "har_tpu_torch/quantize.py",
+        "har_tpu_torch/export.py",
+        "har_tpu_torch/ops/calibration.py",
     ):
         assert required in names
 

@@ -351,3 +351,23 @@ def test_neural_copy_with_sets_trainer_fields():
     assert port.config.learning_rate == jax.config.learning_rate == 1e-2
     assert port.augment == jax.augment == "none"
     assert NeuralClassifier("mlp").config.learning_rate == 3e-3
+
+
+def test_cli_trace_dir_writes_a_trace_and_the_same_report(tmp_path, capsys):
+    """`train --trace-dir` on the CPU: torch.profiler's trace lands in the
+    directory, and result.txt equals a run without the flag outside the
+    uid and timing lines."""
+    runs = {}
+    for tag, extra in (("plain", []), ("traced", ["--trace-dir", str(tmp_path / "trace")])):
+        out = tmp_path / tag
+        assert cli.main(["train", "--models", "dt", "--no-cv", "--device", "cpu",
+                         "--output-dir", str(out), *extra]) == 0
+        runs[tag] = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        runs[tag]["text"] = (out / "result.txt").read_text().splitlines()
+    traces = list((tmp_path / "trace").glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any(e.get("cat") == "cpu_op" for e in events)
+    assert runs["traced"]["accuracies"] == runs["plain"]["accuracies"]
+    assert [_masked(ln) for ln in runs["traced"]["text"]] == [
+        _masked(ln) for ln in runs["plain"]["text"]]
