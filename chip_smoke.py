@@ -24,7 +24,8 @@ exits nonzero without the final ``ok`` line:
    ``har_tpu_torch::flash_attention_fwd``) against its plain PyTorch
    version on the card, at the CPU tests' shapes (a ragged T, D = 16), the
    raw path's training, prediction and packed shapes, ``stream``'s hop
-   (batch 1) and largest burst (256) (the resident route) and one long T
+   (batch 1) and largest burst (256) (the resident route; every batch the
+   fleet pads to takes the same plan) and one long T
    (the streamed route), with and without lse, read through the fused-qkv
    strides: float32 out and lse within rtol 1e-5 (atol 1e-6), bfloat16 out
    within 1e-2 (it is rounded to bf16; both sides accumulate in f32) and
@@ -126,7 +127,25 @@ exits nonzero without the final ``ok`` line:
     2 x layers x prediction chunks for the loaded transformer program (0
     would mean the export left the kernel out); artifact bytes and the
     int8 ratio;
-21. ucihar_main: a UCI-HAR fixture tree at the published size (7,352 +
+21. fleet_main: the fleet engine (``har_tpu_torch.serve``) on the card.
+    ``cli serve --device cuda`` of the analytic demo (1,000 sessions x 2
+    windows; the host engine, no launch), then of phase 19's transformer
+    with ``--target-batch 256``: plain (with ``--profile-host``, the
+    poll's host stages), ``--pipeline-depth 3 --fused
+    --smoothing vote``, ``--tier int8`` and ``--calibrate-device``, each
+    with 2,000 events, none dropped, balanced, and K2 exactly layers x
+    (dispatches + the calibration's 17 calls a shape); the transformer and
+    the float32 demo MLP (TF32 off) through a fleet of 256 sessions (4
+    windows each, 32 of them drifting) on a FakeClock on the card and on the CPU (the same batches): keys, raw and
+    smoothed labels and drift equal, probabilities within 1e-2 and 1e-5;
+    ``fleet_pipeline_smoke`` with the transformer (depth 3, fused, against
+    depth 1 unfused, each leg on its own FakeClock): decisions identical,
+    confidences within 1e-6; ``cli serve --journal`` killed hard after 3
+    polls in a subprocess (exit 17) and ``--resume``d: no (session,
+    t_index) twice, every window once; ``run_kill_point`` at every kill
+    point at depths 1 and 3 with the demo MLPs on the card; and the int8
+    tier against float on the held-out windows (agreement >= 0.97);
+22. ucihar_main: a UCI-HAR fixture tree at the published size (7,352 +
     2,947 rows, 561 features; written once), then ``cli train --dataset
     ucihar --data-path <tree> --device cuda`` with no model flags (K1 as
     on the default run, 385; DT and DT-CV exactly har_tpu's accuracy on
@@ -135,22 +154,22 @@ exits nonzero without the final ``ok`` line:
     the saved DT (the train run's accuracy exactly, no launch); K1 is
     held against its plain version and timed at every UCI-HAR level
     shape in phases 3 and 14;
-22. ucihar_gbt_main: ``--models gbt mlp --no-cv`` on the tree (K1 500,
+23. ucihar_gbt_main: ``--models gbt mlp --no-cv`` on the tree (K1 500,
     floors below har_tpu's);
-23. ucihar_parity_lane: ``parity.ucihar_parity_lane`` on the tree (LR's
+24. ucihar_parity_lane: ``parity.ucihar_parity_lane`` on the tree (LR's
     9-point 5-fold CV on the card): har_tpu's split, best grid point and
     accuracy within one test row, no launch;
-24. sweep_main: ``cli sweep --device cuda`` at its defaults (LR, DT, RF at
+25. sweep_main: ``cli sweep --device cuda`` at its defaults (LR, DT, RF at
     70/80/90 % train, LR's CV): K1 three tree paths (165), 12 rows in
     sweep.csv and sweep.txt, DT equal to har_tpu's at each split;
-25. raw_lane_main: ``cli parity --raw`` on a raw-format file of
+26. raw_lane_main: ``cli parity --raw`` on a raw-format file of
     ``synthetic_raw_stream(5418)`` (1,083,600 lines, written once): all
     5,418 windows, the lane's CNN1D at or above a floor below har_tpu's,
     no launch;
-26. with ``--profile`` only: one DT, one RF and one transformer fit, one
+27. with ``--profile`` only: one DT, one RF and one transformer fit, one
     default run, one parity run, one GBDT fit and a 2-epoch BiLSTM fit
     under torch.profiler, with K1's and K2's shares of the device time;
-27. the kernels line (K1's launches over every path that grows trees),
+28. the kernels line (K1's launches over every path that grows trees),
     a short ``summary`` line, then ``{"ok": true, "device": {...}}``.
 
 ``train --eda`` (host matplotlib, no kernel) is not driven here: the card's
@@ -295,6 +314,9 @@ FLASH_STREAMED = dict(b=2, t=4096, h=2, d=64)
 # largest padded batch (StreamingClassifier._MAX_BATCH)
 FLASH_STREAM_HOP = dict(b=1, t=200, h=4, d=16)
 FLASH_STREAM_BURST = dict(b=serving.StreamingClassifier._MAX_BATCH, t=200, h=4, d=16)
+# the fleet's padded batches (1-256 rows at T 200) all take the hop's
+# and the burst's plan (resident, one head a block, 7 warps; only the
+# grid grows with the batch), so those two checks cover them
 FLASH_CHECK_SHAPES = {
     "test_2x64x2x32": dict(b=2, t=64, h=2, d=32),
     "test_2x96x2x32": dict(b=2, t=96, h=2, d=32),
@@ -2080,6 +2102,328 @@ def phase_profile() -> None:
     _profile_fit("BiLSTM (2 epochs)", lambda: est.fit(train))
 
 
+FLEET_DIR = OUT / "fleet"
+FLEET_SESSIONS = 1000
+FLEET_TARGET_BATCH = 256
+FLEET_AGREE_SESSIONS = 256
+FLEET_AGREE_BATCH = 64
+FLEET_DRIFTED = 32  # sessions whose second half shifts out of distribution
+# DeviceScorer.measure: one warm-up and 16 timed calls a shape
+FLEET_CALIBRATION_CALLS = 1 + 16
+FLEET_DEMO_PROB_ATOL = 1e-5  # float32, TF32 off
+FLEET_CONFIDENCE_ATOL = 1e-6
+FLEET_KILL_SESSIONS = 256
+FLEET_KILL_WINDOWS = 4
+FLEET_KILL_AFTER_POLLS = 3
+FLEET_KILL_FLUSH_EVERY = 64
+INT8_MIN_LABEL_AGREEMENT = 0.97
+# the kill leg's subprocess: ``cli serve`` with every event that poll()
+# returns (flush() polls too) appended to a file as [session, t_index]
+FLEET_TAP = r"""
+import json, sys
+from har_tpu_torch import cli
+from har_tpu_torch.serve.engine import FleetServer
+log = open(sys.argv[1], "a")
+poll = FleetServer.poll
+def tapped(self, *args, **kwargs):
+    events = poll(self, *args, **kwargs)
+    for fe in events:
+        log.write(json.dumps([fe.session_id, fe.event.t_index]) + "\n")
+    log.flush()
+    return events
+FleetServer.poll = tapped
+sys.exit(cli.main(sys.argv[2:]))
+"""
+
+
+@contextlib.contextmanager
+def fleet_tap():
+    """The (session, t_index) of every event ``FleetServer.poll`` returns
+    inside the block."""
+    from har_tpu_torch.serve.engine import FleetServer
+
+    keys: list = []
+    poll = FleetServer.poll
+
+    def tapped(self, *args, **kwargs):
+        events = poll(self, *args, **kwargs)
+        keys.extend((fe.session_id, fe.event.t_index) for fe in events)
+        return events
+
+    FleetServer.poll = tapped
+    try:
+        yield keys
+    finally:
+        FleetServer.poll = poll
+
+
+def fleet_serve(tag: str, argv: list[str], layers: int, n_events: int) -> dict:
+    """``cli serve --device cuda`` with ``argv``: every window scored once,
+    none dropped, no retry; K2 exactly layers x (dispatches + the
+    calibration's calls) (``layers`` 0: the host model, no launch)."""
+    t0 = time.perf_counter()
+    with launch_counts() as launches:
+        out = run_cli_json(["serve", "--device", "cuda", *argv])
+    seconds = time.perf_counter() - t0
+    snap = out["stats"]
+    acct = snap["accounting"]
+    calls = FLEET_CALIBRATION_CALLS * len(snap.get("device_ms") or {})
+    expected = dict(hist=0, hist_rows=0,
+                    flash_attention=layers * (snap["dispatches"] + calls))
+    r = dict(
+        n_events=out["n_events"], scored=out["scored"], dropped=out["dropped"],
+        windows_per_sec=out["windows_per_sec"], event_p50_ms=out["event_p50_ms"],
+        event_p99_ms=out["event_p99_ms"], dispatch_backend=snap["dispatch_backend"],
+        fused=snap["fused"], dispatches=snap["dispatches"],
+        batch_sizes=snap["batch_sizes"], retries=snap["dispatch_retries"],
+        device_ms=snap.get("device_ms"), calibration_calls=calls,
+        dispatch_p50_ms=snap["stages"]["dispatch_ms"].get("p50_ms"),
+        host_profile=out["host_profile"] if "--profile-host" in argv else None,
+        launches=launches, expected_launches=expected, seconds=seconds,
+    )
+    emit("fleet_serve", run=tag, **r)
+    if not (launches == expected and acct["balanced"] and acct["pending"] == 0
+            and out["dropped"] == 0 and out["n_events"] == out["scored"] == n_events
+            and snap["dispatch_retries"] == 0 and snap["dispatch_failures"] == 0):
+        raise AssertionError(f"serve {tag}: {r}")
+    return r
+
+
+def _fleet_recordings():
+    """The card-against-CPU fleet's sessions (four windows each, the
+    first FLEET_DRIFTED shifted out of distribution after the first
+    window) and the clean pool's per-channel moments for the drift
+    monitors."""
+    from har_tpu_torch.serve import synthetic_sessions
+
+    recordings, _ = synthetic_sessions(FLEET_AGREE_SESSIONS, windows_per_session=4, seed=1)
+    pool = np.concatenate(recordings)
+    ref = (pool.mean(axis=0), pool.std(axis=0))
+    for i in range(FLEET_DRIFTED):
+        rec = recordings[i].copy()
+        rec[len(rec) // 4:] += 25.0
+        recordings[i] = rec
+    return recordings, ref
+
+
+def fleet_fixed_schedule(model, recordings, ref) -> tuple[dict, dict]:
+    """One fleet over ``recordings`` on a FakeClock that never moves:
+    batches dispatch when FLEET_AGREE_BATCH windows are due and at the
+    final flush, so any two devices score the same batches.  Events by
+    (session, t_index) and the stats snapshot."""
+    from har_tpu_torch.monitoring import DriftMonitor
+    from har_tpu_torch.serve import FakeClock, FleetConfig, FleetServer, drive_fleet
+
+    n = len(recordings)
+    server = FleetServer(
+        model, window=200, hop=200, smoothing="ema",
+        config=FleetConfig(max_sessions=n, target_batch=FLEET_AGREE_BATCH),
+        clock=FakeClock(),
+    )
+    for i in range(n):
+        server.add_session(i, monitor=DriftMonitor(*ref))
+    events, _ = drive_fleet(server, recordings, seed=1)
+    return ({(fe.session_id, fe.event.t_index): fe.event for fe in events},
+            server.stats_snapshot())
+
+
+def fleet_agree(card_model, cpu_model, recordings, ref, layers: int, prob_atol: float) -> dict:
+    """The same fleet schedule on the card and on the CPU: the same
+    (session, t_index) keys, raw and smoothed labels and drift equal,
+    probabilities within ``prob_atol``; K2 layers x dispatches on the
+    card."""
+    with launch_counts() as launches:
+        card, snap = fleet_fixed_schedule(card_model, recordings, ref)
+    cpu, _ = fleet_fixed_schedule(cpu_model, recordings, ref)
+    keys_equal = card.keys() == cpu.keys()
+    out = dict(
+        n_events=len(card), keys_equal=keys_equal, dispatches=snap["dispatches"],
+        batch_sizes=snap["batch_sizes"], launches=launches,
+        expected_launches=dict(hist=0, hist_rows=0,
+                               flash_attention=layers * snap["dispatches"]),
+        drift_events=sum(e.drift for e in card.values()),
+    )
+    if keys_equal:
+        out.update(
+            labels_equal=all(card[k].label == cpu[k].label for k in card),
+            raw_labels_equal=all(card[k].raw_label == cpu[k].raw_label for k in card),
+            drift_equal=all(card[k].drift == cpu[k].drift for k in card),
+            max_prob_diff=max(float(np.abs(card[k].probability - cpu[k].probability).max())
+                              for k in card),
+        )
+    ok = (keys_equal and out["labels_equal"] and out["raw_labels_equal"]
+          and out["drift_equal"] and out["max_prob_diff"] <= prob_atol
+          and out["launches"] == out["expected_launches"] and out["drift_events"] > 0)
+    return dict(out, ok=ok)
+
+
+def fleet_crash_resume(path: str, layers: int) -> dict:
+    """``cli serve`` of the transformer with a journal, killed hard after
+    FLEET_KILL_AFTER_POLLS polls in a subprocess (exit 17), then
+    ``--resume``: no (session, t_index) emitted twice across the two
+    runs, every window emitted once, accounting balanced, nothing lost
+    past the flush interval."""
+    journal = FLEET_DIR / "wal"
+    taps = FLEET_DIR / "killed_events.jsonl"
+    args = ["serve", "--device", "cuda", "--checkpoint", path,
+            "--sessions", str(FLEET_KILL_SESSIONS),
+            "--windows-per-session", str(FLEET_KILL_WINDOWS), "--max-delay-ms", "0",
+            "--journal", str(journal), "--journal-flush-every", str(FLEET_KILL_FLUSH_EVERY)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", FLEET_TAP, str(taps), *args,
+         "--kill-after-polls", str(FLEET_KILL_AFTER_POLLS)],
+        capture_output=True, text=True, cwd=ROOT, timeout=600)
+    killed_s = time.perf_counter() - t0
+    if proc.returncode != 17:
+        raise AssertionError(f"the killed serve exited {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(taps) as f:
+        before = [tuple(json.loads(line)) for line in f]
+    t0 = time.perf_counter()
+    with launch_counts() as launches, fleet_tap() as after:
+        out = run_cli_json(args + ["--resume"])
+    resume_s = time.perf_counter() - t0
+    total = FLEET_KILL_SESSIONS * FLEET_KILL_WINDOWS
+    emitted = before + after
+    acct = out["stats"]["accounting"]
+    r = dict(
+        emitted_before_kill=len(before), emitted_after_resume=len(after),
+        distinct=len(set(emitted)), total_windows=total, repeated=len(emitted) - len(set(emitted)),
+        scored=out["scored"], enqueued=out["enqueued"], dropped=out["dropped"],
+        lost_in_crash=out["lost_in_crash"], recoveries=out["recoveries"],
+        launches=launches, killed_s=killed_s, resume_s=resume_s,
+    )
+    emit("fleet_crash_resume", **r)
+    if not (0 < len(before) < total and r["repeated"] == 0 and r["distinct"] == total
+            and out["scored"] == out["enqueued"] == total and acct["balanced"]
+            and out["dropped"] == 0 and out["recoveries"] == 1
+            and out["lost_in_crash"] <= FLEET_KILL_FLUSH_EVERY
+            and launches["flash_attention"] > 0
+            and launches["flash_attention"] % layers == 0):
+        raise AssertionError(f"crash and resume: {r}")
+    return r
+
+
+def fleet_kill_points() -> dict:
+    """``run_kill_point`` at every KILL_POINTS entry, at depths 1 and 3,
+    behind the card's dispatch plane (two demo MLPs): every verdict
+    ok."""
+    from har_tpu_torch.serve import KILL_POINTS, run_kill_point
+
+    t0 = time.perf_counter()
+    verdicts = {}
+    with launch_counts() as launches:
+        for depth in (1, 3):
+            for point in KILL_POINTS:
+                v = run_kill_point(point, pipeline_depth=depth, device="cuda")
+                verdicts[f"{point}@{depth}"] = dict(
+                    ok=v["ok"], why=v["why"], windows_lost=v["windows_lost"],
+                    recovery_ms=v["recovery_ms"])
+    out = dict(verdicts=verdicts, launches=launches, seconds=time.perf_counter() - t0,
+               all_ok=all(v["ok"] for v in verdicts.values()))
+    emit("fleet_kill_points", **out)
+    if not out["all_ok"]:
+        raise AssertionError(f"kill points: {verdicts}")
+    return out
+
+
+def fleet_int8(path: str, layers: int) -> dict:
+    """The int8 serving tier against float on the transformer's held-out
+    windows, on the card: labels agree on at least 97%; the size
+    report."""
+    from har_tpu_torch.quantize import quantize_serving
+
+    model, test = checkpoint._load_checkpoint_for_scoring(
+        path, None, None, None, None, None, "cuda")
+    with launch_counts() as launches:
+        f32 = model.transform(test).probability.argmax(axis=-1)
+        q = quantize_serving(model)
+        int8 = q.transform(test.features).probability.argmax(axis=-1)
+    n = len(test)
+    expected = dict(hist=0, hist_rows=0,
+                    flash_attention=layers * (math.ceil(n / PREDICT_CHUNK) + 1))
+    out = dict(n_windows=n, agreement=float((f32 == int8).mean()),
+               size_report=q.size_report(), launches=launches,
+               expected_launches=expected)
+    emit("fleet_int8", **out)
+    if out["agreement"] < INT8_MIN_LABEL_AGREEMENT or launches != expected:
+        raise AssertionError(f"int8 tier: {out}")
+    return out
+
+
+def phase_fleet_main() -> dict:
+    """The fleet engine on the card, from lifecycle_main's saved CLI
+    transformer (bf16): ``cli serve`` of the analytic demo (the host
+    engine) and of the transformer (plain, pipelined and fused, int8,
+    calibrated), card against CPU on a fixed schedule (the transformer
+    and the float32 demo MLP), pipelined and fused against synchronous,
+    a crash and resume through the journal, every kill point, and the
+    int8 tier against float."""
+    from har_tpu_torch.serve import JitDemoModel, fleet_pipeline_smoke
+
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    FLEET_DIR.mkdir(parents=True)
+    path = str(MODELS_DIR / "transformer")
+    layers = len(checkpoint.load_model(path, "cpu").inner.module.blocks)
+    n = FLEET_SESSIONS
+    t0 = time.perf_counter()
+    base = ["--sessions", str(n)]
+    ckpt = base + ["--checkpoint", path, "--target-batch", str(FLEET_TARGET_BATCH)]
+    serve = {
+        "analytic": fleet_serve("analytic", base, 0, 2 * n),
+        "transformer": fleet_serve("transformer", ckpt + ["--profile-host"], layers, 2 * n),
+        "pipelined_fused": fleet_serve(
+            "pipelined_fused", ckpt + ["--pipeline-depth", "3", "--fused", "--smoothing", "vote"],
+            layers, 2 * n),
+        "int8": fleet_serve("int8", ckpt + ["--tier", "int8"], layers, 2 * n),
+        "calibrated": fleet_serve("calibrated", ckpt + ["--calibrate-device"], layers, 2 * n),
+    }
+    if not serve["pipelined_fused"]["fused"] or serve["transformer"]["dispatch_backend"] != "device":
+        raise AssertionError(f"serve backends: {serve}")
+    if not serve["calibrated"]["calibration_calls"]:
+        raise AssertionError("--calibrate-device timed no shape")
+
+    recordings, ref = _fleet_recordings()
+    card_model = checkpoint.load_model(path, "cuda")
+    agree = {"transformer": fleet_agree(card_model, checkpoint.load_model(path, "cpu"),
+                                        recordings, ref, layers, PREDICT_PROB_ATOL_BF16)}
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        agree["demo_f32"] = fleet_agree(JitDemoModel(device="cuda"), JitDemoModel(device="cpu"),
+                                        recordings, ref, 0, FLEET_DEMO_PROB_ATOL)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    emit("fleet_agree", **agree)
+    for tag, r in agree.items():
+        if not r["ok"]:
+            raise AssertionError(f"fleet card against CPU ({tag}): {r}")
+
+    with launch_counts() as launches:
+        pipeline = fleet_pipeline_smoke(sessions=FLEET_AGREE_SESSIONS, target_batch=32,
+                                        model=card_model, fake_clock=True)
+    pipeline = dict(pipeline, launches=launches, expected_launches=dict(
+        hist=0, hist_rows=0,
+        flash_attention=layers * (pipeline["dispatches_depth1"] + pipeline["dispatches"])))
+    emit("fleet_pipeline", **pipeline)
+    if not (pipeline["ok"] and launches == pipeline["expected_launches"]):
+        raise AssertionError(f"pipelined and fused against synchronous: {pipeline}")
+
+    crash = fleet_crash_resume(path, layers)
+    kills = fleet_kill_points()
+    int8 = fleet_int8(path, layers)
+    launches = {
+        "flash_attention": sum(r["launches"]["flash_attention"] for r in serve.values())
+        + sum(r["launches"]["flash_attention"] for r in agree.values())
+        + pipeline["launches"]["flash_attention"] + crash["launches"]["flash_attention"]
+        + kills["launches"]["flash_attention"] + int8["launches"]["flash_attention"],
+    }
+    seconds = time.perf_counter() - t0
+    emit("fleet_main", seconds=seconds, launches=launches)
+    return dict(serve=serve, agree=agree, pipeline=pipeline, crash=crash, kills=kills,
+                int8=int8, launches=launches, seconds=seconds)
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
                  checked: dict, shape: str, library: str = "library_ms",
                  **extra) -> dict:
@@ -2127,6 +2471,7 @@ def main(argv: list[str]) -> int:
                    cnn1d=neural_main["cnn1d_main"]["accuracy"])
     lifecycle = phase_lifecycle_main(trained)
     serving_main = phase_serving_main(trained)
+    fleet_main = phase_fleet_main()
     ucihar_root = ucihar_fixture()
     ucihar_main = phase_ucihar_main(ucihar_root)
     ucihar_gbt_main = phase_ucihar_gbt_main(ucihar_root)
@@ -2139,7 +2484,7 @@ def main(argv: list[str]) -> int:
         name: path["launches"]["flash_attention"]
         for name, path in (("raw_main", raw_main), ("raw_packed", raw_packed),
                            ("lifecycle_main", lifecycle["scoring"]),
-                           ("serving_main", serving_main))
+                           ("serving_main", serving_main), ("fleet_main", fleet_main))
     }
     hist_rows_launches = {
         name: path["launches"]["hist_rows"]
@@ -2180,6 +2525,8 @@ def main(argv: list[str]) -> int:
     # the newest paths' numbers once more, short, where a log that keeps
     # only the end of the output still holds them
     emit("summary", nvidia_smi=nvidia_smi(),
+         kernel_launches={k["name"]: k["launches"] for k in kernels},
+         flash_launches_per_path=flash_launches,
          default_main={k: default_main[k] for k in ("launches", "accuracies", "seconds")},
          parity_main={k: parity_main[k] for k in ("launches", "accuracies", "seconds")},
          gbdt_main=dict(launches=gbdt_main["launches"], accuracies=gbdt_main["accuracies"],
@@ -2216,6 +2563,23 @@ def main(argv: list[str]) -> int:
              int8_artifact_ratio=serving_main["artifacts"]["int8_artifact_ratio"],
              stream_hop=flash["timings"]["stream_hop"],
              stream_burst=flash["timings"]["stream_burst"]),
+         fleet_main=dict(
+             seconds=fleet_main["seconds"], launches=fleet_main["launches"],
+             serve={tag: {k: r[k] for k in ("windows_per_sec", "event_p50_ms", "event_p99_ms",
+                                             "dispatches", "launches")}
+                    for tag, r in fleet_main["serve"].items()},
+             agree={tag: {k: r.get(k) for k in ("n_events", "max_prob_diff", "labels_equal")}
+                    for tag, r in fleet_main["agree"].items()},
+             pipeline_equivalent=fleet_main["pipeline"]["equivalent"],
+             crash={k: fleet_main["crash"][k] for k in (
+                 "emitted_before_kill", "emitted_after_resume", "repeated", "lost_in_crash")},
+             kill_points_ok=fleet_main["kills"]["all_ok"],
+             host_profile={
+                 stage: {k: h.get(k) for k in ("count", "mean_ms", "p50_ms", "p99_ms")}
+                 for stage, h in fleet_main["serve"]["transformer"]["host_profile"].items()
+                 if isinstance(h, dict)},
+             int8_agreement=fleet_main["int8"]["agreement"],
+             int8_ratio=fleet_main["int8"]["size_report"]["ratio"]),
          ucihar_split_candidates_s=ucihar_main["split_candidates_s"],
          ucihar_parity_lane_result=ucihar_lane["lane"], raw_lane_result=raw_lane_main["lane"])
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -33,13 +33,20 @@ and ``export``:
   python -m har_tpu_torch.cli evaluate --artifact art
   python -m har_tpu_torch.cli predict --artifact art --output p.csv
 
+  python -m har_tpu_torch.cli serve --sessions 1000
+  python -m har_tpu_torch.cli serve --checkpoint models/transformer \
+      --pipeline-depth 3 --fused --smoothing vote
+  python -m har_tpu_torch.cli serve --checkpoint models/transformer --tier int8
+  python -m har_tpu_torch.cli serve --journal wal --kill-after-polls 5
+  python -m har_tpu_torch.cli serve --journal wal --resume
+
 ``train`` writes result.txt, additional_param.csv,
 crossFold_additional_param.csv (with CV) and timing.csv into
 ``--output-dir`` (with ``--eda``, the plots under ``plot/``); ``parity``
 writes the first three.  Both print the accuracies and artifact paths as
 JSON; ``sweep`` writes sweep.csv and sweep.txt and prints the table;
-``parity --raw``, ``evaluate``, ``predict``, ``finetune``, ``stream`` and
-``export`` print their results as JSON (``stream`` replays a recording,
+``parity --raw``, ``evaluate``, ``predict``, ``finetune``, ``stream``,
+``export`` and ``serve`` print their results as JSON (``stream`` replays a recording,
 or a synthetic demo one, through ``serving.StreamingClassifier`` at the
 live cadence; ``export`` writes ``predict.pt2`` and ``export_meta.json``).  Without ``--data-path``, ``ucihar`` is a synthetic
 table of its shape, and ``parity --raw`` reads the file
@@ -186,6 +193,8 @@ def _parser() -> argparse.ArgumentParser:
                          "summary carries the final drift report")
     st.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
+    _serve_arguments(sub)
+
     ex = sub.add_parser(
         "export",
         help="export a saved neural checkpoint as a self-contained "
@@ -244,6 +253,141 @@ def _parser() -> argparse.ArgumentParser:
                          "./data, or --data-path), train the CNN, report "
                          "held-out accuracy against the 0.97 target")
     return p
+
+
+def _serve_arguments(sub) -> None:
+    """``serve``: har_tpu's flags, plus ``--device``.  The flags of the
+    parts not ported yet are kept and refused (see ``_SERVE_WAITING``)."""
+    sv = sub.add_parser(
+        "serve",
+        help="fleet serving smoke: multiplex N concurrent synthetic "
+             "20 Hz sessions through the continuous-batching engine "
+             "(har_tpu_torch.serve) and report FleetStats + p50/p99 "
+             "event latency",
+    )
+    sv.add_argument("--sessions", type=int, default=1000,
+                    help="concurrent sessions to admit and drive")
+    sv.add_argument("--windows-per-session", type=int, default=2,
+                    help="10 s windows each session streams")
+    sv.add_argument("--checkpoint", default=None,
+                    help="serve a saved neural checkpoint; default is "
+                         "the training-free analytic demo model "
+                         "(scheduler-overhead baseline)")
+    sv.add_argument("--hop", type=int, default=200,
+                    help="emission stride in samples (200 = one "
+                         "decision per 10 s window)")
+    sv.add_argument("--smoothing", default="ema",
+                    choices=["ema", "vote", "none"])
+    sv.add_argument("--target-batch", type=int, default=256,
+                    help="micro-batcher dispatch size (power-of-two "
+                         "padded: at most log2+1 batch shapes)")
+    sv.add_argument("--pipeline-depth", type=int, default=1,
+                    help="dispatch batches in flight on the device "
+                         "before the host blocks on a retire: 1 = "
+                         "synchronous engine, 2 = double-buffered, >=3 "
+                         "= the ticket ring (events, smoothing and "
+                         "journal acks stay in the synchronous order at "
+                         "any depth)")
+    sv.add_argument("--fused", action="store_true",
+                    help="fused device hot loop: scale + score + argmax "
+                         "+ top-prob in ONE device function, retire "
+                         "fetching only (labels, top_probs).  Needs a "
+                         "device model (--checkpoint, or the demo MLP "
+                         "that --fused / --tier int8 pick) and vote/none "
+                         "smoothing; labels are unchanged, off-label "
+                         "event probabilities become the compact "
+                         "surrogate")
+    sv.add_argument("--tier", default="f32", choices=["f32", "int8"],
+                    help="serving tier: int8 = weight-only quantized "
+                         "serving (har_tpu_torch.quantize."
+                         "quantize_serving; weights stay int8 on the "
+                         "device, dequantized inside the forward)")
+    sv.add_argument("--mesh", type=int, default=0,
+                    help="shard each dispatch batch over this many "
+                         "devices (not ported yet: ROADMAP.md item 14)")
+    sv.add_argument("--mesh-shape", type=str, default=None,
+                    help="2D BxM serving mesh (not ported yet: item 14)")
+    sv.add_argument("--workers", type=int, default=0,
+                    help="multi-worker fleet cluster; 0/1 = the "
+                         "single-process engine (a cluster is not "
+                         "ported yet: item 15)")
+    sv.add_argument("--net", action="store_true",
+                    help="with --workers: the real transport (not "
+                         "ported yet: item 15)")
+    sv.add_argument("--kill-worker", default=None,
+                    help="with --workers: kill this worker mid-drive "
+                         "(not ported yet: item 15)")
+    sv.add_argument("--trace", default=None,
+                    choices=["diurnal", "bursty", "storm"],
+                    help="elastic traffic mode (not ported yet: item 15)")
+    sv.add_argument("--trace-rounds", type=int, default=96,
+                    help="delivery rounds for --trace")
+    sv.add_argument("--autoscale", action="store_true",
+                    help="with --trace: the capacity controller (not "
+                         "ported yet: item 15)")
+    sv.add_argument("--max-delay-ms", type=float, default=50.0,
+                    help="deadline: max time a due window waits for "
+                         "batch coalescing")
+    sv.add_argument("--monitor", action="store_true",
+                    help="attach a per-session DriftMonitor (synthetic "
+                         "training stats); drift verdicts flow into "
+                         "the multiplexed event stream")
+    sv.add_argument("--adapt", action="store_true",
+                    help="close the drift loop: retrain, shadow, swap "
+                         "(not ported yet: item 13)")
+    sv.add_argument("--inject-drift", type=float, default=0.0,
+                    help="fraction of sessions whose streams shift "
+                         "mid-recording (a population-scale sensor "
+                         "re-mount); with --monitor the drift verdicts "
+                         "flag it")
+    sv.add_argument("--registry", default=None,
+                    help="model-registry root for --adapt")
+    sv.add_argument("--profile-host", action="store_true",
+                    help="per-poll host-time breakdown (ingest / "
+                         "due-select / gather / retire / journal stage "
+                         "histograms, serve.stats.HostProfile) stamped "
+                         "into the summary JSON")
+    sv.add_argument("--calibrate-device", action="store_true",
+                    help="measure device p50 per dispatched batch "
+                         "shape (device models only) so the stats "
+                         "attribute p99 spikes to host vs device")
+    sv.add_argument("--journal", default=None,
+                    help="write-ahead journal directory "
+                         "(har_tpu_torch.serve.journal): session state, "
+                         "pushed samples and scored-event acks become "
+                         "crash-recoverable; pair with --resume after a "
+                         "kill")
+    sv.add_argument("--resume", action="store_true",
+                    help="recover the fleet from --journal DIR "
+                         "(snapshot + journal-suffix replay) and resume "
+                         "delivery from each session's recovered "
+                         "watermark — acked events are never re-emitted")
+    sv.add_argument("--journal-flush-every", type=int, default=64,
+                    help="journal records buffered between fsync "
+                         "batches (acks always flush at poll "
+                         "boundaries); bounds the crash loss window")
+    sv.add_argument("--journal-snapshot-every", type=int, default=4096,
+                    help="journal records between state snapshots; "
+                         "bounds recovery replay cost")
+    sv.add_argument("--kill-after-polls", type=int, default=0,
+                    help="TESTING: os._exit(17) after N scheduler polls "
+                         "— a SIGKILL stand-in for crash-recovery "
+                         "drills (nothing is flushed beyond what the "
+                         "journal already made durable)")
+    sv.add_argument("--seed", type=int, default=0)
+    sv.add_argument("--inject-drop", type=float, default=0.0,
+                    help="probability a delivery chunk is lost")
+    sv.add_argument("--inject-delay", type=float, default=0.0,
+                    help="probability a chunk is held one round "
+                         "(catch-up burst)")
+    sv.add_argument("--inject-stall-ms", type=float, default=0.0,
+                    help="with --inject-stall-every: dispatch stall "
+                         "length (exercises the SLO/degradation "
+                         "ladder)")
+    sv.add_argument("--inject-stall-every", type=int, default=0,
+                    help="stall every Nth dispatch by "
+                         "--inject-stall-ms")
+    sv.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
 
 def _scoring_arguments(c) -> None:
@@ -352,6 +496,236 @@ def _stream(args) -> int:
         "latency": sc.latency_stats(),
         "drift": drift,
         "events_csv": args.events_csv,
+    }))
+    return 0
+
+
+# serve's flags of the parts not ported yet: (is it set, flag, item)
+_SERVE_WAITING = (
+    (lambda a: a.adapt, "--adapt", 13),
+    (lambda a: a.mesh, "--mesh", 14),
+    (lambda a: a.mesh_shape, "--mesh-shape", 14),
+    (lambda a: a.workers and a.workers > 1, "--workers", 15),
+    (lambda a: a.net, "--net", 15),
+    (lambda a: a.kill_worker is not None, "--kill-worker", 15),
+    (lambda a: a.trace is not None, "--trace", 15),
+    (lambda a: a.autoscale, "--autoscale", 15),
+)
+
+
+def _serve(args) -> int:
+    """``serve``: the single-process fleet of ``har_tpu``'s ``serve``,
+    with its summary keys."""
+    import dataclasses
+
+    import numpy as np
+
+    for is_set, flag, item in _SERVE_WAITING:
+        if is_set(args):
+            raise NotImplementedError(
+                f"serve {flag} is not ported yet: ROADMAP.md Queue 1 item {item}"
+            )
+    from har_tpu_torch.device import resolve_device
+    from har_tpu_torch.serve import (
+        AnalyticDemoModel,
+        DeliveryFaults,
+        DispatchFaults,
+        FleetConfig,
+        FleetServer,
+        JitDemoModel,
+        JournalConfig,
+        drive_fleet,
+        synthetic_sessions,
+    )
+
+    device = resolve_device(args.device)
+    window, channels = 200, 3
+    if args.checkpoint is not None:
+        from har_tpu_torch.checkpoint import load_model, load_model_meta
+
+        model = load_model(args.checkpoint, device)
+        # serve at the checkpoint's recorded geometry (the guard
+        # StreamingClassifier.from_checkpoint enforces)
+        try:
+            shape = load_model_meta(args.checkpoint).get("input_shape")
+        except OSError:
+            shape = None
+        if shape and len(shape) == 2:
+            window, channels = int(shape[0]), int(shape[1])
+        if channels != 3:
+            raise SystemExit(
+                f"checkpoint records input_shape={shape}; the "
+                "synthetic fleet load generator emits tri-axial "
+                "(n, 3) streams — serve this checkpoint behind a "
+                "matching transport instead"
+            )
+    elif args.tier == "int8" or args.fused:
+        # --tier int8 / --fused need a device program: the demo MLP
+        model = JitDemoModel(window=window, channels=channels, device=device)
+    else:
+        # training-free analytic model: the scheduler-overhead baseline
+        model = AnalyticDemoModel()
+    if args.tier == "int8":
+        from har_tpu_torch.quantize import quantize_serving
+
+        try:
+            model = quantize_serving(model)
+        except ValueError as exc:
+            raise SystemExit(
+                f"--tier int8: {exc} — serve a device model "
+                "(--checkpoint with a neural family)"
+            )
+    if args.fused and args.smoothing == "ema":
+        raise SystemExit(
+            "--fused needs a fused-eligible smoothing mode "
+            "(--smoothing vote|none): EMA smoothing consumes the "
+            "full probability vector the fused retire never fetches"
+        )
+    fault_hook = None
+    if args.inject_stall_every:
+        fault_hook = DispatchFaults(
+            stall_every=args.inject_stall_every,
+            stall_ms=args.inject_stall_ms,
+        )
+    journal_cfg = None
+    if args.journal:
+        journal_cfg = JournalConfig(
+            flush_every=args.journal_flush_every,
+            snapshot_every=args.journal_snapshot_every,
+        )
+    recordings, class_names = synthetic_sessions(
+        args.sessions,
+        windows_per_session=args.windows_per_session,
+        window=window,
+        seed=args.seed,
+    )
+    # reference stats from the CLEAN pool (before the drift mutation),
+    # and only when a monitor needs them
+    monitor_ref = None
+    if args.monitor:
+        pool = np.concatenate(recordings)
+        monitor_ref = (pool.mean(axis=0), pool.std(axis=0))
+        del pool
+    n_drifted = int(args.sessions * min(max(args.inject_drift, 0.0), 1.0))
+    for i in range(n_drifted):
+        # population-scale sensor re-mount: the second half shifts far
+        # out of distribution
+        rec = recordings[i].copy()
+        rec[len(rec) // 2:] += 25.0
+        recordings[i] = rec
+
+    recovered_events = []
+    if args.resume:
+        if not args.journal:
+            raise SystemExit("--resume requires --journal DIR")
+        # snapshot + journal-suffix replay rebuilds the sessions and the
+        # pending queue; the transport then re-delivers from each
+        # session's recovered watermark
+        server = FleetServer.restore(
+            args.journal,
+            lambda ver: model,
+            fault_hook=fault_hook,
+            journal_config=journal_cfg,
+        )
+        recovered_events = server.poll(force=True)
+        recordings = [
+            rec[server.watermark(i):] if i in server._sessions else rec
+            for i, rec in enumerate(recordings)
+        ]
+    else:
+        from har_tpu_torch.monitoring import DriftMonitor
+
+        server = FleetServer(
+            model,
+            window=window,
+            channels=channels,
+            hop=args.hop,
+            smoothing=args.smoothing,
+            class_names=class_names,
+            config=FleetConfig.for_sessions(
+                args.sessions,
+                target_batch=args.target_batch,
+                max_delay_ms=args.max_delay_ms,
+                pipeline_depth=args.pipeline_depth,
+                fused=args.fused,
+                profile_host=args.profile_host,
+            ),
+            fault_hook=fault_hook,
+            journal=args.journal,
+            journal_config=journal_cfg,
+        )
+        for i in range(args.sessions):
+            server.add_session(
+                i,
+                monitor=(
+                    DriftMonitor(*monitor_ref) if monitor_ref is not None else None
+                ),
+            )
+    polls = {"n": 0}
+
+    def on_poll(srv, rnd):
+        polls["n"] += 1
+        if polls["n"] >= args.kill_after_polls:
+            # SIGKILL stand-in: no flush, no cleanup — only what the
+            # journal already fsynced survives
+            import os
+
+            print(f"kill-after-polls: exiting hard at poll {polls['n']}",
+                  file=sys.stderr)
+            sys.stdout.flush()
+            os._exit(17)
+
+    events, report = drive_fleet(
+        server,
+        recordings,
+        seed=args.seed,
+        faults=DeliveryFaults(
+            drop_prob=args.inject_drop, delay_prob=args.inject_delay
+        ),
+        on_poll=on_poll if args.kill_after_polls else None,
+    )
+    events = recovered_events + events
+    if server.stats.dispatch_failures:
+        # serve injects no dispatch failures: a failed dispatch is a
+        # fault of the device path (a kernel that refuses or fails), so
+        # it ends the run instead of counting as shed windows
+        err = server.last_dispatch_error
+        raise RuntimeError(
+            f"{server.stats.dispatch_failures} dispatch(es) failed after "
+            f"their retries; the last error: {err!r}"
+        ) from err
+    if args.calibrate_device:
+        try:
+            server.calibrate_device()
+        except ValueError as e:
+            print(f"warning: device calibration skipped: {e}", file=sys.stderr)
+    snap = server.stats_snapshot()
+    acct = snap["accounting"]
+    print(json.dumps({
+        "sessions": args.sessions,
+        "n_events": len(events),
+        "enqueued": acct["enqueued"],
+        "scored": acct["scored"],
+        "dropped": acct["dropped"],
+        "windows_per_sec": (
+            round(acct["scored"] / report.duration_s, 1)
+            if report.duration_s else None
+        ),
+        "event_p50_ms": snap["stages"]["event_ms"].get("p50_ms"),
+        "event_p99_ms": snap["stages"]["event_ms"].get("p99_ms"),
+        "degraded_events": snap["degraded_events"],
+        "pipeline_depth": snap["pipeline_depth"],
+        "devices": snap["devices"],
+        "overlap_pct": snap["overlap_pct"],
+        "drift_events": sum(1 for ev in events if ev.event.drift),
+        "adapt": None,
+        "journal": args.journal,
+        "resumed": bool(args.resume),
+        "recoveries": snap["recoveries"],
+        "lost_in_crash": acct["lost_in_crash"],
+        "host_profile": snap.get("host_profile"),
+        "load": dataclasses.asdict(report),
+        "stats": snap,
     }))
     return 0
 
@@ -485,6 +859,8 @@ def main(argv=None) -> int:
         return _stream(args)
     if args.command == "export":
         return _export(args)
+    if args.command == "serve":
+        return _serve(args)
     if args.validation_fraction is not None and not args.early_stop_patience:
         raise SystemExit(
             "--validation-fraction only takes effect with "

@@ -281,8 +281,17 @@ class ExportedPredictor:
 
     @property
     def int8_weights(self) -> bool:
-        """True for an int8 artifact."""
+        """True for an int8 artifact (``make_scorer(..., tier="int8")``
+        then serves it as it is)."""
         return (self.meta.get("quantization") or {}).get("scheme") == "int8_weight_only"
+
+    def serving_inner(self):
+        """The device program the fleet's dispatch plane serves
+        (``serve.dispatch._split_predict``): the loaded program behind
+        ``DeviceScorer``'s launch/retire tickets, exactly like a live
+        checkpoint.  K2 stays one node of the program, so a served
+        transformer artifact launches it once per layer per batch."""
+        return _ExportedServingInner(self)
 
     def predict(self, x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """(logits, probability) for a (n, *example_shape) batch."""
@@ -300,6 +309,27 @@ class ExportedPredictor:
         x = data.features if hasattr(data, "features") else data
         logits, probs = self.predict(x)
         return Predictions.from_raw(logits, probs)
+
+
+class _ExportedServingInner:
+    """``device_call`` of a loaded artifact as a dispatch-plane program —
+    see ``ExportedPredictor.serving_inner``.  The scaler is inside the
+    program (no host-side ``pre``); the fused hot loop is declined, as
+    the JAX package declines it for its artifacts, and the ticket
+    pipeline still overlaps the asynchronous launch."""
+
+    supports_fused = False
+
+    def __init__(self, art: ExportedPredictor):
+        self.art = art
+        self.device = art.device
+
+    def device_program(self):
+        from har_tpu_torch.serve.dispatch import DeviceProgram
+
+        return DeviceProgram(
+            self, self.art.device_call, self.device, supports_fused=False
+        )
 
 
 def load_exported(path: str, device: str | torch.device = "cuda") -> ExportedPredictor:

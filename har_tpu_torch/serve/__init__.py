@@ -1,0 +1,125 @@
+"""Fleet serving: continuous batching for thousands of concurrent
+20 Hz accelerometer streams over one predict path on one device.
+
+Port of ``har_tpu/serve``'s single-process engine; the model runs on
+its own device (``cuda`` unless the caller builds it on the CPU).
+
+Public surface:
+  FleetServer / FleetConfig / FleetEvent  — the engine (engine.py)
+  FleetStats / HostProfile                — observability (stats.py)
+  SessionArena / PendingArena             — structure-of-arrays session
+                                            + pending-queue estates
+                                            (arena.py)
+  DispatchTicket / StagingArena / make_scorer — pipelined dispatch
+                                            plane (dispatch.py)
+  DispatchFaults / DeliveryFaults / FakeClock — fault injection
+  AnalyticDemoModel / JitDemoModel / synthetic_sessions / drive_fleet
+                                          — load generation
+  FleetJournal / JournalConfig            — durability (journal.py)
+  restore_server / recovery_smoke         — crash recovery (recover.py)
+  KILL_POINTS / run_kill_point            — kill-point chaos (chaos.py)
+  fleet_slo_smoke / fleet_pipeline_smoke  — the serving checks
+
+Not ported yet (ROADMAP.md Queue 1): the adaptation loop and
+``ENGINE_KILL_POINTS``' runner (item 13); mesh-sharded and
+model-parallel scorers (item 14); the cluster, wire transport, warm
+replicas and elastic traffic (item 15); the bench cells and the
+recovery benchmark (item 16).
+"""
+
+from har_tpu_torch.serve.arena import PendingArena, SessionArena
+from har_tpu_torch.serve.chaos import (
+    ENGINE_KILL_POINTS,
+    KILL_POINTS,
+    KillPlan,
+    SimulatedCrash,
+    run_kill_point,
+    run_random_kill,
+)
+from har_tpu_torch.serve.dispatch import (
+    DispatchTicket,
+    StagingArena,
+    make_scorer,
+)
+from har_tpu_torch.serve.engine import (
+    AdmissionError,
+    DispatchError,
+    FleetConfig,
+    FleetEvent,
+    FleetServer,
+)
+from har_tpu_torch.serve.faults import (
+    DeliveryFaults,
+    DispatchFaults,
+    FakeClock,
+    InjectedDispatchFailure,
+)
+from har_tpu_torch.serve.journal import (
+    FleetJournal,
+    JournalConfig,
+    JournalError,
+)
+from har_tpu_torch.serve.loadgen import (
+    AnalyticDemoModel,
+    HostPlaneStubModel,
+    JitDemoModel,
+    LoadReport,
+    drive_fleet,
+    host_plane_benchmark,
+    host_plane_summary,
+    synthetic_sessions,
+)
+from har_tpu_torch.serve.recover import (
+    RecoveryError,
+    recovery_smoke,
+    restore_server,
+)
+from har_tpu_torch.serve.slo import (
+    events_equal,
+    fleet_pipeline_smoke,
+    fleet_slo_smoke,
+)
+from har_tpu_torch.serve.stats import FleetStats, HostProfile, StageHistogram
+
+__all__ = [
+    "AdmissionError",
+    "AnalyticDemoModel",
+    "DeliveryFaults",
+    "DispatchError",
+    "DispatchFaults",
+    "DispatchTicket",
+    "ENGINE_KILL_POINTS",
+    "FakeClock",
+    "FleetConfig",
+    "FleetEvent",
+    "FleetJournal",
+    "FleetServer",
+    "FleetStats",
+    "HostPlaneStubModel",
+    "HostProfile",
+    "InjectedDispatchFailure",
+    "JitDemoModel",
+    "JournalConfig",
+    "JournalError",
+    "KILL_POINTS",
+    "KillPlan",
+    "LoadReport",
+    "PendingArena",
+    "RecoveryError",
+    "SessionArena",
+    "SimulatedCrash",
+    "StageHistogram",
+    "StagingArena",
+    "drive_fleet",
+    "events_equal",
+    "fleet_pipeline_smoke",
+    "fleet_slo_smoke",
+    "host_plane_benchmark",
+    "host_plane_summary",
+    "make_scorer",
+    "recovery_smoke",
+    "restore_server",
+    "run_kill_point",
+    "run_random_kill",
+    "synthetic_sessions",
+]

@@ -1,0 +1,449 @@
+"""Deterministic kill-point chaos harness for the fleet durability
+layer — enumerate every stage boundary a process can die at, kill
+there, recover, and prove the contract instead of hoping at it.
+
+The crash model is honest about what a SIGKILL leaves behind: the
+engine and the adaptation controller call ``journal.chaos_point(name)``
+at each stage boundary; a ``KillPlan`` installed as the journal's chaos
+hook raises ``SimulatedCrash`` at the chosen occurrence of the chosen
+point, the harness abandons the server object (all process memory
+gone) and calls ``FleetJournal.kill()`` — which discards the un-flushed
+buffer, exactly the bytes the kernel would have lost.  Recovery then
+runs the real ``FleetServer.restore`` path against whatever the
+directory actually holds.
+
+Kill points (KILL_POINTS), in pipeline order::
+
+    post_enqueue        windows queued, push record possibly un-flushed
+    pre_dispatch        queue populated, nothing scored
+    mid_dispatch        batch popped from the queue, not yet launched
+    mid_launch          batch launched on-device (ticket in flight),
+                        nothing fetched, nothing acked
+    pre_retire          ticket about to be retired: device result may
+                        exist, acks not yet written
+    post_score_pre_ack  scores computed, acks not yet journaled
+    mid_snapshot        snapshot tmp written, rename not yet done
+    mid_swap            swap applied in memory, record not yet durable
+    mid_resize          elastic resize applied in memory (target_batch /
+                        pipeline_depth / mesh), record not yet durable —
+                        recovery serves the pre-resize capacity and the
+                        controller re-issues
+    mid_promote         registry promoted, fleet swap not yet applied
+    mid_rollback        registry rolled back, swap-back not yet applied
+
+The two launch/retire points exist because pipelining moved the ack
+boundary: a ticket in flight at crash time is un-acked BY CONSTRUCTION,
+so both points must recover exactly like pre_dispatch — the popped
+windows re-derive from replayed pushes and are re-scored.  The matrix
+runs at pipeline_depth 1 AND 2 in full, the ticket-centric points
+additionally at ring depths 3 and 4, and the randomized property test
+draws depth from {1, 2, 3, 4} (all test-pinned): depth must never
+change what a crash can lose.
+
+The verdict of every point is the same three-part contract
+(test-pinned in tests/test_recovery.py, sampled by the release gate's
+``recovery_smoke``):
+
+  1. accounting — ``enqueued == scored + dropped + pending +
+     lost_in_crash`` in the recovered fleet, per version and in total;
+  2. zero double-scoring — no (session, t_index) event is delivered
+     twice across the crash;
+  3. bit-identical continuation — the union of pre-crash and
+     post-recovery events equals an uninterrupted run's event stream
+     exactly (decision fields), because the harness's transport
+     re-delivers un-journaled samples from the recovered watermark.
+
+Port of the engine half of ``har_tpu/serve/chaos.py``: ``run_kill_point``
+takes ``device=`` to run the matrix behind the device dispatch plane.
+``ENGINE_KILL_POINTS`` drive the adaptation engine (ROADMAP.md Queue 1
+item 13); the cluster, ship, tail and gateway matrices wait for item 15.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import tempfile
+import time
+
+import numpy as np
+
+from har_tpu_torch.serve.engine import FleetConfig, FleetServer
+from har_tpu_torch.serve.faults import DispatchFaults, FakeClock
+from har_tpu_torch.serve.journal import FleetJournal, JournalConfig
+from har_tpu_torch.serve.loadgen import AnalyticDemoModel
+
+KILL_POINTS = (
+    "post_enqueue",
+    "pre_dispatch",
+    "mid_dispatch",
+    "mid_launch",
+    "pre_retire",
+    "post_score_pre_ack",
+    "mid_snapshot",
+    "mid_swap",
+    "mid_resize",
+)
+# the adaptation controller's stage boundaries (registry promoted or
+# rolled back, fleet swap not yet applied): their runner drives the
+# adaptation engine, which is not ported yet (ROADMAP.md Queue 1 item 13)
+ENGINE_KILL_POINTS = ("mid_promote", "mid_rollback")
+# occurrence of each point the matrix kills at by default — calibrated
+# so every kill lands mid-run (some windows acked, some pending, the
+# swap schedule still ahead or just behind; for the cluster points,
+# at least one session already handed off when the controller dies)
+_DEFAULT_AT = {
+    "post_enqueue": 12,
+    "pre_dispatch": 3,
+    "mid_dispatch": 2,
+    "mid_launch": 2,
+    "pre_retire": 2,
+    "post_score_pre_ack": 2,
+    "mid_snapshot": 1,
+    "mid_swap": 1,
+    "mid_resize": 1,
+}
+
+
+class SimulatedCrash(Exception):
+    """Raised by a KillPlan at its chosen stage boundary."""
+
+
+@dataclasses.dataclass
+class KillPlan:
+    """Journal chaos hook: crash at the ``at``-th hit of ``point``."""
+
+    point: str
+    at: int = 1
+    hits: int = 0
+    fired: bool = False
+
+    def __call__(self, point: str) -> None:
+        if point != self.point:
+            return
+        self.hits += 1
+        if self.hits == self.at:
+            self.fired = True
+            raise SimulatedCrash(self.point)
+
+
+def _recordings(n_sessions: int, n_samples: int, channels: int, seed: int):
+    rng = np.random.default_rng((seed, 0xC4A5))
+    return [
+        rng.normal(size=(n_samples, channels)).astype(np.float32)
+        for _ in range(n_sessions)
+    ]
+
+
+def _event_key(fe):
+    return (fe.session_id, fe.event.t_index)
+
+
+def _event_fields(fe):
+    ev = fe.event
+    return (
+        ev.t_index, ev.label, ev.raw_label, ev.drift,
+        ev.probability.tobytes(),
+    )
+
+
+def _deliver(server, recordings, cursors, upto, hop, clock, events,
+             on_round=None):
+    """Round-robin hop-aligned delivery until every cursor reaches
+    min(upto, len(recording)); force-poll after each round.  Resuming
+    from arbitrary per-session watermarks re-aligns to the hop grid, so
+    an interrupted schedule continues exactly where it died.
+    ``on_round()`` fires after each round's poll — the tail kill cells
+    interleave standby cycles there."""
+    while True:
+        active = False
+        for i, rec in enumerate(recordings):
+            stop = min(upto, len(rec))
+            if cursors[i] >= stop:
+                continue
+            active = True
+            take = hop - (cursors[i] % hop) or hop
+            chunk = rec[cursors[i] : min(cursors[i] + take, stop)]
+            cursors[i] += len(chunk)
+            server.push(i, chunk)
+        if not active:
+            break
+        events.extend(server.poll(force=True))
+        clock.advance(0.01)
+        if on_round is not None:
+            on_round()
+    events.extend(server.flush())
+
+
+def _run_schedule(server, recordings, cursors, *, hop, clock, models,
+                  swap_sample, events):
+    """The one delivery schedule both the reference and the crashed+
+    recovered runs execute: everything up to ``swap_sample`` scores on
+    model A, then the swap, then the rest — driven purely off cursor
+    state so it resumes deterministically from recovered watermarks.
+    ``events`` is caller-owned so delivered events survive a
+    SimulatedCrash raised mid-schedule."""
+    _deliver(server, recordings, cursors, swap_sample, hop, clock, events)
+    if server.model_version == "A":
+        # elastic resize at the same schedule point the swap fires:
+        # gives mid_resize a boundary to kill at, and proves depth/
+        # batch changes never move an event (scores are row-independent
+        # and retire order is FIFO, so the reference run — which
+        # resizes identically — stays bit-identical).  Guarded like the
+        # cluster path so a crash-resume re-issue is a true no-op: a
+        # recovered server already at 48 must not journal a second
+        # resize record or double-count stats.resizes.
+        if server.config.target_batch != 48:
+            server.resize(target_batch=48)
+        server.swap_model(models["B"], version="B")
+    _deliver(
+        server, recordings, cursors, max(map(len, recordings)), hop,
+        clock, events,
+    )
+    return events
+
+
+def run_kill_point(
+    point: str,
+    *,
+    at: int | None = None,
+    sessions: int = 8,
+    seed: int = 0,
+    n_samples: int = 600,
+    window: int = 100,
+    hop: int = 50,
+    flush_every: int = 8,
+    snapshot_every: int = 40,
+    fsync: bool = True,
+    journal_dir: str | None = None,
+    pipeline_depth: int = 1,
+    mesh=None,
+    device=None,
+) -> dict:
+    """Kill a journaled fleet at one stage boundary, recover, resume,
+    and return the verdict dict (``ok`` + evidence).
+
+    ``device`` (``"cuda"`` or ``"cpu"``) runs the whole matrix behind
+    the device dispatch plane: the A/B models become two
+    ``JitDemoModel``s on that device (the analytic pair has no device
+    program).  None keeps the analytic pair on the host.  A ``mesh``
+    (sharded serving) is not ported yet (ROADMAP.md Queue 1 item 14).
+
+    Runs under the FakeClock + DispatchFaults harness (periodic
+    injected stalls on the fake clock: the fault plumbing is live, the
+    scores stay deterministic), with a mid-run hot swap in the schedule
+    so swap-adjacent kill points have something to interrupt.
+
+    ``pipeline_depth > 1`` runs the same matrix with tickets genuinely
+    in flight at the kill instant — the conservation law and the
+    bit-identical-continuation contract must hold unchanged, because a
+    ticket in flight is un-acked by construction.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "kill points behind a serving mesh are not ported yet: "
+            "ROADMAP.md Queue 1 item 14"
+        )
+    if point in ENGINE_KILL_POINTS:
+        raise NotImplementedError(
+            f"kill point {point!r} drives the adaptation engine, which is "
+            "not ported yet: ROADMAP.md Queue 1 item 13"
+        )
+    if point not in KILL_POINTS:
+        raise ValueError(f"unknown kill point {point!r}")
+    at = _DEFAULT_AT[point] if at is None else at
+    recordings = _recordings(sessions, n_samples, 3, seed)
+    if device is None:
+        models = {
+            "A": AnalyticDemoModel(), "B": AnalyticDemoModel(tau=5.0),
+        }
+    else:
+        # device dispatch plane: the analytic pair is host-only, so the
+        # A/B swap serves two demo MLPs on the device instead
+        from har_tpu_torch.serve.loadgen import JitDemoModel
+
+        models = {
+            "A": JitDemoModel(window=window, channels=3, seed=1729,
+                              device=device),
+            "B": JitDemoModel(window=window, channels=3, seed=5,
+                              device=device),
+        }
+    swap_sample = (n_samples // hop // 2) * hop  # mid-recording
+    config = FleetConfig(
+        max_sessions=sessions, target_batch=32, max_delay_ms=0.0,
+        retries=1, pipeline_depth=pipeline_depth,
+    )
+
+    def build(clock, journal):
+        server = FleetServer(
+            models["A"], window=window, hop=hop, channels=3,
+            smoothing="ema", config=config,
+            fault_hook=DispatchFaults(
+                stall_every=3, stall_ms=1.0, fake_clock=clock
+            ),
+            clock=clock, model_version="A", journal=journal,
+        )
+        for i in range(sessions):
+            server.add_session(i)
+        return server
+
+    # ---- reference: the uninterrupted run --------------------------------
+    ref_clock = FakeClock()
+    ref_server = build(ref_clock, None)
+    ref_events: list = []
+    _run_schedule(
+        ref_server, recordings, [0] * sessions, hop=hop, clock=ref_clock,
+        models=models, swap_sample=swap_sample, events=ref_events,
+    )
+
+    # ---- crashed run -----------------------------------------------------
+    tmp = None
+    if journal_dir is None:
+        tmp = journal_dir = tempfile.mkdtemp(prefix="har_chaos_")
+    try:
+        journal = FleetJournal(
+            journal_dir,
+            JournalConfig(
+                flush_every=flush_every, snapshot_every=snapshot_every,
+                fsync=fsync,
+            ),
+        )
+        clock = FakeClock()
+        server = build(clock, journal)
+        # armed only after construction: the attach-time snapshot is
+        # part of setup, not of the schedule under chaos
+        plan = KillPlan(point, at)
+        journal.chaos = plan
+        pre_events: list = []
+        cursors = [0] * sessions
+        try:
+            _run_schedule(
+                server, recordings, cursors, hop=hop, clock=clock,
+                models=models, swap_sample=swap_sample, events=pre_events,
+            )
+            journal.close()
+            return {
+                "ok": False, "point": point,
+                "why": f"kill point {point!r} never fired (at={at})",
+                "windows_lost": 0, "recovery_ms": 0.0,
+            }
+        except SimulatedCrash:
+            # SIGKILL: process memory gone, un-flushed journal bytes
+            # gone; only `pre_events` (already delivered to the
+            # consumer before the crash) and the disk survive
+            journal.kill()
+
+        # ---- recovery ----------------------------------------------------
+        t0 = time.perf_counter()
+        clock2 = FakeClock(clock.t)
+        restored = FleetServer.restore(
+            journal_dir,
+            lambda ver: models[ver],
+            clock=clock2,
+            fault_hook=DispatchFaults(
+                stall_every=3, stall_ms=1.0, fake_clock=clock2
+            ),
+        )
+        recovery_ms = (time.perf_counter() - t0) * 1e3
+
+        # ---- resume: transport re-delivers from the watermark ------------
+        post_events: list = []
+        post_events.extend(restored.poll(force=True))  # drain recovered
+        resume_cursors = [restored.watermark(i) for i in range(sessions)]
+        _run_schedule(
+            restored, recordings, resume_cursors, hop=hop,
+            clock=clock2, models=models, swap_sample=swap_sample,
+            events=post_events,
+        )
+
+        # ---- verdict -----------------------------------------------------
+        return _verdict(
+            point, ref_events, pre_events, post_events, restored,
+            recovery_ms,
+        )
+    finally:
+        if tmp is not None:
+            import shutil
+
+            shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _verdict(point, ref_events, pre_events, post_events, restored,
+             recovery_ms) -> dict:
+    why = None
+    combined = list(pre_events) + list(post_events)
+    keys = [_event_key(e) for e in combined]
+    if len(keys) != len(set(keys)):
+        why = "an event was delivered twice across the crash"
+    by_sid: dict = {}
+    for e in combined:
+        by_sid.setdefault(e.session_id, []).append(e)
+    ref_by_sid: dict = {}
+    for e in ref_events:
+        ref_by_sid.setdefault(e.session_id, []).append(e)
+    windows_lost = sum(len(v) for v in ref_by_sid.values()) - sum(
+        len(v) for v in by_sid.values()
+    )
+    if why is None and windows_lost != 0:
+        why = f"{windows_lost} window(s) lost vs the uninterrupted run"
+    if why is None:
+        for sid, want in ref_by_sid.items():
+            got = by_sid.get(sid, [])
+            if [_event_fields(e) for e in got] != [
+                _event_fields(e) for e in want
+            ]:
+                why = (
+                    f"session {sid!r} events diverge from the "
+                    "uninterrupted run"
+                )
+                break
+    acct = restored.stats.accounting()
+    if why is None and not (
+        acct["balanced"] and acct["pending"] == 0 and acct["dropped"] == 0
+    ):
+        why = f"accounting violated after recovery: {acct}"
+    if why is None and restored.stats.recoveries != 1:
+        why = f"recoveries counter is {restored.stats.recoveries}, not 1"
+    return {
+        "ok": why is None,
+        "point": point,
+        "why": why,
+        "windows_lost": max(windows_lost, 0),
+        "delivered_pre_crash": len(pre_events),
+        "delivered_post_recovery": len(post_events),
+        "recovery_ms": round(recovery_ms, 3),
+        "accounting": acct,
+    }
+
+
+def run_random_kill(seed: int, mesh=None, device=None) -> dict:
+    """Seed-randomized kill-point draw for the property test: point,
+    occurrence, flush batching, snapshot cadence AND pipeline depth all
+    vary — the recovery contract must hold for every combination.  The
+    depth draw spans the full ticket ring {1, 2, 3, 4}: at depth >= 3
+    several tickets are genuinely in flight at the kill instant, and
+    every one of them must recover as ordinary un-acked pending.
+    ``device`` runs the draw behind the device dispatch plane (see
+    `run_kill_point`)."""
+    rng = np.random.default_rng((seed, 0xDEAD))
+    point = KILL_POINTS[int(rng.integers(len(KILL_POINTS)))]
+    at = _DEFAULT_AT[point] + int(rng.integers(0, 3))
+    out = run_kill_point(
+        point,
+        at=at,
+        sessions=int(rng.integers(3, 9)),
+        seed=seed,
+        flush_every=int(rng.choice([1, 4, 16, 64])),
+        snapshot_every=int(rng.choice([0, 10, 30])),
+        pipeline_depth=int(rng.choice([1, 2, 3, 4])),
+        mesh=mesh, device=device,
+    )
+    out["seed"] = seed
+    if not out["ok"] and "never fired" in (out["why"] or ""):
+        # a tiny random fleet may finish before a late occurrence; that
+        # is a harness-calibration miss, not a durability failure —
+        # retry at the first occurrence so every seed tests recovery
+        out = run_kill_point(point, at=1, sessions=4, seed=seed, mesh=mesh,
+                             device=device)
+        out["seed"] = seed
+    return out
+

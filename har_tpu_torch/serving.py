@@ -27,8 +27,8 @@ Device timing (``device_latency_ms``) runs the bare forward on a
 device-resident input and waits with ``torch.cuda.synchronize`` (where
 JAX waited with ``block_until_ready``), never fetching the result, so
 the gap to the per-hop end-to-end time is host staging, copies and the
-softmax on the host.  The fleet engine (``har_tpu.serve``) is not ported
-here (ROADMAP.md Queue 1 item 12).
+softmax on the host.  The fleet engine that multiplexes many such
+streams through one predict path is ``har_tpu_torch.serve``.
 """
 
 from __future__ import annotations
@@ -160,25 +160,24 @@ def pad_shard(windows: np.ndarray, shards: int = 1) -> np.ndarray:
 
 def _device_program(model):
     """(forward on a device tensor, its device) behind any serving
-    wrapper chain; see :func:`device_predict_fn`."""
+    wrapper chain; see :func:`device_predict_fn`.  The fleet's
+    ``serve.dispatch._split_predict`` owns the unwrapping; timing also
+    looks through a temperature (``.model``), which the fleet serves on
+    the host."""
+    from har_tpu_torch.serve.dispatch import NoDeviceProgram, _split_predict
+
     inner = model
-    for _ in range(4):
-        if hasattr(inner, "predict_logits") and hasattr(inner, "module"):
-            module = inner.module  # NeuralModel
-            return (lambda x: module(x)), inner.device
-        if hasattr(inner, "device_call"):
-            return inner.device_call, inner.device  # ExportedPredictor
-        nxt = getattr(inner, "inner", None)
-        if nxt is None:
-            nxt = getattr(inner, "model", None)
-        if nxt is None:
-            break
-        inner = nxt
-    raise ValueError(
-        "device timing needs a NeuralModel-backed or exported-"
-        f"artifact classifier (got {type(model).__name__}); "
-        "e2e latency stats are still available"
-    )
+    while not hasattr(inner, "inner") and hasattr(inner, "model"):
+        inner = inner.model  # TemperatureScaledModel: host-side division
+    try:
+        _, program = _split_predict(inner)
+    except NoDeviceProgram:
+        raise ValueError(
+            "device timing needs a NeuralModel-backed or exported-"
+            f"artifact classifier (got {type(model).__name__}); "
+            "e2e latency stats are still available"
+        ) from None
+    return program.forward, program.device
 
 
 def device_predict_fn(model):

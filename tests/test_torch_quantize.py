@@ -9,8 +9,9 @@ dequantized float32 logits are within 1e-5 of the JAX package's
 CNN1D, JAX's contract (``tests/test_quantize.py:33-48``): accuracy within
 0.01 of float, probabilities within atol 0.05; the quantized model
 streams with the float model's raw labels.  The fleet's int8 tier
-(``quantize_serving``, ``tests/test_quantize.py:176-230``) waits for the
-fleet engine.
+(``quantize_serving``, ``tests/test_quantize.py:176-230``) is held to
+har_tpu's in tests/test_torch_fleet_dispatch.py, beside the port's fleet
+engine (``har_tpu_torch/serve``).
 """
 
 import numpy as np
