@@ -145,7 +145,37 @@ exits nonzero without the final ``ok`` line:
     t_index) twice, every window once; ``run_kill_point`` at every kill
     point at depths 1 and 3 with the demo MLPs on the card; and the int8
     tier against float on the held-out windows (agreement >= 0.97);
-22. ucihar_main: a UCI-HAR fixture tree at the published size (7,352 +
+22. adapt_main: the adaptation loop (``har_tpu_torch.adapt``) over phase
+    19's transformer.  ``cli serve --adapt --inject-drift 0.5
+    --windows-per-session 6 --max-delay-ms 0 --device cuda`` (1,000
+    sessions; the JAX CLI's trigger, shadow and probation configs, its
+    demo retrainer): at least one swap, no rollback, nothing dropped,
+    the registry's CURRENT serving, K2 exactly layers x (dispatches +
+    shadow-scored batches, the candidate's and probation's reverse
+    shadow); the same loop over 128 sessions (half drifting) on a
+    FakeClock with a retrainer that fine-tunes the incumbent one epoch on
+    drift-shifted labelled windows (K2 layers x its 8 steps) and
+    registers it from the card's weights: every verdict in the log
+    follows its gates, the registered version loads on the card and the
+    CPU within 1e-2; that loop card against CPU with the registered
+    candidate: the same transitions at the same polls, labels equal,
+    probabilities within 1e-2; ``propose_int8`` with its default gates
+    (latency factor 1.5 on the real clock) served fused at depths 1 and
+    3, the verdict the gates' (a swap serving the int8 tier, or a
+    refusal leaving the incumbent), the latency ratio printed; both
+    engine kill points at depths 1 and 3 (demo MLPs on the card); and a
+    journaled ``serve --adapt`` killed while its candidate shadows and
+    resumed with ``--registry``: no window twice, CURRENT serving.  Every
+    run requires the engine's contained errors (``shadow_errors``,
+    retrain and registry errors) at zero;
+23. traffic_main: the elastic traffic engine (``serve.traffic``):
+    ``cli serve --trace diurnal|bursty|storm --autoscale --target-batch
+    512 --device cuda`` at the CLI's peak of 1,000 sessions and 96
+    rounds: zero undeclared drops, balanced, at least one scale-up and
+    one scale-down, K2 exactly layers x dispatches; then the storm trace
+    at a peak of 128 on a FakeClock, autoscaled, card against CPU: the
+    same controller actions, labels equal, probabilities within 1e-2;
+24. ucihar_main: a UCI-HAR fixture tree at the published size (7,352 +
     2,947 rows, 561 features; written once), then ``cli train --dataset
     ucihar --data-path <tree> --device cuda`` with no model flags (K1 as
     on the default run, 385; DT and DT-CV exactly har_tpu's accuracy on
@@ -154,22 +184,22 @@ exits nonzero without the final ``ok`` line:
     the saved DT (the train run's accuracy exactly, no launch); K1 is
     held against its plain version and timed at every UCI-HAR level
     shape in phases 3 and 14;
-23. ucihar_gbt_main: ``--models gbt mlp --no-cv`` on the tree (K1 500,
+25. ucihar_gbt_main: ``--models gbt mlp --no-cv`` on the tree (K1 500,
     floors below har_tpu's);
-24. ucihar_parity_lane: ``parity.ucihar_parity_lane`` on the tree (LR's
+26. ucihar_parity_lane: ``parity.ucihar_parity_lane`` on the tree (LR's
     9-point 5-fold CV on the card): har_tpu's split, best grid point and
     accuracy within one test row, no launch;
-25. sweep_main: ``cli sweep --device cuda`` at its defaults (LR, DT, RF at
+27. sweep_main: ``cli sweep --device cuda`` at its defaults (LR, DT, RF at
     70/80/90 % train, LR's CV): K1 three tree paths (165), 12 rows in
     sweep.csv and sweep.txt, DT equal to har_tpu's at each split;
-26. raw_lane_main: ``cli parity --raw`` on a raw-format file of
+28. raw_lane_main: ``cli parity --raw`` on a raw-format file of
     ``synthetic_raw_stream(5418)`` (1,083,600 lines, written once): all
     5,418 windows, the lane's CNN1D at or above a floor below har_tpu's,
     no launch;
-27. with ``--profile`` only: one DT, one RF and one transformer fit, one
+29. with ``--profile`` only: one DT, one RF and one transformer fit, one
     default run, one parity run, one GBDT fit and a 2-epoch BiLSTM fit
     under torch.profiler, with K1's and K2's shares of the device time;
-28. the kernels line (K1's launches over every path that grows trees),
+30. the kernels line (K1's launches over every path that grows trees),
     a short ``summary`` line, then ``{"ok": true, "device": {...}}``.
 
 ``train --eda`` (host matplotlib, no kernel) is not driven here: the card's
@@ -2257,32 +2287,42 @@ def fleet_agree(card_model, cpu_model, recordings, ref, layers: int, prob_atol: 
     return dict(out, ok=ok)
 
 
+def kill_and_resume(args: list[str], kill_after: int, taps: Path) -> tuple:
+    """``cli`` with ``args``, killed hard after ``kill_after`` polls in a
+    subprocess (exit 17) with every event it emitted tapped to ``taps``,
+    then the same with ``--resume`` in this process: the (session,
+    t_index) of the events before the kill and after it, the resumed
+    run's summary, its launches and both legs' seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", FLEET_TAP, str(taps), *args,
+         "--kill-after-polls", str(kill_after)],
+        capture_output=True, text=True, cwd=ROOT, timeout=600)
+    killed_s = time.perf_counter() - t0
+    if proc.returncode != 17:
+        raise AssertionError(f"the killed {args[:1]} exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    with open(taps) as f:
+        before = [tuple(json.loads(line)) for line in f]
+    t0 = time.perf_counter()
+    with launch_counts() as launches, fleet_tap() as after:
+        out = run_cli_json(args + ["--resume"])
+    return before, after, out, launches, killed_s, time.perf_counter() - t0
+
+
 def fleet_crash_resume(path: str, layers: int) -> dict:
     """``cli serve`` of the transformer with a journal, killed hard after
     FLEET_KILL_AFTER_POLLS polls in a subprocess (exit 17), then
     ``--resume``: no (session, t_index) emitted twice across the two
     runs, every window emitted once, accounting balanced, nothing lost
     past the flush interval."""
-    journal = FLEET_DIR / "wal"
-    taps = FLEET_DIR / "killed_events.jsonl"
     args = ["serve", "--device", "cuda", "--checkpoint", path,
             "--sessions", str(FLEET_KILL_SESSIONS),
             "--windows-per-session", str(FLEET_KILL_WINDOWS), "--max-delay-ms", "0",
-            "--journal", str(journal), "--journal-flush-every", str(FLEET_KILL_FLUSH_EVERY)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-c", FLEET_TAP, str(taps), *args,
-         "--kill-after-polls", str(FLEET_KILL_AFTER_POLLS)],
-        capture_output=True, text=True, cwd=ROOT, timeout=600)
-    killed_s = time.perf_counter() - t0
-    if proc.returncode != 17:
-        raise AssertionError(f"the killed serve exited {proc.returncode}: {proc.stderr[-2000:]}")
-    with open(taps) as f:
-        before = [tuple(json.loads(line)) for line in f]
-    t0 = time.perf_counter()
-    with launch_counts() as launches, fleet_tap() as after:
-        out = run_cli_json(args + ["--resume"])
-    resume_s = time.perf_counter() - t0
+            "--journal", str(FLEET_DIR / "wal"),
+            "--journal-flush-every", str(FLEET_KILL_FLUSH_EVERY)]
+    before, after, out, launches, killed_s, resume_s = kill_and_resume(
+        args, FLEET_KILL_AFTER_POLLS, FLEET_DIR / "killed_events.jsonl")
     total = FLEET_KILL_SESSIONS * FLEET_KILL_WINDOWS
     emitted = before + after
     acct = out["stats"]["accounting"]
@@ -2424,6 +2464,538 @@ def phase_fleet_main() -> dict:
                 int8=int8, launches=launches, seconds=seconds)
 
 
+ADAPT_DIR = OUT / "adapt"
+# serve --adapt at the CLI's 1,000 sessions: six windows a session and one
+# dispatch a poll, so the drifted half's episodes escalate, the candidate
+# shadows and swaps, and probation closes inside the run
+ADAPT_WINDOWS = 6
+ADAPT_CLI_ARGS = ["--adapt", "--inject-drift", "0.5", "--windows-per-session",
+                  str(ADAPT_WINDOWS), "--max-delay-ms", "0"]
+ADAPT_SESSIONS = 1000
+ADAPT_LOOP_SESSIONS = 128
+ADAPT_LOOP_WINDOWS = 10
+ADAPT_LOOP_BATCH = 64
+# the retrainer's fine-tune: one epoch over drift-shifted labelled windows
+ADAPT_FINETUNE_WINDOWS = 2048
+ADAPT_FINETUNE_BATCH = 256
+ADAPT_INT8_SESSIONS = 256
+ADAPT_INT8_WINDOWS = 24  # 96 dispatches of 64: past the shadow budget of 64
+ADAPT_KILL_SESSIONS = 256
+ADAPT_KILL_AFTER_POLLS = 5  # while the first candidate shadows
+TRAFFIC_KINDS = ("diurnal", "bursty", "storm")
+# the CLI's floor of 16 and a ceiling of 512: above the trough's ~133
+# windows a round by enough that the controller's fill signal (the last
+# batch over target_batch) falls under 0.5 there and it scales back down;
+# at the default ceiling of 256 the trough's batches fill 0.52
+TRAFFIC_TARGET_BATCH = 512
+TRAFFIC_AGREE_PEAK = 128
+TRAFFIC_AGREE_ROUNDS = 48
+
+
+@contextlib.contextmanager
+def fleet_servers():
+    """Every FleetServer built inside the block, in order."""
+    from har_tpu_torch.serve.engine import FleetServer
+
+    built: list = []
+    init = FleetServer.__init__
+
+    def record(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        built.append(self)
+
+    FleetServer.__init__ = record
+    try:
+        yield built
+    finally:
+        FleetServer.__init__ = init
+
+
+def adapt_clean(status: dict, snap: dict) -> bool:
+    """The adaptation engine contains a shadow tap's, a retrainer's and a
+    registry's errors by design; on the card each of them would hide a
+    device-path fault, so every phase requires all three at zero."""
+    return (snap["shadow_errors"] == 0 and status["retrain_errors"] == 0
+            and status["registry_errors"] == 0)
+
+
+def verdicts_follow_gates(log: list) -> bool:
+    """Every swap in ``log`` passed its gates, every rejection failed
+    them."""
+    for entry in log:
+        if entry["event"] == "swapped" and not entry["shadow"]["passed"]:
+            return False
+        if entry["event"] == "candidate_rejected" and entry["gates"]["passed"]:
+            return False
+    return True
+
+
+def adapt_cli(path: str, layers: int) -> dict:
+    """``cli serve --adapt --inject-drift 0.5 --device cuda`` of the
+    transformer at 1,000 sessions: at least one swap, no rollback, zero
+    drops, the registry's CURRENT serving, and K2 exactly layers x
+    (dispatches + shadow-scored batches, the candidate's and probation's
+    reverse shadow)."""
+    from har_tpu_torch.adapt import ModelRegistry
+
+    registry = ADAPT_DIR / "cli_registry"
+    t0 = time.perf_counter()
+    with launch_counts() as launches:
+        out = run_cli_json(["serve", "--device", "cuda", "--checkpoint", path,
+                            "--registry", str(registry), *ADAPT_CLI_ARGS])
+    seconds = time.perf_counter() - t0
+    snap, status = out["stats"], out["adapt"]
+    acct = snap["accounting"]
+    expected = dict(hist=0, hist_rows=0,
+                    flash_attention=layers * (snap["dispatches"] + snap["shadow_batches"]))
+    current = ModelRegistry(str(registry)).current()
+    r = dict(status={k: status[k] for k in (
+                 "state", "serving_version", "retrain_jobs", "swaps", "rollbacks",
+                 "rejected_candidates", "shadow_batches", "shadow_windows")},
+             registry_current=current.name, n_events=out["n_events"], dropped=out["dropped"],
+             dispatches=snap["dispatches"], shadow_batches=snap["shadow_batches"],
+             scored_by_version=snap["scored_by_version"],
+             windows_per_sec=out["windows_per_sec"], event_p99_ms=out["event_p99_ms"],
+             launches=launches, expected_launches=expected, seconds=seconds)
+    emit("adapt_cli", **r)
+    total = ADAPT_SESSIONS * ADAPT_WINDOWS
+    if not (status["swaps"] >= 1 and status["rollbacks"] == 0 and out["dropped"] == 0
+            and acct["balanced"] and acct["pending"] == 0
+            and out["n_events"] == out["scored"] == total
+            and adapt_clean(status, snap) and status["serving_version"] == current.name
+            and launches == expected):
+        raise AssertionError(f"serve --adapt: {r}")
+    return r
+
+
+def adapt_recordings():
+    """The loop phases' sessions (ADAPT_LOOP_WINDOWS windows each; the
+    first half of the fleet shifted out of distribution from its third
+    window on) and the clean pool's moments for the monitors."""
+    from har_tpu_torch.serve import synthetic_sessions
+
+    recordings, _ = synthetic_sessions(ADAPT_LOOP_SESSIONS,
+                                       windows_per_session=ADAPT_LOOP_WINDOWS, seed=2)
+    pool = np.concatenate(recordings)
+    ref = (pool.mean(axis=0), pool.std(axis=0))
+    for i in range(ADAPT_LOOP_SESSIONS // 2):
+        rec = recordings[i].copy()
+        rec[2 * 200:] += 25.0
+        recordings[i] = rec
+    return recordings, ref
+
+
+def adapt_loop(model, retrainer, root: Path, saver=None) -> dict:
+    """The CLI's drift loop (its monitor, trigger, shadow and probation
+    configs, with a shadow budget of 8 dispatches so that a candidate
+    the gates cannot pass is rejected inside the run) over
+    ADAPT_LOOP_SESSIONS sessions on a FakeClock that moves one second a
+    round: one window a session a round, one forced poll and one engine
+    step a round."""
+    from har_tpu_torch.adapt import (AdaptationConfig, AdaptationEngine, ModelRegistry,
+                                     ShadowConfig, TriggerConfig)
+    from har_tpu_torch.monitoring import DriftMonitor
+    from har_tpu_torch.serve import FakeClock, FleetConfig, FleetServer
+
+    recordings, ref = adapt_recordings()
+    n = len(recordings)
+    clock = FakeClock()
+    server = FleetServer(
+        model, window=200, hop=200, smoothing="ema",
+        config=FleetConfig(max_sessions=n, target_batch=ADAPT_LOOP_BATCH, max_delay_ms=0.0),
+        clock=clock,
+    )
+    for i in range(n):
+        server.add_session(i, monitor=DriftMonitor(*ref, halflife=100.0, patience=2))
+    engine = AdaptationEngine(
+        server, ModelRegistry(str(root), clock=clock), retrainer,
+        config=AdaptationConfig(probation_dispatches=2, max_shadow_dispatches=8),
+        trigger_config=TriggerConfig(min_sessions=n // 4, window_s=1e9, cooldown_s=1e9),
+        shadow_config=ShadowConfig(sample_every=1, min_windows=16),
+        saver=saver, clock=clock,
+    )
+    events = []
+    for rnd in range(ADAPT_LOOP_WINDOWS):
+        for i, rec in enumerate(recordings):
+            server.push(i, rec[rnd * 200:(rnd + 1) * 200])
+        events += server.poll(force=True)
+        engine.step()
+        clock.advance(1.0)
+    events += server.flush()
+    engine.step()
+    snap = server.stats_snapshot()
+    return dict(engine=engine, server=server, snap=snap,
+                events={(fe.session_id, fe.event.t_index): fe.event for fe in events})
+
+
+def adapt_retrain(path: str, layers: int) -> dict:
+    """The loop on the card with a retrainer that fine-tunes the incumbent
+    one epoch (``transfer.fine_tune``) on drift-shifted labelled windows
+    and registers the candidate as a neural checkpoint written from the
+    card's weights: the loop's invariants hold, every verdict in the log
+    follows its gates, and K2 launches layers x (dispatches + shadow-scored
+    batches) plus layers x the fine-tune's steps."""
+    from har_tpu_torch.adapt import load_version
+    from har_tpu_torch.data.raw_windows import synthetic_raw_stream
+    from har_tpu_torch.transfer import fine_tune
+
+    meta = checkpoint.load_model_meta(path)
+    incumbent = checkpoint.load_model(path, "cuda")
+    raw = synthetic_raw_stream(n_windows=ADAPT_FINETUNE_WINDOWS, seed=7)
+    shifted = (raw.windows + 25.0, raw.labels.astype(np.int32))
+    trained = []
+
+    def retrainer(job):
+        before = flash_ops.FLASH_LAUNCHES
+        t0 = time.perf_counter()
+        model = fine_tune(path, shifted, TrainerConfig(
+            batch_size=ADAPT_FINETUNE_BATCH, epochs=1, learning_rate=3e-4, seed=0),
+            model=incumbent, device="cuda")
+        trained.append(dict(launches=flash_ops.FLASH_LAUNCHES - before,
+                            seconds=time.perf_counter() - t0,
+                            replay_windows=0 if job.replay is None else len(job.replay)))
+        return model
+
+    def saver(model, version_dir):
+        checkpoint.save_model(version_dir, model, meta["model_name"], meta["model_kwargs"],
+                              input_shape=tuple(meta["input_shape"]))
+
+    t0 = time.perf_counter()
+    with launch_counts() as launches:
+        run = adapt_loop(incumbent, retrainer, ADAPT_DIR / "retrain_registry", saver)
+    seconds = time.perf_counter() - t0
+    engine, snap = run["engine"], run["snap"]
+    status, acct = engine.status(), snap["accounting"]
+    steps = math.ceil(ADAPT_FINETUNE_WINDOWS / ADAPT_FINETUNE_BATCH)
+    expected = dict(hist=0, hist_rows=0, flash_attention=(
+        layers * (snap["dispatches"] + snap["shadow_batches"])
+        + sum(t["launches"] for t in trained)))
+    # the registered candidate: saved from the card, it loads on either
+    # device and scores as the model that was shadowed
+    candidate = engine.registry.get(2)
+    x = adapt_recordings()[0][0][:1000].reshape(5, 200, 3)
+    card = load_version(candidate, "cuda").transform(x).probability
+    cpu = load_version(candidate, "cpu").transform(x).probability
+    r = dict(log=[{k: e[k] for k in ("event", "at")} for e in engine.log],
+             gates=[e.get("shadow") or e.get("gates") for e in engine.log
+                    if e["event"] in ("swapped", "candidate_rejected")],
+             status={k: status[k] for k in ("state", "serving_version", "retrain_jobs", "swaps",
+                                             "rollbacks", "rejected_candidates")},
+             trained=trained,
+             candidate_params=(Path(candidate.path) / "params.npz").exists(),
+             candidate_card_cpu_max_prob_diff=float(np.abs(card - cpu).max()),
+             dispatches=snap["dispatches"], shadow_batches=snap["shadow_batches"],
+             scored_by_version=snap["scored_by_version"], launches=launches,
+             expected_launches=expected, seconds=seconds)
+    emit("adapt_retrain", **r)
+    if not (status["retrain_jobs"] >= 1 and len(trained) == status["retrain_jobs"]
+            and all(t["launches"] == layers * steps for t in trained)
+            and adapt_clean(status, snap) and verdicts_follow_gates(engine.log)
+            and acct["balanced"] and acct["pending"] == 0 and acct["dropped"] == 0
+            and r["candidate_params"]
+            and r["candidate_card_cpu_max_prob_diff"] <= PREDICT_PROB_ATOL_BF16
+            and engine.registry.current().name == run["server"].model_version
+            and launches == expected):
+        raise AssertionError(f"adapt with a fine-tuning retrainer: {r}")
+    return dict(r, candidate=candidate)
+
+
+def adapt_agree(candidate, path: str, layers: int) -> dict:
+    """The same loop on the card and on the CPU, its retrainer returning
+    the registered fine-tuned candidate loaded on each device: the same
+    transitions at the same polls, the same events, labels equal and
+    probabilities within 1e-2 (bf16); K2 layers x (dispatches + shadow-
+    scored batches) on the card."""
+    from har_tpu_torch.adapt import load_version
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = checkpoint.load_model(path, device)
+        cand = load_version(candidate, device)
+        with launch_counts() as launches:
+            runs[device] = adapt_loop(model, lambda job, c=cand: c,
+                                      ADAPT_DIR / f"agree_registry_{device}")
+        runs[device]["launches"] = launches
+    card, cpu = runs["cuda"], runs["cpu"]
+    transitions = [(e["event"], e["at"]) for e in card["engine"].log]
+    keys_equal = card["events"].keys() == cpu["events"].keys()
+    out = dict(
+        transitions=transitions,
+        transitions_equal=transitions == [(e["event"], e["at"]) for e in cpu["engine"].log],
+        keys_equal=keys_equal, n_events=len(card["events"]),
+        status_equal=({k: v for k, v in card["engine"].status().items() if "shadow" not in k}
+                      == {k: v for k, v in cpu["engine"].status().items() if "shadow" not in k}),
+        scored_by_version=card["snap"]["scored_by_version"],
+        launches=card["launches"],
+        expected_launches=dict(hist=0, hist_rows=0, flash_attention=layers * (
+            card["snap"]["dispatches"] + card["snap"]["shadow_batches"])),
+    )
+    if keys_equal:
+        ev_card, ev_cpu = card["events"], cpu["events"]
+        out.update(
+            labels_equal=all(ev_card[k].label == ev_cpu[k].label
+                             and ev_card[k].raw_label == ev_cpu[k].raw_label for k in ev_card),
+            max_prob_diff=max(float(np.abs(ev_card[k].probability - ev_cpu[k].probability).max())
+                              for k in ev_card))
+    emit("adapt_agree", **out)
+    if not (out["transitions_equal"] and keys_equal and out["labels_equal"] and out["status_equal"]
+            and out["max_prob_diff"] <= PREDICT_PROB_ATOL_BF16
+            and card["snap"]["scored_by_version"] == cpu["snap"]["scored_by_version"]
+            and adapt_clean(card["engine"].status(), card["snap"])
+            and adapt_clean(cpu["engine"].status(), cpu["snap"])
+            and out["launches"] == out["expected_launches"]):
+        raise AssertionError(f"adapt card against CPU: {out}")
+    return out
+
+
+def adapt_int8(path: str, layers: int) -> dict:
+    """``propose_int8`` with its default gates (latency factor 1.5 on the
+    real clock) on the transformer served fused at depths 1 and 3: the
+    verdict is whatever the gates decided — a swap that serves the int8
+    tier, or a rejection that leaves the incumbent serving — with zero
+    drops, balanced accounting and K2 layers x (dispatches + shadow-scored
+    batches).  The latency ratio the gate read is printed."""
+    from har_tpu_torch.adapt import AdaptationConfig, AdaptationEngine, ModelRegistry
+    from har_tpu_torch.serve import FleetConfig, FleetServer, drive_fleet, synthetic_sessions
+
+    recordings, _ = synthetic_sessions(ADAPT_INT8_SESSIONS,
+                                       windows_per_session=ADAPT_INT8_WINDOWS, seed=17)
+    out = {}
+    for depth in (1, 3):
+        model = checkpoint.load_model(path, "cuda")
+        server = FleetServer(
+            model, window=200, hop=200, smoothing="vote",
+            config=FleetConfig(max_sessions=ADAPT_INT8_SESSIONS, target_batch=64,
+                               max_delay_ms=0.0, pipeline_depth=depth, fused=True),
+        )
+        for i in range(ADAPT_INT8_SESSIONS):
+            server.add_session(i)
+        engine = AdaptationEngine(server, ModelRegistry(str(ADAPT_DIR / f"int8_registry_{depth}")),
+                                  lambda job: None, config=AdaptationConfig(probation_dispatches=2))
+        t0 = time.perf_counter()
+        with launch_counts() as launches:
+            version = engine.propose_int8()
+            drive_fleet(server, recordings, seed=17, on_poll=lambda s, r: engine.step())
+            engine.step()
+        seconds = time.perf_counter() - t0
+        snap = server.stats_snapshot()
+        status, acct = engine.status(), snap["accounting"]
+        verdict = [e for e in engine.log if e["event"] in ("swapped", "candidate_rejected")]
+        gates = (verdict[0].get("shadow") or verdict[0].get("gates")) if verdict else None
+        ratio = (gates["candidate_mean_batch_ms"] / gates["incumbent_mean_batch_ms"]
+                 if gates and gates["candidate_mean_batch_ms"] and gates["incumbent_mean_batch_ms"]
+                 else None)
+        swapped = bool(verdict) and verdict[0]["event"] == "swapped"
+        r = dict(verdict=verdict[0]["event"] if verdict else None, gates=gates,
+                 shadow=status.get("shadow"),
+                 latency_ratio=ratio, log=[e["event"] for e in engine.log],
+                 serving_version=server.model_version, proposed=version,
+                 int8_serving=type(server.model).__name__ == "Int8ServingModel",
+                 dispatches=snap["dispatches"], shadow_batches=snap["shadow_batches"],
+                 scored_by_version=snap["scored_by_version"], fused=snap["fused"],
+                 launches=launches, seconds=seconds, expected_launches=dict(
+                     hist=0, hist_rows=0,
+                     flash_attention=layers * (snap["dispatches"] + snap["shadow_batches"])))
+        out[f"depth{depth}"] = r
+        follows = (
+            (swapped and gates["passed"] and version in snap["scored_by_version"]
+             and (r["int8_serving"] or "rolled_back" in r["log"]))
+            or (not swapped and bool(verdict) and not gates["passed"]
+                and server.model_version == "v0000001"
+                and snap["scored_by_version"] == {"v0000001": acct["scored"]}))
+        if not (follows and adapt_clean(status, snap) and acct["balanced"]
+                and acct["pending"] == 0 and acct["dropped"] == 0
+                and launches == r["expected_launches"]):
+            raise AssertionError(f"propose_int8 at depth {depth}: {r}")
+    emit("adapt_int8", **out)
+    return out
+
+
+def adapt_kill_points() -> dict:
+    """Both engine kill points behind the card's dispatch plane (two demo
+    MLPs) at depths 1 and 3: the recovered fleet serves the registry's
+    CURRENT."""
+    from har_tpu_torch.serve import ENGINE_KILL_POINTS, run_kill_point
+
+    verdicts = {}
+    with launch_counts() as launches:
+        for depth in (1, 3):
+            for point in ENGINE_KILL_POINTS:
+                v = run_kill_point(point, pipeline_depth=depth, device="cuda")
+                verdicts[f"{point}@{depth}"] = {k: v.get(k) for k in (
+                    "ok", "why", "serving_version", "registry_current", "recovery_ms")}
+    out = dict(verdicts=verdicts, launches=launches,
+               all_ok=all(v["ok"] and v["serving_version"] == v["registry_current"]
+                          for v in verdicts.values()))
+    emit("adapt_kill_points", **out)
+    if not (out["all_ok"] and launches["flash_attention"] == 0):
+        raise AssertionError(f"engine kill points: {out}")
+    return out
+
+
+def adapt_crash_resume(path: str, layers: int) -> dict:
+    """A journaled ``cli serve --adapt`` of the transformer killed hard
+    (exit 17) while its first candidate shadows, then ``--resume --adapt
+    --registry``: no (session, t_index) twice, every window once, and the
+    resumed fleet serves the registry's CURRENT."""
+    from har_tpu_torch.adapt import ModelRegistry
+
+    registry = ADAPT_DIR / "resume_registry"
+    args = ["serve", "--device", "cuda", "--checkpoint", path,
+            "--sessions", str(ADAPT_KILL_SESSIONS), *ADAPT_CLI_ARGS,
+            "--registry", str(registry), "--journal", str(ADAPT_DIR / "wal"),
+            "--journal-flush-every", str(FLEET_KILL_FLUSH_EVERY)]
+    before, after, out, launches, killed_s, resume_s = kill_and_resume(
+        args, ADAPT_KILL_AFTER_POLLS, ADAPT_DIR / "killed_events.jsonl")
+    total = ADAPT_KILL_SESSIONS * ADAPT_WINDOWS
+    emitted = before + after
+    current = ModelRegistry(str(registry)).current()
+    snap, status = out["stats"], out["adapt"]
+    r = dict(emitted_before_kill=len(before), emitted_after_resume=len(after),
+             repeated=len(emitted) - len(set(emitted)), distinct=len(set(emitted)),
+             total_windows=total, lost_in_crash=out["lost_in_crash"],
+             status={k: status[k] for k in ("state", "serving_version", "swaps", "rollbacks")},
+             registry_current=current.name, scored_by_version=snap["scored_by_version"],
+             launches=launches, killed_s=killed_s, resume_s=resume_s)
+    emit("adapt_crash_resume", **r)
+    if not (0 < len(before) < total and r["repeated"] == 0 and r["distinct"] == total
+            and out["scored"] == out["enqueued"] == total and out["dropped"] == 0
+            and snap["accounting"]["balanced"] and out["recoveries"] == 1
+            and status["serving_version"] == current.name and adapt_clean(status, snap)
+            and launches["flash_attention"] > 0 and launches["flash_attention"] % layers == 0):
+        raise AssertionError(f"serve --adapt crash and resume: {r}")
+    return r
+
+
+def phase_adapt_main() -> dict:
+    """The adaptation loop on the card, over lifecycle_main's saved CLI
+    transformer (bf16, 2 layers)."""
+    shutil.rmtree(ADAPT_DIR, ignore_errors=True)
+    ADAPT_DIR.mkdir(parents=True)
+    path = str(MODELS_DIR / "transformer")
+    layers = len(checkpoint.load_model(path, "cpu").inner.module.blocks)
+    t0 = time.perf_counter()
+    cli_run = adapt_cli(path, layers)
+    retrain = adapt_retrain(path, layers)
+    agree = adapt_agree(retrain.pop("candidate"), path, layers)
+    int8 = adapt_int8(path, layers)
+    kills = adapt_kill_points()
+    crash = adapt_crash_resume(path, layers)
+    launches = {"flash_attention": sum(
+        r["launches"]["flash_attention"]
+        for r in (cli_run, retrain, agree, int8["depth1"], int8["depth3"], kills, crash))}
+    seconds = time.perf_counter() - t0
+    emit("adapt_main", seconds=seconds, launches=launches)
+    return dict(cli=cli_run, retrain=retrain, agree=agree, int8=int8, kills=kills,
+                crash=crash, launches=launches, seconds=seconds)
+
+
+def traffic_cli(kind: str, path: str, layers: int) -> dict:
+    """``cli serve --trace KIND --autoscale --target-batch 512 --device
+    cuda`` of the transformer at the CLI's peak of 1,000 sessions and 96
+    rounds: zero undeclared drops, balanced, the controller up the swing
+    and back down, and K2 exactly layers x dispatches."""
+    t0 = time.perf_counter()
+    with launch_counts() as launches, fleet_servers() as servers:
+        out = run_cli_json(["serve", "--device", "cuda", "--checkpoint", path,
+                            "--trace", kind, "--autoscale",
+                            "--target-batch", str(TRAFFIC_TARGET_BATCH)])
+    seconds = time.perf_counter() - t0
+    stats = servers[-1].stats
+    expected = dict(hist=0, hist_rows=0, flash_attention=layers * stats.dispatches)
+    r = dict({k: out[k] for k in (
+        "rounds", "peak_active", "trough_active", "connects", "disconnects",
+        "storm_disconnects", "slow_stalls", "n_events", "enqueued", "scored", "dropped",
+        "undeclared_drops", "balanced", "windows_per_sec", "event_p99_ms", "resizes",
+        "scale_ups", "scale_downs", "target_batch_final", "pipeline_depth_final")},
+        actions=out["autoscale"]["actions"], batch_sizes=stats.snapshot()["batch_sizes"],
+        dispatches=stats.dispatches, launches=launches, expected_launches=expected,
+        seconds=seconds)
+    emit("traffic_cli", kind=kind, **r)
+    if not (out["undeclared_drops"] == 0 and out["balanced"] and out["scale_ups"] >= 1
+            and out["scale_downs"] >= 1 and stats.dispatch_failures == 0
+            and out["scored"] + out["dropped"] == out["enqueued"]
+            and out["n_events"] == out["scored"] and launches == expected):
+        raise AssertionError(f"serve --trace {kind} --autoscale: {r}")
+    return r
+
+
+def traffic_run(model, spec) -> dict:
+    """One autoscaled drive of ``spec`` on a FakeClock (the CLI's floor,
+    ceiling and hysteresis): events by (session, t_index), the
+    controller's actions and the stats snapshot."""
+    from har_tpu_torch.serve import FakeClock, FleetConfig, FleetServer
+    from har_tpu_torch.serve.traffic import (AutoscaleConfig, CapacityController, TrafficTrace,
+                                             drive_trace)
+
+    clock = FakeClock()
+    server = FleetServer(
+        model, window=200, hop=200, smoothing="ema",
+        config=FleetConfig.for_sessions(2 * spec.peak_sessions, target_batch=16),
+        clock=clock,
+    )
+    controller = CapacityController(server, config=AutoscaleConfig(
+        min_target_batch=16, max_target_batch=256, max_depth=2, up_after=1, down_after=3,
+        cooldown_s=0.0), clock=clock)
+    events, report = drive_trace(server, TrafficTrace(spec), clock=clock,
+                                 on_round=controller.on_round)
+    return dict(events={(fe.session_id, fe.event.t_index): fe.event for fe in events},
+                actions=controller.actions, snap=server.stats_snapshot(), report=report)
+
+
+def traffic_agree(path: str, layers: int) -> dict:
+    """The CLI's storm trace at a peak of 128 sessions over 48 rounds on a
+    FakeClock, autoscaled, on the card and on the CPU: the same controller
+    actions and events, labels equal, probabilities within 1e-2 (bf16);
+    K2 layers x dispatches on the card."""
+    from har_tpu_torch.serve.traffic import TraceSpec
+
+    rounds = TRAFFIC_AGREE_ROUNDS
+    spec = TraceSpec(kind="storm", peak_sessions=TRAFFIC_AGREE_PEAK, swing=10.0, rounds=rounds,
+                     period=rounds, storms=((int(rounds * 0.65), 0.5),),
+                     burst_size=max(2, TRAFFIC_AGREE_PEAK // 8), slow_prob=0.02, slow_rounds=3,
+                     rate_mix=(1, 1, 2), seed=0)
+    with launch_counts() as launches:
+        card = traffic_run(checkpoint.load_model(path, "cuda"), spec)
+    cpu = traffic_run(checkpoint.load_model(path, "cpu"), spec)
+    keys_equal = card["events"].keys() == cpu["events"].keys()
+    out = dict(n_events=len(card["events"]), keys_equal=keys_equal,
+               actions_equal=card["actions"] == cpu["actions"],
+               actions=[{k: a[k] for k in ("action", "knob", "to")} for a in card["actions"]],
+               dispatches=card["snap"]["dispatches"], launches=launches,
+               expected_launches=dict(hist=0, hist_rows=0,
+                                      flash_attention=layers * card["snap"]["dispatches"]))
+    if keys_equal:
+        a, b = card["events"], cpu["events"]
+        out.update(labels_equal=all(a[k].label == b[k].label and a[k].raw_label == b[k].raw_label
+                                    for k in a),
+                   max_prob_diff=max(float(np.abs(a[k].probability - b[k].probability).max())
+                                     for k in a))
+    emit("traffic_agree", **out)
+    acct = card["snap"]["accounting"]
+    if not (keys_equal and out["labels_equal"] and out["actions_equal"]
+            and out["max_prob_diff"] <= PREDICT_PROB_ATOL_BF16 and acct["balanced"]
+            and acct["pending"] == 0 and launches == out["expected_launches"]):
+        raise AssertionError(f"traffic card against CPU: {out}")
+    return out
+
+
+def phase_traffic_main() -> dict:
+    """The elastic traffic engine on the card over the saved CLI
+    transformer: each trace kind through ``cli serve --trace --autoscale``
+    and the storm trace card against CPU."""
+    path = str(MODELS_DIR / "transformer")
+    layers = len(checkpoint.load_model(path, "cpu").inner.module.blocks)
+    t0 = time.perf_counter()
+    runs = {kind: traffic_cli(kind, path, layers) for kind in TRAFFIC_KINDS}
+    agree = traffic_agree(path, layers)
+    launches = {"flash_attention": sum(r["launches"]["flash_attention"] for r in runs.values())
+                + agree["launches"]["flash_attention"]}
+    seconds = time.perf_counter() - t0
+    emit("traffic_main", seconds=seconds, launches=launches)
+    return dict(runs=runs, agree=agree, launches=launches, seconds=seconds)
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
                  checked: dict, shape: str, library: str = "library_ms",
                  **extra) -> dict:
@@ -2472,6 +3044,8 @@ def main(argv: list[str]) -> int:
     lifecycle = phase_lifecycle_main(trained)
     serving_main = phase_serving_main(trained)
     fleet_main = phase_fleet_main()
+    adapt_main = phase_adapt_main()
+    traffic_main = phase_traffic_main()
     ucihar_root = ucihar_fixture()
     ucihar_main = phase_ucihar_main(ucihar_root)
     ucihar_gbt_main = phase_ucihar_gbt_main(ucihar_root)
@@ -2484,7 +3058,8 @@ def main(argv: list[str]) -> int:
         name: path["launches"]["flash_attention"]
         for name, path in (("raw_main", raw_main), ("raw_packed", raw_packed),
                            ("lifecycle_main", lifecycle["scoring"]),
-                           ("serving_main", serving_main), ("fleet_main", fleet_main))
+                           ("serving_main", serving_main), ("fleet_main", fleet_main),
+                           ("adapt_main", adapt_main), ("traffic_main", traffic_main))
     }
     hist_rows_launches = {
         name: path["launches"]["hist_rows"]
@@ -2580,6 +3155,33 @@ def main(argv: list[str]) -> int:
                  if isinstance(h, dict)},
              int8_agreement=fleet_main["int8"]["agreement"],
              int8_ratio=fleet_main["int8"]["size_report"]["ratio"]),
+         adapt_main=dict(
+             seconds=adapt_main["seconds"], launches=adapt_main["launches"],
+             cli={k: adapt_main["cli"][k] for k in (
+                 "status", "dispatches", "shadow_batches", "windows_per_sec", "event_p99_ms",
+                 "launches")},
+             retrain=dict(status=adapt_main["retrain"]["status"],
+                          transitions=adapt_main["retrain"]["log"],
+                          agreement=[g["agreement"] for g in adapt_main["retrain"]["gates"]],
+                          finetune_s=[t["seconds"] for t in adapt_main["retrain"]["trained"]]),
+             agree={k: adapt_main["agree"][k] for k in (
+                 "transitions_equal", "labels_equal", "max_prob_diff", "n_events")},
+             int8={tag: {k: r[k] for k in ("verdict", "latency_ratio", "launches")}
+                   | {"agreement": (r["gates"] or {}).get("agreement"),
+                      "candidate_mean_batch_ms": (r["gates"] or {}).get("candidate_mean_batch_ms"),
+                      "incumbent_mean_batch_ms": (r["gates"] or {}).get("incumbent_mean_batch_ms")}
+                   for tag, r in adapt_main["int8"].items()},
+             kill_points_ok=adapt_main["kills"]["all_ok"],
+             crash={k: adapt_main["crash"][k] for k in (
+                 "emitted_before_kill", "emitted_after_resume", "repeated", "registry_current")}),
+         traffic_main=dict(
+             seconds=traffic_main["seconds"], launches=traffic_main["launches"],
+             runs={kind: {k: r[k] for k in (
+                 "windows_per_sec", "event_p99_ms", "resizes", "scale_ups", "scale_downs",
+                 "dispatches", "undeclared_drops", "n_events", "seconds")}
+                 for kind, r in traffic_main["runs"].items()},
+             agree={k: traffic_main["agree"][k] for k in (
+                 "n_events", "labels_equal", "actions_equal", "max_prob_diff")}),
          ucihar_split_candidates_s=ucihar_main["split_candidates_s"],
          ucihar_parity_lane_result=ucihar_lane["lane"], raw_lane_result=raw_lane_main["lane"])
     print(json.dumps({"ok": True, "device": device}), flush=True)

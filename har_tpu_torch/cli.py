@@ -39,6 +39,9 @@ and ``export``:
   python -m har_tpu_torch.cli serve --checkpoint models/transformer --tier int8
   python -m har_tpu_torch.cli serve --journal wal --kill-after-polls 5
   python -m har_tpu_torch.cli serve --journal wal --resume
+  python -m har_tpu_torch.cli serve --adapt --inject-drift 0.5 --registry reg
+  python -m har_tpu_torch.cli serve --adapt --journal wal --resume --registry reg
+  python -m har_tpu_torch.cli serve --trace diurnal --autoscale
 
 ``train`` writes result.txt, additional_param.csv,
 crossFold_additional_param.csv (with CV) and timing.csv into
@@ -319,12 +322,26 @@ def _serve_arguments(sub) -> None:
                          "(not ported yet: item 15)")
     sv.add_argument("--trace", default=None,
                     choices=["diurnal", "bursty", "storm"],
-                    help="elastic traffic mode (not ported yet: item 15)")
+                    help="elastic traffic mode (har_tpu_torch.serve."
+                         "traffic): instead of N flat sessions, drive a "
+                         "seeded arrival process with session connect/"
+                         "disconnect churn — a 10x diurnal swing "
+                         "(--sessions is the PEAK), Poisson-modulated "
+                         "bursts, or a mid-run overnight-cohort "
+                         "disconnect storm; slow-client stalls and "
+                         "mixed per-session rates included.  The trace "
+                         "spec is printed in the summary (replayable "
+                         "by seed+params)")
     sv.add_argument("--trace-rounds", type=int, default=96,
-                    help="delivery rounds for --trace")
+                    help="delivery rounds (= one diurnal period) for "
+                         "--trace")
     sv.add_argument("--autoscale", action="store_true",
-                    help="with --trace: the capacity controller (not "
-                         "ported yet: item 15)")
+                    help="with --trace: attach the load-adaptive "
+                         "capacity controller (serve.traffic.autoscale) "
+                         "— a hysteresis/cooldown policy loop resizing "
+                         "target_batch and pipeline_depth online at "
+                         "dispatch boundaries (zero-drop, journaled) "
+                         "as the swing loads and unloads the engine")
     sv.add_argument("--max-delay-ms", type=float, default=50.0,
                     help="deadline: max time a due window waits for "
                          "batch coalescing")
@@ -333,15 +350,22 @@ def _serve_arguments(sub) -> None:
                          "training stats); drift verdicts flow into "
                          "the multiplexed event stream")
     sv.add_argument("--adapt", action="store_true",
-                    help="close the drift loop: retrain, shadow, swap "
-                         "(not ported yet: item 13)")
+                    help="close the drift loop (har_tpu_torch.adapt): "
+                         "per-session monitors feed a fleet-level "
+                         "retrain trigger; a candidate shadow-scores "
+                         "mirrored live batches and is hot-swapped in "
+                         "(zero dropped windows) when the gates pass, "
+                         "with automatic rollback on post-swap "
+                         "regression.  Implies --monitor.")
     sv.add_argument("--inject-drift", type=float, default=0.0,
                     help="fraction of sessions whose streams shift "
                          "mid-recording (a population-scale sensor "
-                         "re-mount); with --monitor the drift verdicts "
-                         "flag it")
+                         "re-mount) — with --adapt this exercises the "
+                         "full retrain→shadow→swap loop")
     sv.add_argument("--registry", default=None,
-                    help="model-registry root for --adapt")
+                    help="model-registry root for --adapt (versioned "
+                         "lineage + promotions log); default is a "
+                         "temp dir discarded after the run")
     sv.add_argument("--profile-host", action="store_true",
                     help="per-poll host-time breakdown (ingest / "
                          "due-select / gather / retire / journal stage "
@@ -502,20 +526,18 @@ def _stream(args) -> int:
 
 # serve's flags of the parts not ported yet: (is it set, flag, item)
 _SERVE_WAITING = (
-    (lambda a: a.adapt, "--adapt", 13),
     (lambda a: a.mesh, "--mesh", 14),
     (lambda a: a.mesh_shape, "--mesh-shape", 14),
     (lambda a: a.workers and a.workers > 1, "--workers", 15),
     (lambda a: a.net, "--net", 15),
     (lambda a: a.kill_worker is not None, "--kill-worker", 15),
-    (lambda a: a.trace is not None, "--trace", 15),
-    (lambda a: a.autoscale, "--autoscale", 15),
 )
 
 
 def _serve(args) -> int:
     """``serve``: the single-process fleet of ``har_tpu``'s ``serve``,
-    with its summary keys."""
+    with its summary keys: the steady N-session load (with ``--adapt``,
+    the drift loop over it) or, with ``--trace``, the churn fleet."""
     import dataclasses
 
     import numpy as np
@@ -593,6 +615,8 @@ def _serve(args) -> int:
             flush_every=args.journal_flush_every,
             snapshot_every=args.journal_snapshot_every,
         )
+    if args.trace:
+        return _serve_trace(args, model, window, channels, fault_hook, journal_cfg)
     recordings, class_names = synthetic_sessions(
         args.sessions,
         windows_per_session=args.windows_per_session,
@@ -602,7 +626,7 @@ def _serve(args) -> int:
     # reference stats from the CLEAN pool (before the drift mutation),
     # and only when a monitor needs them
     monitor_ref = None
-    if args.monitor:
+    if args.monitor or args.adapt:
         pool = np.concatenate(recordings)
         monitor_ref = (pool.mean(axis=0), pool.std(axis=0))
         del pool
@@ -618,9 +642,15 @@ def _serve(args) -> int:
     if args.resume:
         if not args.journal:
             raise SystemExit("--resume requires --journal DIR")
-        # snapshot + journal-suffix replay rebuilds the sessions and the
-        # pending queue; the transport then re-delivers from each
-        # session's recovered watermark
+        if args.adapt and args.registry is None:
+            raise SystemExit(
+                "--resume --adapt needs a durable --registry DIR "
+                "(the registry pointer is what recovery reconciles "
+                "the fleet against)"
+            )
+        # snapshot + journal-suffix replay rebuilds the sessions (their
+        # monitors included) and the pending queue; the transport then
+        # re-delivers from each session's recovered watermark
         server = FleetServer.restore(
             args.journal,
             lambda ver: model,
@@ -654,78 +684,286 @@ def _serve(args) -> int:
             journal=args.journal,
             journal_config=journal_cfg,
         )
+        # --adapt tightens the monitor (faster EWMA, shorter debounce)
+        # so the demo loop closes within a short synthetic drive; plain
+        # --monitor keeps the defaults (20 s halflife, patience 3)
+        mon_kwargs = {"halflife": 100.0, "patience": 2} if args.adapt else {}
         for i in range(args.sessions):
             server.add_session(
                 i,
                 monitor=(
-                    DriftMonitor(*monitor_ref) if monitor_ref is not None else None
+                    DriftMonitor(*monitor_ref, **mon_kwargs)
+                    if monitor_ref is not None else None
                 ),
             )
-    polls = {"n": 0}
+    engine = None
+    registry_tmp = None
+    try:
+        if args.adapt:
+            import tempfile
 
-    def on_poll(srv, rnd):
-        polls["n"] += 1
-        if polls["n"] >= args.kill_after_polls:
-            # SIGKILL stand-in: no flush, no cleanup — only what the
-            # journal already fsynced survives
-            import os
+            from har_tpu_torch.adapt import (
+                AdaptationConfig,
+                AdaptationEngine,
+                ModelRegistry,
+                ShadowConfig,
+                TriggerConfig,
+            )
 
-            print(f"kill-after-polls: exiting hard at poll {polls['n']}",
-                  file=sys.stderr)
-            sys.stdout.flush()
-            os._exit(17)
+            registry_root = args.registry
+            if registry_root is None:
+                registry_tmp = registry_root = tempfile.mkdtemp(prefix="har_registry_")
 
-    events, report = drive_fleet(
-        server,
-        recordings,
-        seed=args.seed,
-        faults=DeliveryFaults(
-            drop_prob=args.inject_drop, delay_prob=args.inject_delay
-        ),
-        on_poll=on_poll if args.kill_after_polls else None,
-    )
-    events = recovered_events + events
+            # demo retrainer: a deterministic same-family refit — the
+            # loop's plumbing (trigger → shadow → swap → probation) is
+            # what this subcommand demonstrates; a real deployment
+            # passes a retrainer that fits on job.replay + its seed set
+            def retrainer(job):
+                return AnalyticDemoModel() if args.checkpoint is None else model
+
+            engine = AdaptationEngine(
+                server,
+                ModelRegistry(registry_root),
+                retrainer,
+                config=AdaptationConfig(probation_dispatches=2),
+                trigger_config=TriggerConfig(
+                    min_sessions=max(2, n_drifted // 2) if n_drifted else 3,
+                    window_s=1e9,
+                    cooldown_s=1e9,
+                ),
+                shadow_config=ShadowConfig(sample_every=1, min_windows=16),
+                resume=args.resume,
+                # the CLI's registry holds metadata-only versions: every
+                # one of them serves the model built above on --device
+                loader=lambda ver: retrainer(None),
+            )
+        polls = {"n": 0}
+
+        def on_poll(srv, rnd):
+            if engine is not None:
+                engine.step()
+            polls["n"] += 1
+            if args.kill_after_polls and polls["n"] >= args.kill_after_polls:
+                # SIGKILL stand-in: no flush, no cleanup — only what the
+                # journal already fsynced survives
+                import os
+
+                print(f"kill-after-polls: exiting hard at poll {polls['n']}",
+                      file=sys.stderr)
+                sys.stdout.flush()
+                os._exit(17)
+
+        events, report = drive_fleet(
+            server,
+            recordings,
+            seed=args.seed,
+            faults=DeliveryFaults(
+                drop_prob=args.inject_drop, delay_prob=args.inject_delay
+            ),
+            on_poll=(
+                on_poll if (engine is not None or args.kill_after_polls) else None
+            ),
+        )
+        events = recovered_events + events
+        _raise_device_faults(server)
+        if args.calibrate_device:
+            try:
+                server.calibrate_device()
+            except ValueError as e:
+                print(f"warning: device calibration skipped: {e}", file=sys.stderr)
+        snap = server.stats_snapshot()
+        acct = snap["accounting"]
+        print(json.dumps({
+            "sessions": args.sessions,
+            "n_events": len(events),
+            "enqueued": acct["enqueued"],
+            "scored": acct["scored"],
+            "dropped": acct["dropped"],
+            "windows_per_sec": (
+                round(acct["scored"] / report.duration_s, 1)
+                if report.duration_s else None
+            ),
+            "event_p50_ms": snap["stages"]["event_ms"].get("p50_ms"),
+            "event_p99_ms": snap["stages"]["event_ms"].get("p99_ms"),
+            "degraded_events": snap["degraded_events"],
+            "pipeline_depth": snap["pipeline_depth"],
+            "devices": snap["devices"],
+            "overlap_pct": snap["overlap_pct"],
+            "drift_events": sum(1 for ev in events if ev.event.drift),
+            "adapt": None if engine is None else engine.status(),
+            "journal": args.journal,
+            "resumed": bool(args.resume),
+            "recoveries": snap["recoveries"],
+            "lost_in_crash": acct["lost_in_crash"],
+            "host_profile": snap.get("host_profile"),
+            "load": dataclasses.asdict(report),
+            "stats": snap,
+        }))
+    finally:
+        # the throwaway registry must not survive a failed drive
+        # (KeyboardInterrupt included) any more than a clean one
+        if registry_tmp is not None:
+            import shutil
+
+            shutil.rmtree(registry_tmp, ignore_errors=True)
+    return 0
+
+
+def _raise_device_faults(server) -> None:
+    """``serve`` injects no dispatch failures and its shadow scoring has
+    no reason to fail: a failed dispatch or a raising dispatch tap is a
+    fault of the device path (a kernel that refuses or fails), so it
+    ends the run instead of counting as shed windows or shadow errors."""
     if server.stats.dispatch_failures:
-        # serve injects no dispatch failures: a failed dispatch is a
-        # fault of the device path (a kernel that refuses or fails), so
-        # it ends the run instead of counting as shed windows
         err = server.last_dispatch_error
         raise RuntimeError(
             f"{server.stats.dispatch_failures} dispatch(es) failed after "
             f"their retries; the last error: {err!r}"
         ) from err
-    if args.calibrate_device:
-        try:
-            server.calibrate_device()
-        except ValueError as e:
-            print(f"warning: device calibration skipped: {e}", file=sys.stderr)
+    if server.stats.shadow_errors:
+        err = server.last_shadow_error
+        raise RuntimeError(
+            f"{server.stats.shadow_errors} shadow-scored batch(es) "
+            f"raised; the last error: {err!r}"
+        ) from err
+
+
+def _serve_trace(args, model, window, channels, fault_hook, journal_cfg) -> int:
+    """``serve --trace``: instead of N flat sessions, drive a seeded
+    arrival process with session churn — and, with ``--autoscale``, let
+    the capacity controller walk target_batch / pipeline_depth up the
+    swing and back down through ``FleetServer.resize``'s zero-drop
+    dispatch-boundary path.  ``har_tpu``'s spec, floor and ceiling, and
+    summary keys."""
+    import time
+
+    if (
+        args.resume
+        or args.adapt
+        or args.kill_after_polls
+        or args.monitor
+        or args.inject_drift
+        or args.inject_drop
+        or args.inject_delay
+        or args.calibrate_device
+    ):
+        # refuse, never silently ignore: every one of these flags is
+        # serviced only by the steady N-session path
+        raise SystemExit(
+            "--trace drives its own churn fleet; it does not combine "
+            "with --workers/--net/--resume/--adapt/--kill-after-polls/"
+            "--monitor/--inject-drift/--inject-drop/--inject-delay/"
+            "--calibrate-device (run those modes against the steady "
+            "N-session load)"
+        )
+    from har_tpu_torch.data.raw_windows import synthetic_raw_stream
+    from har_tpu_torch.serve import FleetConfig, FleetServer
+    from har_tpu_torch.serve.traffic import (
+        AutoscaleConfig,
+        CapacityController,
+        TraceSpec,
+        TrafficTrace,
+        drive_trace,
+        undeclared_drops,
+    )
+
+    # label names only — drive_trace builds its own sample pool
+    class_names = synthetic_raw_stream(
+        n_windows=1, seed=args.seed, window=window
+    ).class_names
+    rounds = args.trace_rounds
+    spec = TraceSpec(
+        kind=args.trace,
+        peak_sessions=args.sessions,
+        swing=10.0,
+        rounds=rounds,
+        period=rounds,
+        # the overnight cohort leaves on the downslope
+        storms=((int(rounds * 0.65), 0.5),) if args.trace == "storm" else (),
+        burst_prob=0.15 if args.trace == "bursty" else 0.0,
+        burst_size=max(2, args.sessions // 8),
+        slow_prob=0.02,
+        slow_rounds=3,
+        rate_mix=(1, 1, 2),
+        seed=args.seed,
+    )
+    trace = TrafficTrace(spec)
+    # autoscaled runs START at the controller's floor; static runs serve
+    # the configured batch throughout.  A --target-batch below the
+    # default floor LOWERS the floor; above it, it is the ceiling.
+    floor_tb = min(16, args.target_batch)
+    server = FleetServer(
+        model,
+        window=window,
+        channels=channels,
+        hop=args.hop,
+        smoothing=args.smoothing,
+        class_names=class_names,
+        config=FleetConfig.for_sessions(
+            # churn can hold leavers through their settle while arrivals
+            # admit: headroom over the peak
+            max(2 * args.sessions, 64),
+            target_batch=floor_tb if args.autoscale else args.target_batch,
+            max_delay_ms=args.max_delay_ms,
+            pipeline_depth=1 if args.autoscale else args.pipeline_depth,
+            fused=args.fused,
+            profile_host=args.profile_host,
+        ),
+        fault_hook=fault_hook,
+        journal=args.journal,
+        journal_config=journal_cfg,
+    )
+    controller = None
+    if args.autoscale:
+        controller = CapacityController(
+            server,
+            config=AutoscaleConfig(
+                min_target_batch=floor_tb,
+                # the operator's --target-batch IS the ceiling: the
+                # controller may batch smaller, never bigger
+                max_target_batch=args.target_batch,
+                min_depth=1,
+                max_depth=max(args.pipeline_depth, 2),
+                up_after=1,
+                down_after=3,
+                cooldown_s=0.0,
+            ),
+        )
+    t0 = time.perf_counter()
+    events, report = drive_trace(
+        server, trace,
+        on_round=controller.on_round if controller is not None else None,
+    )
+    duration = time.perf_counter() - t0
+    _raise_device_faults(server)
     snap = server.stats_snapshot()
     acct = snap["accounting"]
     print(json.dumps({
-        "sessions": args.sessions,
+        "trace": spec.kind,
+        "trace_spec": trace.spec(),
+        "rounds": report.rounds,
+        "peak_active": report.peak_active,
+        "trough_active": report.trough_active,
+        "connects": report.connects,
+        "disconnects": report.disconnects,
+        "storm_disconnects": report.storm_disconnects,
+        "slow_stalls": report.slow_stalls,
         "n_events": len(events),
         "enqueued": acct["enqueued"],
         "scored": acct["scored"],
         "dropped": acct["dropped"],
-        "windows_per_sec": (
-            round(acct["scored"] / report.duration_s, 1)
-            if report.duration_s else None
-        ),
-        "event_p50_ms": snap["stages"]["event_ms"].get("p50_ms"),
+        "undeclared_drops": undeclared_drops(snap),
+        "balanced": acct["balanced"],
+        "windows_per_sec": round(acct["scored"] / duration, 1) if duration else None,
         "event_p99_ms": snap["stages"]["event_ms"].get("p99_ms"),
-        "degraded_events": snap["degraded_events"],
-        "pipeline_depth": snap["pipeline_depth"],
-        "devices": snap["devices"],
-        "overlap_pct": snap["overlap_pct"],
-        "drift_events": sum(1 for ev in events if ev.event.drift),
-        "adapt": None,
-        "journal": args.journal,
-        "resumed": bool(args.resume),
-        "recoveries": snap["recoveries"],
-        "lost_in_crash": acct["lost_in_crash"],
+        "autoscale": None if controller is None else controller.status(),
+        "resizes": snap["resizes"],
+        "scale_ups": snap["scale_ups"],
+        "scale_downs": snap["scale_downs"],
+        "target_batch_final": server.config.target_batch,
+        "pipeline_depth_final": server.config.pipeline_depth,
         "host_profile": snap.get("host_profile"),
-        "load": dataclasses.asdict(report),
-        "stats": snap,
+        "journal": args.journal,
     }))
     return 0
 

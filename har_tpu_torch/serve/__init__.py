@@ -17,14 +17,23 @@ Public surface:
                                           — load generation
   FleetJournal / JournalConfig            — durability (journal.py)
   restore_server / recovery_smoke         — crash recovery (recover.py)
-  KILL_POINTS / run_kill_point            — kill-point chaos (chaos.py)
+  KILL_POINTS / ENGINE_KILL_POINTS / run_kill_point
+                                          — kill-point chaos (chaos.py;
+                                            the engine points drive the
+                                            adaptation loop,
+                                            har_tpu_torch.adapt)
   fleet_slo_smoke / fleet_pipeline_smoke  — the serving checks
+  har_tpu_torch.serve.traffic             — elastic traffic on one
+                                            server (TrafficTrace: diurnal/
+                                            bursty/storm churn loadgen;
+                                            CapacityController: online
+                                            target_batch / depth
+                                            autoscaling)
 
-Not ported yet (ROADMAP.md Queue 1): the adaptation loop and
-``ENGINE_KILL_POINTS``' runner (item 13); mesh-sharded and
-model-parallel scorers (item 14); the cluster, wire transport, warm
-replicas and elastic traffic (item 15); the bench cells and the
-recovery benchmark (item 16).
+Not ported yet (ROADMAP.md Queue 1): mesh-sharded and model-parallel
+scorers and the ladder's mesh rungs (item 14); the cluster, wire
+transport, warm replicas, worker autoscaling and ``elastic_smoke``
+(item 15); the bench cells and the recovery benchmark (item 16).
 """
 
 from har_tpu_torch.serve.arena import PendingArena, SessionArena
@@ -80,10 +89,21 @@ from har_tpu_torch.serve.slo import (
     fleet_slo_smoke,
 )
 from har_tpu_torch.serve.stats import FleetStats, HostProfile, StageHistogram
+from har_tpu_torch.serve.traffic import (
+    AutoscaleConfig,
+    CapacityController,
+    TraceReport,
+    TraceSpec,
+    TrafficTrace,
+    drive_trace,
+    elastic_smoke,
+)
 
 __all__ = [
     "AdmissionError",
     "AnalyticDemoModel",
+    "AutoscaleConfig",
+    "CapacityController",
     "DeliveryFaults",
     "DispatchError",
     "DispatchFaults",
@@ -110,7 +130,12 @@ __all__ = [
     "SimulatedCrash",
     "StageHistogram",
     "StagingArena",
+    "TraceReport",
+    "TraceSpec",
+    "TrafficTrace",
     "drive_fleet",
+    "drive_trace",
+    "elastic_smoke",
     "events_equal",
     "fleet_pipeline_smoke",
     "fleet_slo_smoke",

@@ -54,9 +54,10 @@ The verdict of every point is the same three-part contract
      re-delivers un-journaled samples from the recovered watermark.
 
 Port of the engine half of ``har_tpu/serve/chaos.py``: ``run_kill_point``
-takes ``device=`` to run the matrix behind the device dispatch plane.
-``ENGINE_KILL_POINTS`` drive the adaptation engine (ROADMAP.md Queue 1
-item 13); the cluster, ship, tail and gateway matrices wait for item 15.
+and ``run_engine_kill_point`` take ``device=`` to run behind the device
+dispatch plane.  ``ENGINE_KILL_POINTS`` drive the adaptation engine
+(har_tpu_torch.adapt); the cluster, ship, tail and gateway matrices
+wait for ROADMAP.md Queue 1 item 15.
 """
 
 from __future__ import annotations
@@ -84,8 +85,7 @@ KILL_POINTS = (
     "mid_resize",
 )
 # the adaptation controller's stage boundaries (registry promoted or
-# rolled back, fleet swap not yet applied): their runner drives the
-# adaptation engine, which is not ported yet (ROADMAP.md Queue 1 item 13)
+# rolled back, fleet swap not yet applied): run_engine_kill_point
 ENGINE_KILL_POINTS = ("mid_promote", "mid_rollback")
 # occurrence of each point the matrix kills at by default — calibrated
 # so every kill lands mid-run (some windows acked, some pending, the
@@ -101,6 +101,9 @@ _DEFAULT_AT = {
     "mid_snapshot": 1,
     "mid_swap": 1,
     "mid_resize": 1,
+    # the adaptation loop reaches each registry transition once a run
+    "mid_promote": 1,
+    "mid_rollback": 1,
 }
 
 
@@ -244,9 +247,10 @@ def run_kill_point(
             "ROADMAP.md Queue 1 item 14"
         )
     if point in ENGINE_KILL_POINTS:
-        raise NotImplementedError(
-            f"kill point {point!r} drives the adaptation engine, which is "
-            "not ported yet: ROADMAP.md Queue 1 item 13"
+        return run_engine_kill_point(
+            point, at=at, sessions=sessions, seed=seed,
+            journal_dir=journal_dir, pipeline_depth=pipeline_depth,
+            device=device,
         )
     if point not in KILL_POINTS:
         raise ValueError(f"unknown kill point {point!r}")
@@ -447,3 +451,193 @@ def run_random_kill(seed: int, mesh=None, device=None) -> dict:
         out["seed"] = seed
     return out
 
+
+
+def run_engine_kill_point(
+    point: str, *, at: int | None = None, sessions: int = 8, seed: int = 0,
+    journal_dir: str | None = None, pipeline_depth: int = 1,
+    device=None,
+) -> dict:
+    """Kill inside the adaptation controller's registry transitions —
+    after ``registry.promote`` but before the fleet swap applies
+    (``mid_promote``), or after ``registry.rollback`` but before the
+    swap-back (``mid_rollback``) — then recover and prove the
+    half-finished transition completes cleanly: the recovered fleet
+    serves exactly the registry's CURRENT version, with accounting
+    intact.  ``device`` serves the transition behind the device
+    dispatch plane: two ``JitDemoModel``s on that device, independently
+    seeded, so both agreement gates are off (the shadow gate, as the
+    JAX package's mesh run has it, and probation's reverse-shadow
+    floor, which such a pair would breach as soon as 16 windows are
+    scored): the matrix tests the journaled transition, not candidate
+    quality."""
+    import shutil
+
+    from har_tpu_torch.adapt.registry import ModelRegistry
+    from har_tpu_torch.adapt.shadow import ShadowConfig
+    from har_tpu_torch.adapt.swap import AdaptationConfig, AdaptationEngine
+    from har_tpu_torch.adapt.trigger import TriggerConfig
+    from har_tpu_torch.monitoring import DriftMonitor
+
+    if point not in ENGINE_KILL_POINTS:
+        raise ValueError(f"unknown engine kill point {point!r}")
+    at = _DEFAULT_AT[point] if at is None else at
+    tmp = None
+    if journal_dir is None:
+        tmp = journal_dir = tempfile.mkdtemp(prefix="har_chaos_adapt_")
+    reg_root = journal_dir + ".registry"
+    try:
+        clock = FakeClock()
+        journal = FleetJournal(
+            journal_dir, JournalConfig(flush_every=8, snapshot_every=0)
+        )
+        if device is None:
+            incumbent = AnalyticDemoModel()
+            candidate = AnalyticDemoModel(tau=5.0)
+        else:
+            from har_tpu_torch.serve.loadgen import JitDemoModel
+
+            incumbent = JitDemoModel(window=100, channels=3, seed=1729,
+                                     device=device)
+            candidate = JitDemoModel(window=100, channels=3, seed=5,
+                                     device=device)
+        models: dict = {}
+
+        def adaptation(server, registry, clk, **kw):
+            return AdaptationEngine(
+                server, registry, lambda job: candidate,
+                config=AdaptationConfig(
+                    probation_dispatches=3, max_shadow_dispatches=8,
+                    probation_min_agreement=0.95 if device is None else 0.0,
+                ),
+                trigger_config=TriggerConfig(
+                    min_sessions=2, window_s=1e9, cooldown_s=1e9,
+                    recovery_patience=1,
+                ),
+                shadow_config=ShadowConfig(
+                    sample_every=1, min_windows=4,
+                    min_agreement=0.98 if device is None else 0.0,
+                ),
+                clock=clk, **kw,
+            )
+
+        # post-swap dispatch failures force the probation regression
+        # that reaches the rollback path
+        faults = DispatchFaults(fake_clock=clock)
+        server = FleetServer(
+            incumbent, window=100, hop=100, channels=3, smoothing="none",
+            config=FleetConfig(
+                max_sessions=sessions, max_delay_ms=0.0, retries=0,
+                pipeline_depth=pipeline_depth,
+            ),
+            clock=clock, fault_hook=faults, journal=journal,
+        )
+        rng = np.random.default_rng((seed, 77))
+        recs = [
+            rng.normal(size=(1200, 3)).astype(np.float32)
+            for _ in range(sessions)
+        ]
+        for i in range(sessions):
+            server.add_session(
+                i,
+                monitor=DriftMonitor(
+                    np.zeros(3), np.ones(3), halflife=50.0, patience=2
+                ),
+            )
+        engine = adaptation(server, ModelRegistry(reg_root, clock=clock),
+                            clock)
+        models[server.model_version] = incumbent
+        # armed only after setup (attach snapshot + bootstrap register)
+        journal.chaos = KillPlan(point, at)
+
+        def loader(ver: str):
+            if ver not in models:
+                # the candidate registers as the next version id
+                models[ver] = candidate
+            return models[ver]
+
+        crashed = False
+        try:
+            for rnd in range(10):
+                for i in range(sessions):
+                    chunk = recs[i][rnd * 100 : (rnd + 1) * 100]
+                    if i < sessions // 2 and rnd >= 1:
+                        chunk = chunk + 25.0  # population re-mount
+                    server.push(i, chunk)
+                server.poll(force=True)
+                if (
+                    point == "mid_rollback"
+                    and engine.state == "probation"
+                ):
+                    faults.fail_every = 1  # regression: every dispatch dies
+                engine.step()
+                clock.advance(1.0)
+        except SimulatedCrash:
+            crashed = True
+            journal.kill()
+        if not crashed:
+            journal.close()
+            return {
+                "ok": False, "point": point,
+                "why": f"kill point {point!r} never fired (at={at})",
+                "windows_lost": 0, "recovery_ms": 0.0,
+            }
+
+        # ---- recovery ----------------------------------------------------
+        t0 = time.perf_counter()
+        clock2 = FakeClock(clock.t)
+        restored = FleetServer.restore(journal_dir, loader, clock=clock2)
+        registry2 = ModelRegistry(reg_root, clock=clock2)
+        engine2 = adaptation(restored, registry2, clock2, resume=True,
+                             loader=loader)
+        recovery_ms = (time.perf_counter() - t0) * 1e3
+
+        # resume a few clean rounds (faults off: probation must close)
+        restored.poll(force=True)
+        cursors = [restored.watermark(i) for i in range(sessions)]
+        for rnd in range(3):
+            for i in range(sessions):
+                chunk = recs[i][cursors[i] : cursors[i] + 100]
+                cursors[i] += 100
+                if len(chunk):
+                    restored.push(i, chunk)
+            restored.poll(force=True)
+            engine2.step()
+            clock2.advance(1.0)
+        restored.flush()
+        engine2.step()
+
+        acct = restored.stats.accounting()
+        cur = registry2.current()
+        why = None
+        if cur is None or cur.name != restored.model_version:
+            why = (
+                f"registry CURRENT ({None if cur is None else cur.name}) "
+                f"!= serving version ({restored.model_version}) after "
+                "recovery"
+            )
+        elif restored.model is not models[cur.name]:
+            why = f"the fleet does not serve {cur.name}'s model"
+        elif not acct["balanced"] or acct["pending"] != 0:
+            why = f"accounting violated after recovery: {acct}"
+        elif point == "mid_promote" and cur.version < 2:
+            why = "mid_promote recovery did not complete the promotion"
+        elif point == "mid_rollback" and cur.version != 1:
+            why = "mid_rollback recovery did not land on the incumbent"
+        elif engine2.state not in ("serving",):
+            why = f"engine did not settle post-recovery: {engine2.state}"
+        return {
+            "ok": why is None,
+            "point": point,
+            "why": why,
+            "windows_lost": 0,
+            "recovery_ms": round(recovery_ms, 3),
+            "serving_version": restored.model_version,
+            "registry_current": cur.name if cur else None,
+            "accounting": acct,
+            "adapt_log": [e["event"] for e in engine2.log],
+        }
+    finally:
+        shutil.rmtree(reg_root, ignore_errors=True)
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)

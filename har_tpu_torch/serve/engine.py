@@ -425,6 +425,10 @@ class FleetServer:
         # retries (its windows were shed as ``dispatch_failed``): what a
         # caller that injects no faults re-raises (``cli serve``)
         self.last_dispatch_error: Exception | None = None
+        # the exception of the newest dispatch tap that raised (counted
+        # in ``shadow_errors``): what a caller that must know its shadow
+        # scoring ran clean re-raises (``cli serve --adapt``)
+        self.last_shadow_error: Exception | None = None
         # launched-but-not-retired dispatch tickets, FIFO.  With
         # pipeline_depth > 1 up to depth-1 tickets survive BETWEEN
         # polls, so the device crunches a batch while the host ingests
@@ -438,11 +442,11 @@ class FleetServer:
         self._ok_streak = 0
         # device calibration results keyed by padded batch size
         self._device_ms: dict[int, dict] = {}
-        # hot-swap state (har_tpu.adapt): a staged swap applies at the
+        # hot-swap state (har_tpu_torch.adapt): a staged swap applies at the
         # next dispatch BOUNDARY, so an in-flight batch always completes
         # on the model that started scoring it
         self._staged_swap: tuple | None = None
-        # elastic resize state (har_tpu.serve.traffic): same boundary
+        # elastic resize state (har_tpu_torch.serve.traffic): same boundary
         # discipline as the swap — a staged resize applies at the next
         # dispatch boundary, and in-flight tickets retire on the OLD
         # scorer/placement (each ticket carries its own scorer)
@@ -2178,7 +2182,7 @@ class FleetServer:
         self._n_unlaunched -= k
         # live fill gauge: how full this dispatch ran relative to the
         # configured capacity — the capacity controller's scale-down
-        # evidence (har_tpu.serve.traffic.autoscale)
+        # evidence (har_tpu_torch.serve.traffic.autoscale)
         self.stats.utilization = k / cfg.target_batch
         self._chaos("mid_dispatch")
         t_assembled = self._clock()
@@ -2654,8 +2658,9 @@ class FleetServer:
                     ticket.windows[:k],
                     probs,
                 )
-            except Exception:
+            except Exception as exc:
                 self.stats.shadow_errors += 1
+                self.last_shadow_error = exc
             else:
                 if scored:
                     self.stats.note_shadow(

@@ -194,7 +194,7 @@ class FleetStats:
     candidate-model scoring of a mirrored batch — off the serving
     critical path, timed so "the shadow is slow" is observable).
 
-    Adaptation counters (har_tpu.adapt): ``model_swaps`` / ``rollbacks``
+    Adaptation counters (har_tpu_torch.adapt): ``model_swaps`` / ``rollbacks``
     count hot-swap transitions, ``scored_by_version`` attributes every
     scored window to the model version that scored it — summing it
     reproduces ``scored``, so the conservation law ``enqueued == scored
@@ -230,7 +230,7 @@ class FleetStats:
         # flush interval; see FleetServer.declare_lost)
         self.recoveries = 0
         self.lost_in_crash = 0
-        # adaptation lifecycle (har_tpu.adapt)
+        # adaptation lifecycle (har_tpu_torch.adapt)
         self.model_swaps = 0
         self.rollbacks = 0
         self.shadow_batches = 0
@@ -270,7 +270,7 @@ class FleetStats:
         self.worker_failovers = 0
         self.migrations = 0
         self.migration_ms = 0.0
-        # elastic capacity (har_tpu.serve.traffic): online resizes this
+        # elastic capacity (har_tpu_torch.serve.traffic): online resizes this
         # engine has applied (target_batch / pipeline_depth / mesh, at a
         # dispatch boundary — FleetServer.resize), split by capacity
         # direction.  ``utilization`` is the live fill fraction of the

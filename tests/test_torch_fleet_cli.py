@@ -6,7 +6,10 @@ a narrow transformer checkpoint (1 layer, embed 16, float32) served
 plain, pipelined and fused, at the int8 tier, and through a journal with
 a hard kill and a resume that loses and repeats nothing; and every flag
 of a part not ported yet raises NotImplementedError naming its ROADMAP
-item before a session is built.
+item before a session is built.  The drift loop (``--adapt``, its
+journaled kill and ``--resume --adapt --registry``) and the churn fleet
+(``--trace`` with ``--autoscale``) run on the analytic model and the
+transformer, with har_tpu's summary keys.
 """
 
 import json
@@ -198,18 +201,23 @@ def test_cli_serve_transformer_journal_kill_and_resume(tmp_path, capsys,
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--adapt"], 13),
+    # ids kept: --adapt, --trace and --autoscale were refused here until
+    # the adaptation loop and the traffic engine were ported; each id now
+    # pairs its flag with a part that still waits
+    pytest.param(["--adapt", "--mesh", "2"], 14, id="--adapt-13"),
     (["--mesh", "2"], 14),
     (["--mesh-shape", "2x4"], 14),
     (["--workers", "2"], 15),
     (["--net"], 15),
     (["--kill-worker", "w0"], 15),
-    (["--trace", "diurnal"], 15),
-    (["--autoscale"], 15),
+    pytest.param(["--trace", "diurnal", "--workers", "2"], 15, id="--trace-15"),
+    pytest.param(["--trace", "storm", "--autoscale", "--net"], 15,
+                 id="--autoscale-15"),
 ], ids=lambda v: v[0] if isinstance(v, list) else str(v))
 def test_cli_serve_waiting_flags_name_their_item(flags, item, monkeypatch):
     """Each flag of a part not ported yet is refused before any session
-    is built (the recordings generator is never reached)."""
+    is built (the recordings generator is never reached), also beside a
+    flag of a part that is ported."""
     import har_tpu_torch.serve.loadgen as loadgen
 
     def never(*a, **k):
@@ -220,9 +228,174 @@ def test_cli_serve_waiting_flags_name_their_item(flags, item, monkeypatch):
         cli.main(["serve", "--device", "cpu", "--sessions", "4", *flags])
 
 
+def _jax_summary(capsys, argv):
+    import har_tpu.cli as jax_cli
+
+    assert jax_cli.main(argv) == 0
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_cli_serve_adapt_summary_keys_equal_jax(tmp_path, capsys):
+    """``serve --adapt --inject-drift 0.5`` in both CLIs: the loop closes
+    in each (one retrain, one swap, no rollback, nothing dropped), and
+    the summary, stats and ``adapt`` status keys are har_tpu's."""
+    argv = ["serve", "--sessions", "24", "--windows-per-session", "6",
+            "--adapt", "--inject-drift", "0.5"]
+    ours = _summary(capsys, argv + ["--device", "cpu", "--registry",
+                                    str(tmp_path / "reg_port")])
+    theirs = _jax_summary(capsys, argv + ["--registry", str(tmp_path / "reg_jax")])
+    assert set(ours) == set(theirs)
+    assert set(ours["stats"]) == set(theirs["stats"])
+    for out in (ours, theirs):
+        adapt = out["adapt"]
+        assert adapt["retrain_jobs"] == 1 and adapt["swaps"] == 1
+        assert adapt["rollbacks"] == 0 and adapt["serving_version"] == "v0000002"
+        assert out["dropped"] == 0 and out["stats"]["accounting"]["balanced"]
+    assert set(ours["adapt"]) <= set(theirs["adapt"]) | {"shadow", "probation_shadow"}
+    for key in ("enqueued", "scored", "sessions"):
+        assert ours[key] == theirs[key], key
+
+
+def test_cli_serve_adapt_transformer_checkpoint_closes_the_loop(
+        tmp_path, capsys, transformer_checkpoint):
+    """The drift loop over the narrow transformer on the device plane,
+    one dispatch a poll: the demo retrainer's candidate shadows, swaps,
+    serves and passes probation; no shadow batch raised, nothing
+    dropped."""
+    out = _summary(capsys, [
+        "serve", "--device", "cpu", "--sessions", "24",
+        "--windows-per-session", "12", "--max-delay-ms", "0",
+        "--checkpoint", transformer_checkpoint,
+        "--adapt", "--inject-drift", "0.5", "--registry", str(tmp_path / "reg")])
+    adapt, snap = out["adapt"], out["stats"]
+    assert adapt["swaps"] == 1 and adapt["rollbacks"] == 0
+    assert adapt["state"] == "serving" and adapt["serving_version"] == "v0000002"
+    assert adapt["retrain_errors"] == adapt["registry_errors"] == 0
+    assert snap["shadow_errors"] == 0 and snap["shadow_batches"] > 0
+    assert snap["dispatch_backend"] == "device"
+    assert out["dropped"] == 0 and snap["accounting"]["balanced"]
+    assert set(snap["scored_by_version"]) == {"v0000001", "v0000002"}
+    assert sum(snap["scored_by_version"].values()) == out["scored"] == 288
+
+
+def test_cli_serve_adapt_raises_when_shadow_scoring_fails(tmp_path, monkeypatch):
+    """A candidate whose scoring raises (a device-path fault) is counted
+    by the engine, as in har_tpu, but ``serve`` then ends with an error
+    instead of a summary."""
+    from har_tpu_torch.adapt import shadow
+
+    def broken(self, *a, **k):
+        raise RuntimeError("kernel launch failed")
+
+    monkeypatch.setattr(shadow.ShadowEvaluator, "__call__", broken)
+    with pytest.raises(RuntimeError, match="shadow-scored batch"):
+        cli.main(["serve", "--device", "cpu", "--sessions", "24",
+                  "--windows-per-session", "6", "--adapt", "--inject-drift", "0.5",
+                  "--registry", str(tmp_path / "reg")])
+
+
+def test_cli_serve_resume_adapt_needs_a_registry(tmp_path):
+    with pytest.raises(SystemExit, match="--registry"):
+        cli.main(["serve", "--device", "cpu", "--sessions", "4", "--adapt",
+                  "--journal", str(tmp_path / "wal"), "--resume"])
+
+
+@pytest.mark.parametrize("kill_after", [3, 5])
+def test_cli_serve_adapt_journal_kill_and_resume(tmp_path, capsys, kill_after):
+    """A journaled ``--adapt`` run killed hard (exit 17) before the
+    trigger fires (3 polls) and while a candidate shadows (5), then
+    ``--resume --adapt --registry``: the resumed fleet serves the
+    registry's CURRENT, a promoted candidate, every window is scored
+    once across the two processes — and har_tpu's CLI, killed and
+    resumed the same way, ends in the same versions and counts."""
+    from har_tpu_torch.adapt import ModelRegistry
+
+    def run(module, root):
+        args = ["--sessions", "24", "--windows-per-session", "6", "--adapt",
+                "--inject-drift", "0.5", "--registry", str(root / "reg"),
+                "--journal", str(root / "wal"), "--journal-flush-every", "4",
+                "--max-delay-ms", "0"]
+        if module == "har_tpu_torch.cli":
+            args += ["--device", "cpu"]
+        proc = subprocess.run(
+            [sys.executable, "-m", module, "serve", *args,
+             "--kill-after-polls", str(kill_after)],
+            capture_output=True, text=True, env=dict(os.environ),
+        )
+        assert proc.returncode == 17, proc.stderr[-500:]
+        if module == "har_tpu_torch.cli":
+            return _summary(capsys, ["serve", *args, "--resume"])
+        return _jax_summary(capsys, ["serve", *args, "--resume"])
+
+    out = run("har_tpu_torch.cli", tmp_path / "port")
+    acct = out["stats"]["accounting"]
+    assert out["resumed"] is True and out["recoveries"] == 1
+    assert out["lost_in_crash"] == 0 and out["dropped"] == 0
+    assert out["enqueued"] == out["scored"] == 144
+    assert acct["balanced"] and acct["pending"] == 0
+    assert 0 < out["n_events"] < 144
+    current = ModelRegistry(str(tmp_path / "port" / "reg")).current()
+    assert out["adapt"]["serving_version"] == current.name
+    assert current.version >= 2 and out["adapt"]["rollbacks"] == 0
+    theirs = run("har_tpu.cli", tmp_path / "jax")
+    for key in ("n_events", "enqueued", "scored", "recoveries"):
+        assert out[key] == theirs[key], key
+    for key in ("state", "serving_version", "swaps", "retrain_jobs",
+                "rejected_candidates"):
+        assert out["adapt"][key] == theirs["adapt"][key], key
+    assert out["stats"]["scored_by_version"] == theirs["stats"]["scored_by_version"]
+
+
+def test_cli_serve_trace_summary_keys_equal_jax(capsys):
+    """``serve --trace diurnal --autoscale`` in both CLIs: the same keys,
+    the same schedule and counts (the analytic model's scores do not
+    depend on batching), zero undeclared drops, and a controller that
+    walks up and back down."""
+    argv = ["serve", "--sessions", "48", "--trace", "diurnal",
+            "--trace-rounds", "32", "--autoscale"]
+    ours = _summary(capsys, argv + ["--device", "cpu"])
+    theirs = _jax_summary(capsys, argv)
+    assert set(ours) == set(theirs)
+    assert set(ours["autoscale"]) == set(theirs["autoscale"])
+    for key in ("trace_spec", "rounds", "peak_active", "trough_active",
+                "connects", "disconnects", "storm_disconnects", "slow_stalls",
+                "enqueued", "scored", "n_events", "undeclared_drops", "balanced"):
+        assert ours[key] == theirs[key], key
+    assert ours["undeclared_drops"] == 0 and ours["balanced"]
+    assert ours["scale_ups"] >= 1 and ours["scale_downs"] >= 1
+
+
+@pytest.mark.parametrize("trace", ["diurnal", "bursty", "storm"])
+def test_cli_serve_trace_autoscale_transformer(capsys, transformer_checkpoint, trace):
+    """Each trace kind over the narrow transformer on the device plane,
+    autoscaled: every window scored, nothing undeclared dropped."""
+    out = _summary(capsys, ["serve", "--device", "cpu", "--sessions", "32",
+                            "--trace", trace, "--trace-rounds", "24", "--autoscale",
+                            "--checkpoint", transformer_checkpoint])
+    assert out["undeclared_drops"] == 0 and out["balanced"]
+    assert out["scored"] == out["enqueued"] == out["n_events"] > 0
+    assert out["resizes"] >= 1
+
+
+def test_cli_serve_trace_refusals():
+    """``--trace`` refuses the steady-load modes (har_tpu's SystemExit);
+    ``--autoscale --mesh N`` names item 14 and ``--workers`` item 15."""
+    base = ["serve", "--device", "cpu", "--sessions", "8", "--trace", "diurnal"]
+    for flags in (["--adapt"], ["--resume"], ["--kill-after-polls", "2"],
+                  ["--monitor"], ["--inject-drift", "0.5"], ["--inject-drop", "0.1"],
+                  ["--inject-delay", "0.1"], ["--calibrate-device"]):
+        with pytest.raises(SystemExit, match="--trace drives its own churn"):
+            cli.main(base + flags)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        cli.main(base + ["--autoscale", "--mesh", "2"])
+    with pytest.raises(NotImplementedError, match="item 15"):
+        cli.main(base + ["--workers", "2"])
+
+
 def test_cli_serve_runs_on_cuda_by_default(monkeypatch):
     """Without --device the fleet asks for the card, and says so where
     there is none."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="--device cpu"):
-        cli.main(["serve", "--sessions", "4"])
+    for extra in ([], ["--adapt"], ["--trace", "diurnal", "--autoscale"]):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            cli.main(["serve", "--sessions", "4", *extra])

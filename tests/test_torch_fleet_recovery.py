@@ -288,10 +288,133 @@ def test_kill_point_recovers_bit_identical(point):
 
 @pytest.mark.parametrize("point", ENGINE_KILL_POINTS)
 def test_engine_kill_point_resolves_half_finished_transition(point):
-    """mid_promote / mid_rollback drive the adaptation engine, which is
-    not ported yet: the kill point names its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="item 13"):
-        run_kill_point(point, sessions=6, seed=2)
+    """mid_promote / mid_rollback: the registry pointer moved but the
+    fleet swap never applied — recovery must land the fleet on CURRENT
+    (resuming probation for a promotion) with accounting intact."""
+    out = run_kill_point(point, sessions=6, seed=2)
+    assert out["ok"], out
+    assert out["serving_version"] == out["registry_current"]
+    assert out["accounting"]["balanced"]
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+@pytest.mark.parametrize("point", ENGINE_KILL_POINTS)
+def test_engine_kill_point_behind_the_device_plane(point, depth):
+    """Both engine kill points behind the device dispatch plane (two demo
+    MLPs on the CPU) at depths 1 and 3: recovery serves CURRENT's model,
+    and a promotion's probation closes on it."""
+    out = run_kill_point(point, sessions=8, seed=0, pipeline_depth=depth,
+                         device="cpu")
+    assert out["ok"], out
+    assert out["serving_version"] == out["registry_current"] == (
+        "v0000002" if point == "mid_promote" else "v0000001")
+    assert out["accounting"]["balanced"] and out["accounting"]["pending"] == 0
+    assert out["adapt_log"][0] == (
+        "recovery_completed_promotion" if point == "mid_promote"
+        else "recovery_completed_rollback")
+
+
+def test_crash_after_failed_rollback_write_still_swaps_back(tmp_path):
+    """The live path swaps back even when registry.rollback raises
+    ("serving correctness over lineage"); a kill between that failed
+    pointer write and the swap-back must not strand the regressing
+    model — resume completes the swap-back to the prior incumbent."""
+    from har_tpu_torch.adapt.registry import ModelRegistry
+    from har_tpu_torch.adapt.shadow import ShadowConfig
+    from har_tpu_torch.adapt.swap import AdaptationConfig, AdaptationEngine
+    from har_tpu_torch.adapt.trigger import TriggerConfig
+    from har_tpu_torch.monitoring import DriftMonitor
+    from har_tpu_torch.serve import (
+        DispatchFaults,
+        FakeClock,
+        KillPlan,
+        SimulatedCrash,
+    )
+    from har_tpu_torch.serve.loadgen import AnalyticDemoModel
+
+    clock = FakeClock()
+    journal = FleetJournal(
+        str(tmp_path / "j"), JournalConfig(flush_every=4)
+    )
+    incumbent = AnalyticDemoModel()
+    candidate = AnalyticDemoModel(tau=5.0)
+    faults = DispatchFaults(fake_clock=clock)
+    server = FleetServer(
+        incumbent, window=100, hop=100, channels=3, smoothing="none",
+        config=FleetConfig(max_sessions=6, max_delay_ms=0.0, retries=0),
+        clock=clock, fault_hook=faults, journal=journal,
+    )
+    rng = np.random.default_rng(21)
+    recs = [
+        rng.normal(size=(1200, 3)).astype(np.float32) for _ in range(6)
+    ]
+    for i in range(6):
+        server.add_session(
+            i,
+            monitor=DriftMonitor(
+                np.zeros(3), np.ones(3), halflife=50.0, patience=2
+            ),
+        )
+    registry = ModelRegistry(str(tmp_path / "reg"), clock=clock)
+    kw = dict(
+        config=AdaptationConfig(
+            probation_dispatches=4, max_shadow_dispatches=8
+        ),
+        trigger_config=TriggerConfig(
+            min_sessions=2, window_s=1e9, cooldown_s=1e9,
+            recovery_patience=1,
+        ),
+        shadow_config=ShadowConfig(sample_every=1, min_windows=4),
+        clock=clock,
+    )
+    engine = AdaptationEngine(server, registry, lambda job: candidate,
+                              **kw)
+    v1 = server.model_version
+    models = {v1: incumbent}
+
+    def loader(ver):
+        return models.get(ver, candidate)
+
+    def broken_rollback():
+        raise OSError("registry dir went read-only")
+
+    registry.rollback = broken_rollback
+    journal.chaos = KillPlan("mid_rollback", 1)
+    crashed = False
+    try:
+        for rnd in range(10):
+            for i in range(6):
+                chunk = recs[i][rnd * 100 : (rnd + 1) * 100]
+                if i < 3 and rnd >= 1:
+                    chunk = chunk + 25.0
+                server.push(i, chunk)
+            server.poll(force=True)
+            if engine.state == "probation":
+                faults.fail_every = 1  # regression: every dispatch dies
+            engine.step()
+            clock.advance(1.0)
+    except SimulatedCrash:
+        crashed = True
+        journal.kill()
+    assert crashed, f"never reached mid_rollback (state={engine.state})"
+
+    clock2 = FakeClock(clock.t)
+    restored = FleetServer.restore(
+        str(tmp_path / "j"), loader, clock=clock2
+    )
+    # the kill hit between the failed pointer write and the swap-back:
+    # the regressing candidate is still the serving version on disk
+    assert restored.model_version != v1
+    registry2 = ModelRegistry(str(tmp_path / "reg"), clock=clock2)
+    engine2 = AdaptationEngine(
+        restored, registry2, lambda job: candidate, **kw,
+        resume=True, loader=loader,
+    )
+    assert restored.model_version == v1  # swap-back completed
+    assert restored.stats.rollbacks == 1
+    assert engine2.state == "serving"
+    # and the pointer retry (healthy registry2) landed back on v1 too
+    assert registry2.current().name == v1
 
 
 @pytest.mark.parametrize("point", KILL_POINTS)
