@@ -17,6 +17,14 @@ program with the trained parameters inside:
     checkpoint directory, optionally int8 (``quantize.QuantizedModel``:
     the int8 tensors stay int8 inside the artifact and the
     dequantization is part of the exported program).
+  - a packed transformer (``window_pack`` p > 1) is exported over whole
+    packs: :class:`PackedPredict` takes (packs, p, *example_shape) with a
+    symbolic pack count (``Dim("packs", min=1)``, traced at 2 packs: a
+    batch dimension of 1 would be specialized, a pack dimension is not),
+    ``window_pack`` goes into the meta, and the loaded predictor pads
+    each batch with zero windows to whole packs and strips them from the
+    outputs.  A window attends only within its own segment, so the
+    padding changes no real window's output.
   - ``load_exported(path, device)`` — an ``ExportedPredictor``
     implementing the ClassifierModel protocol, so an artifact drops into
     evaluation, batch predict or ``serving.StreamingClassifier``.
@@ -82,6 +90,36 @@ class PredictCore(nn.Module):
         logits = self.module(x).to(torch.float32)
         scores = logits / self.temperature if self.scaled else logits
         return logits, torch.softmax(scores, dim=-1)
+
+
+class PackedPredict(nn.Module):
+    """A packed predict over whole packs: (packs, p, *example_shape) →
+    the (logits, probs) of its packs · p windows."""
+
+    def __init__(self, core: nn.Module, window_pack: int):
+        super().__init__()
+        self.core = core
+        self.window_pack = window_pack
+
+    def forward(self, x):
+        return self.core(x.reshape(x.shape[0] * self.window_pack, *x.shape[2:]))
+
+
+def pad_to_packs(fn, window_pack: int):
+    """``fn`` over whole packs as a function of a (n, ...) batch: the
+    batch is zero-padded to a multiple of ``window_pack`` windows, folded
+    to (packs, window_pack, ...) and the padding's rows are dropped from
+    each output."""
+
+    def call(x):
+        n = x.shape[0]
+        pad = (-n) % window_pack
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad, *x.shape[1:]))])
+        outs = fn(x.reshape(-1, window_pack, *x.shape[1:]))
+        return tuple(out[:n] for out in outs)
+
+    return call
 
 
 def predict_module(model) -> nn.Module:
@@ -162,20 +200,17 @@ def export_model(
             )
         example_shape = tuple(int(d) for d in np.asarray(scaler.mean).shape)
     example_shape = tuple(int(d) for d in example_shape)
-    if getattr(_base_module(model), "window_pack", 1) > 1:
-        # the pack pads the batch to a multiple of window_pack: its group
-        # count can be 1, which export's symbolic batch cannot express
-        raise ValueError(
-            "export covers transformers with window_pack=1; a packed "
-            "transformer's padded batch cannot stay symbolic (ROADMAP.md "
-            "Queue 1 item 11)"
-        )
     core = copy.deepcopy(predict_module(model)).to("cpu").eval()
-    example = torch.zeros((2, *example_shape), dtype=torch.float32)
+    window_pack = int(getattr(_base_module(model), "window_pack", 1))
+    if window_pack > 1:
+        core = PackedPredict(core, window_pack)
+        example = torch.zeros((2, window_pack, *example_shape), dtype=torch.float32)
+        batch = torch.export.Dim("packs", min=1)
+    else:
+        example = torch.zeros((2, *example_shape), dtype=torch.float32)
+        batch = torch.export.Dim("batch")
     with torch.no_grad():
-        program = torch.export.export(
-            core, (example,), dynamic_shapes=({0: torch.export.Dim("batch")},)
-        )
+        program = torch.export.export(core, (example,), dynamic_shapes=({0: batch},))
     os.makedirs(path, exist_ok=True)
     torch.export.save(program, os.path.join(path, _PROGRAM))
     meta = {
@@ -188,6 +223,8 @@ def export_model(
         # the port's weights ride inside the program (int8 buffers when
         # quantized), never as call inputs
         "weight_inputs": False,
+        # > 1: the program takes whole packs of this many windows
+        "window_pack": window_pack,
         **(extra_meta or {}),
     }
     with open(os.path.join(path, _META), "w") as f:
@@ -272,12 +309,15 @@ class ExportedPredictor:
 
     def __post_init__(self):
         self._module = self.program.module()
+        pack = int(self.meta.get("window_pack", 1))
+        # (n, *example_shape) → (logits, probs), whole packs or not
+        self._call = pad_to_packs(self._module, pack) if pack > 1 else self._module
 
     def device_call(self, x):
         """The bare program on a device tensor: returns device logits, no
         numpy staging or shape checks (what serving's device timing
         calls)."""
-        return self._module(x)[0]
+        return self._call(x)[0]
 
     @property
     def int8_weights(self) -> bool:
@@ -301,7 +341,7 @@ class ExportedPredictor:
                 f"artifact was exported for per-example shape "
                 f"{self.example_shape}; got {tuple(x.shape[1:])}"
             )
-        return predict_in_chunks(self._module, x, self.device)
+        return predict_in_chunks(self._call, x, self.device)
 
     def transform(self, data):
         from har_tpu_torch.models.base import Predictions

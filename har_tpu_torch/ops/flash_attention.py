@@ -29,6 +29,9 @@ forward the JAX package writes in Pallas.  Public functions keep the JAX
   (O(T·block) memory), both including the cotangent of ``lse``.
 - ``FLASH_LAUNCHES`` counts kernel launches, so a run can show that its
   attention went through the kernel.
+- The op's flop formula (4·B·H·T²·D) is registered with
+  ``torch.utils.flop_counter``, so the trainer's FLOP count
+  (``compute_flops``) includes the forward's attention.
 - :func:`flash_plan` plans each bfloat16 launch (the kernel refuses a plan
   that disagrees with its own arithmetic).  On the *resident* route a
   block owns one batch row and ``heads_per_block`` heads with all T query
@@ -61,6 +64,7 @@ import dataclasses
 import functools
 
 import torch
+import torch.utils.flop_counter
 
 from har_tpu_torch.ops import _build
 from har_tpu_torch.ops.hist import H100_SMS, sm_count
@@ -369,6 +373,15 @@ def _backward(ctx, g_out, g_lse):
 
 
 flash_attention_fwd.register_autograd(_backward, setup_context=_setup_context)
+
+
+@torch.utils.flop_counter.register_flop_formula(torch.ops.har_tpu_torch.flash_attention_fwd)
+def _flash_attention_fwd_flops(q_shape, k_shape, v_shape, *args, out_shape=None, **kwargs):
+    """The forward's matmul flops for FlopCounterMode, which counts an
+    opaque op as 0 without a formula: Q·Kᵀ and P·V, 2·B·H·T²·D each.  The
+    backward is plain PyTorch and is counted op by op."""
+    b, t, h, d = q_shape
+    return 4 * b * h * t * t * d
 
 
 def flash_attention(q, k, v):

@@ -664,6 +664,13 @@ def run(
             save_eda_plots(table, eda_columns, config.output_dir + "/plot")
     with timer("report"):
         paths = report.save()
+    # the reference's Graph.xlsx role: 8 metric charts over the two CSVs
+    from har_tpu_torch.reporting.charts import save_metric_charts
+
+    charts = save_metric_charts(paths.get("csv"), paths.get("cv_csv"),
+                                config.output_dir)
+    if charts:
+        paths["charts"] = os.path.dirname(charts[0])
     paths["timing"] = write_timing_csv(
         os.path.join(config.output_dir, "timing.csv"), timer
     )

@@ -10,6 +10,12 @@ Port of the single-device scanned path of ``har_tpu/train/trainer.py``
 - the training data, the schedule and the model live on the device; the
   loop over steps is a Python loop (the JAX package compiles it into one
   ``lax.scan``);
+- ``Trainer(scan=False)`` streams instead: each epoch's batches are drawn
+  from the same generator, gathered on the host and fed through
+  ``data.prefetch.prefetch_to_device`` (pinned buffers, a side stream),
+  one step a batch, to the same step body.  The rows and every draw are
+  the staged run's, so the two runs end with equal parameters bit for
+  bit;
 - each step minimizes the weighted cross-entropy sum over the weight sum
   (weights 1, or ``class_weight="balanced"``), and ``history["loss"]``
   holds the last step's loss of each epoch;
@@ -28,15 +34,26 @@ parameters, AdamW's moments and step count (so the schedule goes on at the
 global step) and the states of the dropout and augmentation generators
 (the JAX package folds per-step keys from global step numbers; here the
 generators are streams, so their states are saved), while the staged batch
-schedule is sliced at the resume epoch.  A resumed run equals the unbroken
+schedule is sliced at the resume epoch (a streamed run replays the host
+schedule up to it).  A resumed run equals the unbroken
 one bit for bit on the CPU.  ``early_stop_patience`` carves
 ``validation_fraction`` of the rows out of training (the JAX package's
 draw), scores them after every epoch, stops after ``patience`` epochs
 without improvement and returns the best epoch's parameters.
 
-The ``dp``/``tp``/``zero1`` meshes and ``compute_flops`` are not ported
-yet; asking for them raises NotImplementedError naming the ROADMAP item
-that ports them.
+``compute_flops`` counts one training step with
+``torch.utils.flop_counter.FlopCounterMode`` (:func:`step_flops`) and
+records ``program_flops_raw`` (the step), ``program_flops_steps`` and
+``program_flops`` (their product) where the JAX package records them: the
+plain staged run, not a checkpointed, early-stopped or streamed one.  The
+count is matmul and convolution flops only (K2's op counted by its
+registered formula, ``ops/flash_attention.py``); XLA's cost analysis,
+which the JAX package reads, adds the elementwise work and the optimizer,
+so for an MLP of widths 64→256→128→6 in float32 at batch 128 the port
+counts 34,144,256 and XLA 38,498,872 (a ratio of 0.887; both counted on
+the CPU: a count does not depend on the device).
+
+The ``dp``/``tp``/``zero1`` meshes wait for the parallel layer.
 """
 
 from __future__ import annotations
@@ -72,13 +89,44 @@ class TrainerConfig:
     compute_flops: bool = False
 
 
-def _refuse_unported(cfg: TrainerConfig) -> None:
-    if cfg.compute_flops:
-        raise NotImplementedError(
-            "trainer option(s) ['compute_flops'] are not ported to "
-            "har_tpu_torch yet: ROADMAP.md Queue 1 item 9 (neural training: "
-            "the FLOP count)"
+def step_flops(module: nn.Module, batch_shape: tuple, device: torch.device,
+               augment: Callable | None = None) -> int:
+    """FLOPs of one training step at ``batch_shape`` (forward, loss and
+    backward) as ``FlopCounterMode`` counts them: matmuls and
+    convolutions, K2 by its formula.
+
+    The step runs on fake tensors (shapes and dtypes only, on
+    ``device``) with throwaway generators: nothing is computed, no kernel
+    launches, and the module, its gradients and the run's generators are
+    left as they were."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    # K2's op must be registered, its formula with it
+    import har_tpu_torch.ops.flash_attention  # noqa: F401
+
+    generators = [torch.Generator(device=device).manual_seed(0) for _ in range(2)]
+    mode = FakeTensorMode()
+    with mode:
+        params = {
+            name: mode.from_tensor(p).detach().requires_grad_(p.requires_grad)
+            for name, p in module.named_parameters()
+        }
+        buffers = {name: mode.from_tensor(b) for name, b in module.named_buffers()}
+        xb = torch.empty(batch_shape, dtype=torch.float32, device=device)
+        yb = torch.zeros(batch_shape[:1], dtype=torch.long, device=device)
+    trainable = [p for p in params.values() if p.requires_grad]
+    with mode, FlopCounterMode(display=False) as counter:
+        if augment is not None:
+            xb = augment(generators[1], xb)
+        logits = torch.func.functional_call(
+            module, {**params, **buffers}, (xb,),
+            {"train": True, "generator": generators[0]},
         )
+        loss_sum = F.cross_entropy(logits, yb, reduction="none").sum()
+        if trainable:
+            torch.autograd.grad(loss_sum, trainable)
+    return int(counter.get_total_flops())
 
 
 def _module_signature(module: nn.Module) -> str:
@@ -303,8 +351,10 @@ _AUGMENT_SEED_OFFSET = 0x9E3779B9
 
 
 class Trainer:
-    """Fits a module on (x, y) arrays on one device; ``augment(generator,
-    xb) -> xb`` transforms each training batch inside the step;
+    """Fits a module on (x, y) arrays on one device; ``scan=False``
+    streams the batches from the host instead of staging the data on the
+    device; ``augment(generator, xb) -> xb`` transforms each training
+    batch inside the step;
     ``optimizer_factory(cfg, module, total_steps) -> AdamW`` replaces
     :func:`make_optimizer` (``transfer.fine_tune`` leaves frozen
     parameters out of it), its ``fingerprint_tag`` keying the run's
@@ -313,12 +363,15 @@ class Trainer:
     def __init__(self, module: nn.Module, config: TrainerConfig | None = None,
                  device: str | torch.device = "cuda",
                  augment: Callable | None = None,
-                 optimizer_factory: Callable | None = None):
+                 optimizer_factory: Callable | None = None,
+                 scan: bool = True):
         self.module = module
         self.config = config or TrainerConfig()
         self.device = resolve_device(device)
         self.augment = augment
         self.optimizer_factory = optimizer_factory
+        # staged (the whole dataset and schedule on the device) or streamed
+        self.scan = scan
 
     def _open_checkpointer(self, cfg, x, y, warm_start_digest):
         """One slot derivation for the chunked and the early-stop run."""
@@ -348,7 +401,6 @@ class Trainer:
         given ``init_params`` (a state_dict of the same shapes), from
         those."""
         cfg = self.config
-        _refuse_unported(cfg)
         if cfg.class_weight not in (None, "balanced"):
             raise ValueError(
                 f"class_weight={cfg.class_weight!r}; use None or 'balanced'"
@@ -428,16 +480,42 @@ class Trainer:
             ).to(device)
 
         host_rng = np.random.default_rng(cfg.seed)
-        batch_idx = np.stack(
-            [
-                idx
-                for _ in range(cfg.epochs)
-                for idx in batch_iterator(n, cfg.batch_size, host_rng)
-            ]
-        )
-        x_dev = torch.from_numpy(x).to(device)
-        y_dev = torch.from_numpy(y).long().to(device)
-        idx_dev = torch.from_numpy(batch_idx).to(device)
+        if self.scan:
+            batch_idx = np.stack(
+                [
+                    idx
+                    for _ in range(cfg.epochs)
+                    for idx in batch_iterator(n, cfg.batch_size, host_rng)
+                ]
+            )
+            x_dev = torch.from_numpy(x).to(device)
+            y_dev = torch.from_numpy(y).long().to(device)
+            idx_dev = torch.from_numpy(batch_idx).to(device)
+
+            def batches(lo: int, hi: int) -> Iterator:
+                for step in range(lo * steps_per_epoch, hi * steps_per_epoch):
+                    idx = idx_dev[step]
+                    yield x_dev[idx], y_dev[idx]
+        else:
+            from har_tpu_torch.data.prefetch import prefetch_to_device
+
+            host = (torch.from_numpy(x), torch.from_numpy(y.astype(np.int64)))
+            drawn = 0  # epochs of the host schedule drawn so far
+
+            def batches(lo: int, hi: int) -> Iterator:
+                nonlocal drawn
+                # the host schedule is drawn epoch by epoch: replay it up
+                # to a resume epoch, as the staged run slices it there
+                for _ in range(drawn, lo):
+                    for _ in batch_iterator(n, cfg.batch_size, host_rng):
+                        pass
+                drawn = hi
+                for _ in range(lo, hi):
+                    yield from prefetch_to_device(
+                        batch_iterator(n, cfg.batch_size, host_rng),
+                        size=2, device=device, source=host,
+                    )
+
         generators = {
             "dropout": torch.Generator(device=device).manual_seed(cfg.seed),
             "augment": torch.Generator(device=device).manual_seed(
@@ -449,9 +527,7 @@ class Trainer:
             """Epochs [lo, hi): the last step's loss of each."""
             module.train()
             losses = []
-            for step in range(lo * steps_per_epoch, hi * steps_per_epoch):
-                idx = idx_dev[step]
-                xb, yb = x_dev[idx], y_dev[idx]
+            for step, (xb, yb) in enumerate(batches(lo, hi), lo * steps_per_epoch):
                 if self.augment is not None:
                     xb = self.augment(generators["augment"], xb)
                 wb = (
@@ -482,6 +558,15 @@ class Trainer:
                 g.set_state(opt_state["generators"][name])
 
         history: dict[str, Any] = {}
+        if (cfg.compute_flops and self.scan and not cfg.checkpoint_dir
+                and not cfg.early_stop_patience):
+            # the plain staged run, as in the JAX package; counted on fake
+            # tensors outside the timed run, which it leaves untouched
+            raw = float(step_flops(module, (cfg.batch_size, *x.shape[1:]), device,
+                                   self.augment))
+            history["program_flops_raw"] = raw
+            history["program_flops_steps"] = total_steps
+            history["program_flops"] = raw * total_steps
         epoch_losses: list = []
         if device.type == "cuda":
             torch.cuda.synchronize(device)

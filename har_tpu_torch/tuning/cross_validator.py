@@ -11,8 +11,7 @@ Reference quirk, reproduced behind a flag: the script hands each
 CrossValidator the MAE RegressionEvaluator it assigned last (SURVEY §2 N),
 so it selects on MAE over *label indices*; ``selection_metric="mae"``
 replicates that, and the default is accuracy.  The exact MLlib replay of
-that selection (``har_tpu/tuning/mllib_cv.py``) waits for ROADMAP.md
-Queue 1 item 4's exact lane.
+that selection is ``tuning/mllib_cv.py`` (the parity lane's LR-CV).
 """
 
 from __future__ import annotations

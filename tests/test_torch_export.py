@@ -11,7 +11,10 @@ The int8 artifact is under 0.7x the float one and equals the live
 platforms and loads on an unlisted device are refused with messages; a
 model without a scaler needs ``example_shape``.  The CLI's ``export`` and
 ``evaluate`` / ``predict --artifact`` give the accuracy and CSV of
-``--checkpoint``.  The BiLSTM, whose 200-step recurrence unrolls, exports
+``--checkpoint``.  A packed transformer (``window_pack`` 4) exports over
+whole packs: batches 1, 3, 4, 5 and 9 equal the live model (float32 and
+int8) and har_tpu's artifact, and the CLI exports, evaluates and predicts
+its checkpoint.  The BiLSTM, whose 200-step recurrence unrolls, exports
 at a small T.  The fleet's async dispatch of an artifact
 (``tests/test_export.py:272``) waits for the fleet engine.
 """
@@ -260,9 +263,85 @@ def test_jax_devices_untouched():
 
 
 def test_packed_transformer_export_is_refused(tmp_path):
-    """window_pack pads the batch to whole packs; export refuses it with
-    a message rather than specializing the batch."""
-    port, _, _ = random_pair("transformer", seed=11, kwargs=dict(
-        embed_dim=16, num_heads=2, num_layers=1, patch_size=4, window_pack=4))
-    with pytest.raises(ValueError, match="window_pack"):
-        export_model(port, str(tmp_path / "art"))
+    """A packed transformer (window_pack 4) is no longer refused: its
+    artifact takes whole packs, records window_pack in its meta, and
+    agrees with har_tpu's StableHLO artifact of the same parameters
+    within 1e-5 on batches that end mid-pack."""
+    port, jax_model, _ = random_pair("transformer", seed=11, kwargs=PACKED)
+    path = export_model(port, str(tmp_path / "art"))
+    pred = load_exported(path, "cpu")
+    assert pred.meta["window_pack"] == 4
+    want_art = jax_export.load_exported(
+        jax_export.export_model(jax_model, str(tmp_path / "jax"), platforms=("cpu",))
+    )
+    for n in (1, 3, 4, 5, 9):
+        x = _windows(n, seed=20 + n)
+        got, want = pred.predict(x), want_art.predict(x)
+        assert got[0].shape == (n, 4)
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+
+
+PACKED = dict(embed_dim=16, num_heads=2, num_layers=1, patch_size=4, window_pack=4)
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 9])
+def test_packed_artifact_serves_batches_around_the_pack(tmp_path, n):
+    """Batches 1, p-1, p, p+1 and 2p+1 (p = 4) through one packed
+    artifact equal the live model: float32 logits and probabilities
+    within 1e-6, labels equal; the program's pack count is symbolic from
+    1 (it was traced at 2 packs)."""
+    port, _, _ = random_pair("transformer", seed=12, kwargs=PACKED)
+    pred = load_exported(export_model(port, str(tmp_path / "art")), "cpu")
+    (packs,) = [str(r) for s, r in pred.program.range_constraints.items()]
+    assert packs.startswith("VR[1,"), packs
+    x = _windows(n, seed=n)
+    logits, probs = pred.predict(x)
+    live = port.transform(x)
+    np.testing.assert_allclose(logits, live.raw, **TIGHT)
+    np.testing.assert_allclose(probs, live.probability, **TIGHT)
+    np.testing.assert_array_equal(pred.transform(x).prediction, live.prediction)
+    with torch.no_grad():
+        dev_logits = pred.device_call(torch.from_numpy(x))
+    np.testing.assert_array_equal(dev_logits.numpy(), logits)
+
+
+def test_packed_int8_artifact_equals_live_quantized(tmp_path):
+    port, _, _ = random_pair("transformer", seed=13, kwargs=PACKED)
+    q = quantize_model(port)
+    pred = load_exported(export_model(q, str(tmp_path / "int8")), "cpu")
+    assert pred.meta["window_pack"] == 4
+    for n in (1, 5, 9):
+        x = _windows(n, seed=30 + n)
+        logits, probs = pred.predict(x)
+        live = q.transform(x)
+        np.testing.assert_allclose(logits, live.raw, **TIGHT)
+        np.testing.assert_allclose(probs, live.probability, **TIGHT)
+
+
+def test_cli_export_evaluate_and_predict_a_packed_checkpoint(tmp_path):
+    """`export` (float and --quantize int8), `evaluate --artifact` and
+    `predict --artifact` of a packed transformer checkpoint: the float
+    artifact scores the checkpoint's accuracy and predicts its labels."""
+    port, _, kwargs = random_pair("transformer", window=200, classes=6, seed=14,
+                                  kwargs=dict(PACKED, patch_size=8))
+    ckpt = checkpoint.save_model(str(tmp_path / "ckpt"), port, "transformer", kwargs,
+                                 dataset="wisdm_raw", synthetic_rows=160,
+                                 input_shape=(200, 3), split_seed=7, train_fraction=0.8)
+    f32, int8 = str(tmp_path / "f32"), str(tmp_path / "int8")
+    assert _cli(["export", "--checkpoint", ckpt, "--output", f32])["quantized"] is None
+    out8 = _cli(["export", "--checkpoint", ckpt, "--output", int8, "--quantize", "int8"])
+    assert out8["quantized"]["scheme"] == "int8_weight_only"
+    want = _cli(["evaluate", "--checkpoint", ckpt, "--device", "cpu"])
+    got = _cli(["evaluate", "--artifact", f32, "--device", "cpu"])
+    assert {k: got[k] for k in want} == want
+    q = _cli(["evaluate", "--artifact", int8, "--device", "cpu"])
+    assert q["quantized"] == "int8_weight_only" and q["n_test"] == want["n_test"]
+    a = _cli(["predict", "--checkpoint", ckpt, "--device", "cpu",
+              "--output", str(tmp_path / "ckpt.csv")])
+    b = _cli(["predict", "--artifact", f32, "--device", "cpu",
+              "--output", str(tmp_path / "art.csv")])
+    assert a["n_rows"] == b["n_rows"]
+    rows_a = open(tmp_path / "ckpt.csv").read().splitlines()
+    rows_b = open(tmp_path / "art.csv").read().splitlines()
+    assert [r.split(",")[:3] for r in rows_a] == [r.split(",")[:3] for r in rows_b]

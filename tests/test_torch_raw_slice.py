@@ -101,7 +101,7 @@ def _model_block_skeleton(lines):
 
 def test_report_identical_outside_model_lines(tmp_path):
     jax_cfg, port_cfg = _configs(tmp_path)
-    jax_runner.run(jax_cfg, models=["transformer"], with_cv=False)
+    jax_outcome = jax_runner.run(jax_cfg, models=["transformer"], with_cv=False)
     outcome = port_runner.run(port_cfg, models=["transformer"], with_cv=False,
                               device="cpu")
     want = (tmp_path / "jax" / "result.txt").read_text().splitlines()
@@ -119,7 +119,8 @@ def test_report_identical_outside_model_lines(tmp_path):
         sections = [row["section"] for row in csv.DictReader(f)]
     assert sections == ["load", "report", "featurize", "transformer_fit",
                         "transformer_transform"]
-    assert set(outcome.report_paths) == {"result", "csv", "timing"}
+    assert set(outcome.report_paths) == set(jax_outcome.report_paths)
+    assert set(outcome.report_paths) - {"charts"} == {"result", "csv", "timing"}
     assert 0.0 <= outcome.accuracies["transformer"] <= 1.0
 
 
@@ -135,7 +136,7 @@ def test_raw_families_run_matches_jax(tmp_path):
     and then block for block outside the fitted models' numbers; DT's
     model line (depth and node count) and GBDT's are equal."""
     jax_cfg, port_cfg = _configs(tmp_path, params=RAW_TINY)
-    jax_runner.run(jax_cfg, models=RAW_FAMILIES)
+    jax_outcome = jax_runner.run(jax_cfg, models=RAW_FAMILIES)
     outcome = port_runner.run(port_cfg, models=RAW_FAMILIES, device="cpu")
     want = (tmp_path / "jax" / "result.txt").read_text().splitlines()
     got = (tmp_path / "port" / "result.txt").read_text().splitlines()
@@ -147,7 +148,8 @@ def test_raw_families_run_matches_jax(tmp_path):
     assert set(outcome.accuracies) == {f"{m}{cv}" for m in
                                        ("cnn1d", "bilstm", "decision_tree", "gbdt")
                                        for cv in ("", "_cv")}
-    assert set(outcome.report_paths) == {"result", "csv", "cv_csv", "timing"}
+    assert set(outcome.report_paths) == set(jax_outcome.report_paths)
+    assert set(outcome.report_paths) - {"charts"} == {"result", "csv", "cv_csv", "timing"}
 
 
 def test_cli_raw_families_and_augment_on_the_cpu(tmp_path, capsys, small_raw_dataset):

@@ -63,7 +63,7 @@ def _csv_rows(path):
 
 def test_decision_tree_report_byte_identical(tmp_path):
     jax_out, port_out = tmp_path / "jax", tmp_path / "port"
-    jax_runner.run(
+    jax_outcome = jax_runner.run(
         JaxRunConfig(
             data=JaxDataConfig(synthetic_rows=ROWS), output_dir=str(jax_out)
         ),
@@ -88,7 +88,8 @@ def test_decision_tree_report_byte_identical(tmp_path):
     assert _csv_rows(port_out / "additional_param.csv") == _csv_rows(
         jax_out / "additional_param.csv"
     )
-    assert set(outcome.report_paths) == {"result", "csv", "timing"}
+    assert set(outcome.report_paths) == set(jax_outcome.report_paths)
+    assert set(outcome.report_paths) - {"charts"} == {"result", "csv", "timing"}
     with open(port_out / "timing.csv", newline="") as f:
         sections = [row["section"] for row in csv.DictReader(f)]
     assert sections == [
@@ -116,7 +117,7 @@ def test_default_run_matches_jax(tmp_path):
     tests/test_torch_logistic_regression.py), not the labels or any
     metric."""
     jax_out, port_out = tmp_path / "jax", tmp_path / "port"
-    jax_runner.run(
+    jax_outcome = jax_runner.run(
         JaxRunConfig(data=JaxDataConfig(synthetic_rows=ROWS), output_dir=str(jax_out)),
         models=["lr", "dt"],
     )
@@ -142,7 +143,8 @@ def test_default_run_matches_jax(tmp_path):
     assert masked <= 4 * 3 + 2 * 5  # uid and timing lines; two LR samples
     for name in ("additional_param.csv", "crossFold_additional_param.csv"):
         assert _csv_rows(port_out / name) == _csv_rows(jax_out / name)
-    assert set(outcome.report_paths) == {"result", "csv", "cv_csv", "timing"}
+    assert set(outcome.report_paths) == set(jax_outcome.report_paths)
+    assert set(outcome.report_paths) - {"charts"} == {"result", "csv", "cv_csv", "timing"}
     with open(port_out / "timing.csv", newline="") as f:
         sections = [row["section"] for row in csv.DictReader(f)]
     assert sections == [
@@ -240,14 +242,15 @@ def test_cli_without_gpu_raises_unless_cpu_is_named(tmp_path, monkeypatch):
     [
         {"models": ["mlp"], "mesh": {"tp": 2}},
         {"models": ["mlp"], "mesh": {"dp": 2}},
-        {"models": ["mlp"], "params": {"compute_flops": True}},
+        {"models": ["mlp"], "mesh": {"dp": 2, "tp": 2}},
         {"models": ["lr"], "mesh": {"dp": 2}},
     ],
 )
 def test_unported_parts_raise_not_implemented(tmp_path, kwargs):
-    """Parts of `train` still to port (ROADMAP.md Queue 1): the tensor- and
-    data-parallel meshes (neural training and LR's sharded sweep) and the
-    trainer's FLOP count."""
+    """Parts of `train` still to port (ROADMAP.md Queue 1 item 14): the
+    tensor- and data-parallel meshes (neural training and LR's sharded
+    sweep).  The trainer's FLOP count is ported
+    (tests/test_torch_flops.py)."""
     config = RunConfig(
         data=DataConfig(synthetic_rows=ROWS, **kwargs.get("data", {})),
         model=ModelConfig(params=dict(kwargs.get("params", {}), epochs=1)),
@@ -283,7 +286,7 @@ def test_gbt_and_mlp_run_matches_jax(tmp_path):
     lines are Spark's GBTClassificationModel ones."""
     params = {"epochs": 2, "num_rounds": 5, "hidden": (16,)}
     jax_out, port_out = tmp_path / "jax", tmp_path / "port"
-    jax_runner.run(
+    jax_outcome = jax_runner.run(
         JaxRunConfig(data=JaxDataConfig(synthetic_rows=ROWS),
                      model=JaxModelConfig(params=dict(params)), output_dir=str(jax_out)),
         models=["gbt", "mlp"],
@@ -294,7 +297,8 @@ def test_gbt_and_mlp_run_matches_jax(tmp_path):
         models=["gbt", "mlp"],
         device="cpu",
     )
-    assert set(outcome.report_paths) == {"result", "csv", "cv_csv", "timing"}
+    assert set(outcome.report_paths) == set(jax_outcome.report_paths)
+    assert set(outcome.report_paths) - {"charts"} == {"result", "csv", "cv_csv", "timing"}
     assert set(outcome.accuracies) == {"gbdt", "gbdt_cv", "mlp", "mlp_cv"}
     assert_same_report_structure(port_out, jax_out)
     text = (port_out / "result.txt").read_text()

@@ -131,16 +131,33 @@ def test_balanced_weights_are_the_jax_formula():
 
 @pytest.mark.parametrize(
     "option",
-    [dict(checkpoint_dir="/nonexistent", compute_flops=True),
+    [dict(checkpoint_dir="<tmp>", compute_flops=True),
      dict(early_stop_patience=2, compute_flops=True),
      dict(compute_flops=True), dict(save_every_epochs=1, compute_flops=True)],
 )
-def test_unported_options_raise(option):
+def test_unported_options_raise(option, tmp_path):
+    """``compute_flops`` is ported: with each option both packages record
+    the FLOP fields on the same runs (the plain run only) with the same
+    step count, and both refuse ``save_every_epochs`` without a
+    ``checkpoint_dir``."""
+    option = {k: str(tmp_path / "ck") if v == "<tmp>" else v for k, v in option.items()}
     x, y = _data(n=8)
+    cfg = dict(batch_size=4, epochs=2, **option)
     t = trainer.Trainer(Transformer1D(dtype="float32", **MODEL),
-                        trainer.TrainerConfig(**option), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.fit(x, y)
+                        trainer.TrainerConfig(**cfg), device="cpu")
+    jt = jax_trainer.Trainer(JaxTransformer1D(dtype=jnp.float32, **MODEL),
+                             jax_trainer.TrainerConfig(**cfg))
+    if "save_every_epochs" in option:
+        for fit in (t.fit, jt.fit):
+            with pytest.raises(ValueError, match="checkpoint_dir"):
+                fit(x, y)
+        return
+    got, want = t.fit(x, y).history, jt.fit(x, y).history
+    keys = ("program_flops", "program_flops_raw", "program_flops_steps")
+    assert [k in got for k in keys] == [k in want for k in keys]
+    if "program_flops" in want:
+        assert got["program_flops_steps"] == want["program_flops_steps"] == 4
+        assert got["program_flops"] == got["program_flops_raw"] * 4 > 0
 
 
 def test_trainer_config_fields_match_jax():
