@@ -216,10 +216,31 @@ exits nonzero without the final ``ok`` line:
     ``synthetic_raw_stream(5418)`` (1,083,600 lines, written once): all
     5,418 windows, the lane's CNN1D at or above a floor below har_tpu's,
     no launch;
-32. with ``--profile`` only: one DT, one RF and one transformer fit, one
+32. parallel_main: the parallel layer on a mesh of one rank (NCCL puts
+    one rank on one card).  ``cli train --dataset wisdm_raw --models
+    transformer --no-cv --distributed`` on a one-rank NCCL group in a
+    subprocess: result.txt equal to raw_main's (uids and timings masked),
+    K2 722; on a (1, 1) NCCL mesh with CUDA tensors,
+    ``Trainer(mesh=)``, ``Trainer(mesh=, zero1=True)``, a checkpointed
+    ``Trainer(mesh=)`` (snapshots gathered under NCCL, then a rerun that
+    restores the last: equal parameters, no launch),
+    ``make_dp_train_step``, ``make_gspmd_scan_fit`` (``DENSE_MLP_RULES`` /
+    ``TRANSFORMER_RULES``: K2 through ``local_map`` under DTensor) and
+    ``make_zero1_fit``, 21 steps each for a float32 MLP and the CLI
+    transformer against the single-device ``Trainer`` (losses within
+    1e-5 and 1e-2; K2 2 x 21 a route); ``ring_flash_attention`` on a
+    one-rank group against K2 alone (equal), ``Transformer1D(sp_axis=)``
+    at CLI widths on it against the unsharded module (equal; K2 once a
+    layer; head dim 12 refused by K2's check), then the hop bodies
+    (``ring_hop`` and the plain ring's ``plain_hop``) over 2, 4 and 8
+    sequence chunks at (512, 200, 4, 16) bf16 as a ring's ranks meet
+    them, against K2 over the whole sequence, the plain ring and float32
+    attention (within 1e-2 of the largest output), gradients of q, k, v
+    within 2e-2 of the largest; K2 exactly sp² a loop;
+33. with ``--profile`` only: one DT, one RF and one transformer fit, one
     default run, one parity run, one GBDT fit and a 2-epoch BiLSTM fit
     under torch.profiler, with K1's and K2's shares of the device time;
-33. the kernels line (K1's launches over every path that grows trees),
+34. the kernels line (K1's launches over every path that grows trees),
     a short ``summary`` line, then ``{"ok": true, "device": {...}}``.
 
 ``train --eda`` (host matplotlib, no kernel) is not driven here: the card's
@@ -239,6 +260,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import dataclasses
 import hashlib
 import io
 import json
@@ -3235,6 +3257,390 @@ def phase_traffic_main() -> dict:
     return dict(runs=runs, agree=agree, launches=launches, seconds=seconds)
 
 
+# --------------------------------------------------------------------------
+# parallel_main: the parallel layer on the card (a mesh of one rank)
+
+PARALLEL_EPOCHS = 7  # 3 steps an epoch: 21 steps a route
+PARALLEL_ROWS = 2048  # synthetic raw windows (70 % train: 1,434 rows)
+PARALLEL_MLP_ROWS = 1536
+PARALLEL_LOSS_RTOL = dict(mlp=1e-5, transformer=1e-2)
+RING_SHAPE = dict(b=512, t=200, h=4, d=16)
+RING_SPS = (2, 4, 8)
+# bf16 (rounded to bf16; both sides accumulate in f32): the largest
+# difference over the largest magnitude of the reference
+RING_RTOL = 1e-2  # outputs
+RING_GRAD_RTOL = 2e-2  # bf16 inputs' gradients against float32 full attention
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_cli() -> dict:
+    """``train --distributed`` on a one-rank NCCL group in a subprocess, at
+    the raw CLI's defaults: result.txt equals raw_main's (uids and
+    timings masked), K2 launched as the plain run launches it."""
+    out_dir = OUT / "parallel_cli"
+    argv = ["train", "--dataset", "wisdm_raw", "--models", "transformer", "--no-cv",
+            "--distributed", "--coordinator", f"127.0.0.1:{free_port()}",
+            "--num-processes", "1", "--process-id", "0", "--device", "cuda",
+            "--output-dir", str(out_dir)]
+    # the subprocess prints its K2 count after the CLI's own lines
+    code = (
+        "import json, runpy, sys\n"
+        "from har_tpu_torch.ops import flash_attention as fa\n"
+        f"sys.argv = ['har'] + {argv!r}\n"
+        "try:\n"
+        "    runpy.run_module('har_tpu_torch.cli', run_name='__main__')\n"
+        "finally:\n"
+        "    print(json.dumps({'flash_launches': fa.FLASH_LAUNCHES}), flush=True)\n"
+    )
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=ROOT, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"parallel_cli exited {proc.returncode}:\n{proc.stdout[-3000:]}"
+                             f"\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    launches = json.loads(lines[-1])["flash_launches"]
+    accuracies = json.loads(lines[-2])["accuracies"]
+    config = RunConfig(data=DataConfig(dataset="wisdm_raw"), model=ModelConfig(name="transformer"))
+    expected = expected_flash_launches(config)
+    plain = OUT / "raw_main" / "result.txt"
+    same = _uid_and_timing_masked(out_dir / "result.txt") == _uid_and_timing_masked(plain)
+    out = dict(seconds=seconds, launches=launches, expected_launches=expected,
+               accuracies=accuracies, result_equal=same)
+    emit("parallel_cli", **out)
+    if launches != expected or not same:
+        raise AssertionError(f"parallel_cli: {out}")
+    return out
+
+
+def _parallel_data(tag: str):
+    if tag == "mlp":
+        data = noisy_table(PARALLEL_MLP_ROWS, 64)
+        x = StandardScaler().fit(data.features).transform(data.features)
+        return np.asarray(x, np.float32), np.asarray(data.label, np.int32)
+    config = RunConfig(data=DataConfig(dataset="wisdm_raw", synthetic_rows=PARALLEL_ROWS),
+                       model=ModelConfig(name="transformer"))
+    train, _, _ = featurize(config, load_dataset(config), "cuda")
+    x = StandardScaler().fit(train.features).transform(np.asarray(train.features, np.float32))
+    return np.asarray(x, np.float32), np.asarray(train.label, np.int32)
+
+
+def _parallel_module(tag: str, in_features: int):
+    if tag == "mlp":
+        return build_model("mlp", 6, in_features=in_features, dtype="float32")
+    return Transformer1D(num_classes=6, in_features=in_features)  # CLI widths, bf16
+
+
+def parallel_routes(mesh, tag: str) -> dict:
+    """On the one-rank mesh: ``Trainer(mesh=)`` (the route ``train --dp
+    --tp`` reaches), ``Trainer(mesh=, zero1=True)`` and a checkpointed
+    ``Trainer(mesh=)`` fit (snapshots gathered under NCCL every 2
+    epochs, then a rerun that restores the last one), and the three
+    sharded factories, each ~21 steps from the single-device Trainer's
+    initial values, batches and dropout draws; losses at each epoch's end
+    against the Trainer's."""
+    from har_tpu_torch.parallel import (
+        DENSE_MLP_RULES,
+        TRANSFORMER_RULES,
+        make_dp_train_step,
+        make_gspmd_scan_fit,
+        make_zero1_fit,
+        match_partition_rules,
+        shard_params,
+    )
+    from har_tpu_torch.train.trainer import batch_iterator, make_optimizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, y = _parallel_data(tag)
+    cfg = TrainerConfig(epochs=PARALLEL_EPOCHS)
+    per_epoch = math.ceil(len(x) / cfg.batch_size)
+    steps = PARALLEL_EPOCHS * per_epoch
+    layers = 0 if tag == "mlp" else len(_parallel_module(tag, x.shape[-1]).blocks)
+    with launch_counts() as ref_launches:
+        t0 = time.perf_counter()
+        ref = Trainer(_parallel_module(tag, x.shape[-1]), cfg, device="cuda").fit(x, y, 6)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+    ref_params = {k: v.detach().clone() for k, v in ref.module.state_dict().items()}
+    rng = np.random.default_rng(cfg.seed)
+    idx = np.stack([i for _ in range(cfg.epochs) for i in batch_iterator(len(x), cfg.batch_size,
+                                                                           rng)])
+    x_dev = torch.from_numpy(x).cuda()
+    y_dev = torch.from_numpy(y).long().cuda()
+    idx_dev = torch.from_numpy(idx).cuda()
+    ckpt_dir = OUT / f"parallel_ckpt_{tag}"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    def fresh():
+        module = _parallel_module(tag, x.shape[-1])
+        module.reset_parameters(torch.Generator().manual_seed(cfg.seed))
+        module.cuda()
+        gens = {"dropout": torch.Generator(device="cuda").manual_seed(cfg.seed),
+                "augment": torch.Generator(device="cuda").manual_seed(cfg.seed + 0x9E3779B9)}
+        return module, gens
+
+    def epoch_ends(step_losses):
+        return torch.stack([torch.as_tensor(v).float() for v in step_losses])[
+            per_epoch - 1::per_epoch]
+
+    def trainer_fit(**kw):
+        config = dataclasses.replace(cfg, **kw.pop("cfg", {}))
+        return Trainer(_parallel_module(tag, x.shape[-1]), config, device="cuda", mesh=mesh,
+                       **kw).fit(x, y, 6)
+
+    def param_diff(module):
+        return max(float((v.float() - ref_params[k].float()).abs().max())
+                   for k, v in module.state_dict().items())
+
+    def trainer_route():
+        model = trainer_fit()
+        return model.history["loss"], dict(max_param_abs_diff=param_diff(model.module))
+
+    def trainer_zero1_route():
+        model = trainer_fit(zero1=True)
+        if model.history.get("zero1_shards") != 1:
+            raise AssertionError(f"zero1 shards {model.history.get('zero1_shards')}")
+        return model.history["loss"], dict(max_param_abs_diff=param_diff(model.module))
+
+    def trainer_checkpoint_route():
+        ckpt = dict(checkpoint_dir=str(ckpt_dir), save_every_epochs=2)
+        first = trainer_fit(cfg=ckpt)
+        before = flash_ops.FLASH_LAUNCHES
+        again = trainer_fit(cfg=ckpt)  # restores epoch 7, trains nothing
+        extra = dict(
+            max_param_abs_diff=param_diff(first.module),
+            resumed_from_epoch=again.history["resumed_from_epoch"],
+            rerun_launches=flash_ops.FLASH_LAUNCHES - before,
+            rerun_max_param_abs_diff=max(
+                float((v.float() - first.module.state_dict()[k].float()).abs().max())
+                for k, v in again.module.state_dict().items()),
+        )
+        if (extra["resumed_from_epoch"] != cfg.epochs or extra["rerun_launches"]
+                or extra["rerun_max_param_abs_diff"] != 0.0):
+            raise AssertionError(f"parallel {tag} checkpoint rerun: {extra}")
+        return first.history["loss"], extra
+
+    def dp_route():
+        module, gens = fresh()
+        params = dict(module.named_parameters())
+        step = make_dp_train_step(
+            lambda p, xb, yb, mask: (
+                (torch.nn.functional.cross_entropy(
+                    module(xb, train=True, generator=gens["dropout"]), yb, reduction="none")
+                 * mask).sum(), mask.sum()),
+            make_optimizer(cfg, params.values(), steps), mesh)
+        module.train()
+        return epoch_ends([step(params, x_dev[i], y_dev[i], torch.ones(len(i), device="cuda"))
+                           for i in idx_dev]), {}
+
+    def tp_route():
+        module, gens = fresh()
+        table = DENSE_MLP_RULES if tag == "mlp" else TRANSFORMER_RULES
+        shard_params(module, mesh, match_partition_rules(table, module))
+        fit = make_gspmd_scan_fit(module, make_optimizer(cfg, module.parameters(), steps),
+                                  mesh, generators=gens)
+        return epoch_ends(fit(x_dev, y_dev, idx_dev)), {}
+
+    def zero1_route():
+        module, gens = fresh()
+        fit, init = make_zero1_fit(module, make_optimizer(cfg, module.parameters(), steps),
+                                   mesh, generators=gens)
+        losses = fit(x_dev, y_dev, idx_dev)
+        if init().local != init().dpad:
+            raise AssertionError("a one-rank zero1 slice is the whole vector")
+        return epoch_ends(losses), {}
+
+    out = dict(steps=steps, ref_fit_s=ref_s, ref_launches=ref_launches["flash_attention"],
+               expected_launches=layers * steps, routes={})
+    routes = (("trainer", trainer_route), ("trainer_zero1", trainer_zero1_route),
+              ("trainer_checkpoint", trainer_checkpoint_route), ("dp", dp_route),
+              ("tp", tp_route), ("zero1", zero1_route))
+    for name, route in routes:
+        with launch_counts() as launches:
+            t0 = time.perf_counter()
+            losses, extra = route()
+            got = torch.as_tensor(losses).float().cpu().numpy()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        want = np.asarray(ref.history["loss"], np.float32)
+        rel = float(np.max(np.abs(got - want) / np.abs(want)))
+        out["routes"][name] = dict(seconds=seconds, launches=launches["flash_attention"],
+                                   max_loss_rel_diff=rel, finite=bool(np.isfinite(got).all()),
+                                   **extra)
+        if not (got.shape == want.shape and rel <= PARALLEL_LOSS_RTOL[tag]
+                and out["routes"][name]["finite"]):
+            raise AssertionError(f"parallel {tag} {name}: losses {got} vs {want}")
+        if launches["flash_attention"] != layers * steps or launches["hist_rows"] != 0:
+            raise AssertionError(f"parallel {tag} {name}: launches {launches}")
+    if out["ref_launches"] != layers * steps:
+        raise AssertionError(f"parallel {tag} Trainer: launches {out['ref_launches']}")
+    emit(f"parallel_{tag}", **out)
+    return out
+
+
+def _chunks(z, sp):
+    t = z.shape[1] // sp
+    return [z[:, i * t:(i + 1) * t] for i in range(sp)]
+
+
+def parallel_ring(group) -> dict:
+    """``ring_flash_attention`` on the one-rank sp group against K2 alone,
+    then both hop bodies driven over sp chunks as a ring's ranks meet them
+    (rank r meets chunk (r - hop) mod sp), against K2 over the whole
+    sequence, the plain ring and float32 full attention; gradients of q,
+    k, v through the driven hops against full attention's."""
+    from har_tpu_torch.parallel.ring_attention import (
+        flash_start,
+        full_attention,
+        plain_finish,
+        plain_hop,
+        plain_start,
+        ring_flash_attention,
+        ring_hop,
+    )
+
+    s = RING_SHAPE
+    q, k, v = qkv_inputs(s["b"], s["t"], s["h"], s["d"], torch.bfloat16, seed=7)
+    out = dict(shape=s, by_sp={})
+    with launch_counts() as one_rank:
+        t0 = time.perf_counter()
+        ring1 = ring_flash_attention(q, k, v, group)
+        torch.cuda.synchronize()
+        out["one_rank_ms"] = (time.perf_counter() - t0) * 1e3
+    with launch_counts():  # a comparison launch: not the path's
+        alone = flash_ops.flash_attention(q, k, v)
+    out["one_rank_launches"] = one_rank["flash_attention"]
+    out["one_rank_max_abs_diff"] = float((ring1.float() - alone.float()).abs().max())
+    if out["one_rank_launches"] != 1 or out["one_rank_max_abs_diff"] != 0.0:
+        raise AssertionError(f"ring on one rank != K2 alone: {out}")
+    with launch_counts():
+        whole = flash_ops.flash_attention(q, k, v).float()
+    qf, kf, vf = (z.detach().float().requires_grad_() for z in (q, k, v))
+    full = full_attention(qf, kf, vf)
+    full_grads = torch.autograd.grad((full ** 2).sum(), (qf, kf, vf))
+    hops_total = 0
+    for sp in RING_SPS:
+        ql, kl, vl = (z.detach().clone().requires_grad_() for z in (q, k, v))
+        qc, kc, vc = (_chunks(z, sp) for z in (ql, kl, vl))
+        with launch_counts() as launches:
+            t0 = time.perf_counter()
+            flash_blocks, plain_blocks = [], []
+            for r in range(sp):
+                acc = flash_start(qc[r])
+                state = plain_start(qc[r])
+                for hop in range(sp):
+                    c = (r - hop) % sp
+                    acc = ring_hop(qc[r], kc[c], vc[c], *acc)
+                    with torch.no_grad():
+                        state = plain_hop(qc[r], kc[c], vc[c], state)
+                flash_blocks.append(acc[0])
+                plain_blocks.append(plain_finish(state, torch.float32))
+            ring = torch.cat(flash_blocks, 1)
+            torch.cuda.synchronize()
+            fwd_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            grads = torch.autograd.grad((ring ** 2).sum(), (ql, kl, vl))
+            torch.cuda.synchronize()
+            bwd_ms = (time.perf_counter() - t0) * 1e3
+        plain = torch.cat(plain_blocks, 1)
+        ring = ring.detach()
+        scale = float(full.detach().abs().max())
+        row = dict(
+            t_local=s["t"] // sp, hops=sp * sp, launches=launches["flash_attention"],
+            forward_ms=fwd_ms, backward_ms=bwd_ms,
+            max_abs_diff_k2_whole=float((ring.to(torch.bfloat16).float() - whole).abs().max()),
+            max_abs_diff_plain_ring=float((ring - plain).abs().max()),
+            max_abs_diff_full_f32=float((ring - full.detach()).abs().max()),
+            max_grad_abs_diff=[float((g.float() - w).abs().max())
+                               for g, w in zip(grads, full_grads)],
+            max_abs_ref=scale, max_abs_ref_grad=[float(w.abs().max()) for w in full_grads],
+        )
+        out["by_sp"][sp] = row
+        hops_total += launches["flash_attention"]
+        emit(f"parallel_ring_sp{sp}", **row)
+        if row["launches"] != sp * sp:
+            raise AssertionError(f"ring sp={sp}: {row['launches']} launches, not {sp * sp}")
+        if max(row["max_abs_diff_k2_whole"], row["max_abs_diff_plain_ring"],
+               row["max_abs_diff_full_f32"]) > RING_RTOL * scale:
+            raise AssertionError(f"ring sp={sp} disagrees: {row}")
+        if any(d > RING_GRAD_RTOL * m
+               for d, m in zip(row["max_grad_abs_diff"], row["max_abs_ref_grad"])):
+            raise AssertionError(f"ring sp={sp} gradients disagree: {row}")
+    # Transformer1D(sp_axis=) at CLI widths on the one-rank group: one ring
+    # (one K2 hop) a layer, equal to the unsharded module; a head dim K2
+    # cannot take is K2's error, as without sp_axis
+    x = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(s["b"], s["t"], 3)).astype(np.float32)).cuda()
+    whole_model = Transformer1D(num_classes=6).cuda().eval()
+    sp_model = Transformer1D(num_classes=6, sp_axis=group).cuda().eval()
+    sp_model.load_state_dict(whole_model.state_dict())
+    with torch.no_grad():
+        with launch_counts() as sp_launches:
+            sp_logits = sp_model(x)
+            torch.cuda.synchronize()
+        with launch_counts():  # the comparison's launches: not the path's
+            whole_logits = whole_model(x)
+    try:
+        Transformer1D(num_classes=6, embed_dim=24, num_heads=2, sp_axis=group).cuda()(x)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    out["sp_transformer"] = dict(
+        launches=sp_launches["flash_attention"], expected=len(sp_model.blocks),
+        max_abs_diff=float((sp_logits - whole_logits).abs().max()),
+        head_dim_12=refused)
+    emit("parallel_sp_transformer", **out["sp_transformer"])
+    if (out["sp_transformer"]["launches"] != len(sp_model.blocks)
+            or out["sp_transformer"]["max_abs_diff"] != 0.0
+            or not refused or "multiple of 8" not in refused):
+        raise AssertionError(f"Transformer1D(sp_axis=) on one rank: {out['sp_transformer']}")
+    out["launches"] = out["one_rank_launches"] + hops_total + out["sp_transformer"]["launches"]
+    return out
+
+
+def phase_parallel_main() -> dict:
+    """The parallel layer on the card: the CLI on a one-rank NCCL group,
+    the sharded factories on a (1, 1) NCCL mesh with CUDA tensors (K2
+    through local_map under DTensor), and the ring's hop loop."""
+    import torch.distributed as dist
+
+    from har_tpu_torch.parallel import create_mesh
+
+    t0 = time.perf_counter()
+    cli_run = parallel_cli()
+    if dist.is_initialized():
+        raise AssertionError("a process group is already running")
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = create_mesh(dp=1, tp=1, device="cuda")
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}, not nccl")
+        routes = {tag: parallel_routes(mesh, tag) for tag in ("mlp", "transformer")}
+        ring = parallel_ring(mesh.get_group("tp"))
+    finally:
+        dist.destroy_process_group()
+    launches = (cli_run["launches"]
+                + sum(r["launches"] for r in routes["transformer"]["routes"].values())
+                + routes["transformer"]["ref_launches"] + ring["launches"])
+    seconds = time.perf_counter() - t0
+    emit("parallel_main", seconds=seconds, nvidia_smi=nvidia_smi(), launches=launches,
+         cli_seconds=cli_run["seconds"],
+         route_seconds={tag: {n: r["seconds"] for n, r in routes[tag]["routes"].items()}
+                        for tag in routes},
+         ring_launches=ring["launches"])
+    return dict(seconds=seconds, cli=cli_run, routes=routes, ring=ring,
+                launches=dict(flash_attention=launches))
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
                  checked: dict, shape: str, library: str = "library_ms",
                  **extra) -> dict:
@@ -3294,6 +3700,7 @@ def main(argv: list[str]) -> int:
     ucihar_lane = phase_ucihar_parity_lane(ucihar_root)
     sweep_main = phase_sweep_main()
     raw_lane_main = phase_raw_lane_main()
+    parallel_main = phase_parallel_main()
     if "--profile" in argv:
         phase_profile()
     flash_launches = {
@@ -3303,7 +3710,8 @@ def main(argv: list[str]) -> int:
                            ("export_packed", export_packed),
                            ("lifecycle_main", lifecycle["scoring"]),
                            ("serving_main", serving_main), ("fleet_main", fleet_main),
-                           ("adapt_main", adapt_main), ("traffic_main", traffic_main))
+                           ("adapt_main", adapt_main), ("traffic_main", traffic_main),
+                           ("parallel_main", parallel_main))
     }
     hist_rows_launches = {
         name: path["launches"]["hist_rows"]
@@ -3433,6 +3841,15 @@ def main(argv: list[str]) -> int:
          export_packed=dict(seconds=export_packed["seconds"],
                             accuracy=export_packed["accuracy"],
                             checks=export_packed["checks"]),
+         parallel_main=dict(
+             seconds=parallel_main["seconds"], launches=parallel_main["launches"],
+             cli={k: parallel_main["cli"][k] for k in ("seconds", "launches", "result_equal")},
+             routes={tag: {n: {k: r[k] for k in ("seconds", "launches", "max_loss_rel_diff")}
+                           for n, r in parallel_main["routes"][tag]["routes"].items()}
+                     for tag in parallel_main["routes"]},
+             ring={sp: {k: r[k] for k in ("launches", "forward_ms", "max_abs_diff_k2_whole",
+                                          "max_grad_abs_diff")}
+                   for sp, r in parallel_main["ring"]["by_sp"].items()}),
          ucihar_split_candidates_s=ucihar_main["split_candidates_s"],
          ucihar_parity_lane_result=ucihar_lane["lane"], raw_lane_result=raw_lane_main["lane"])
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -130,6 +130,24 @@ def _parser() -> argparse.ArgumentParser:
     t.add_argument("--trace-dir", default=None,
                    help="write a TensorBoard-loadable torch.profiler trace "
                         "of the whole run to this directory")
+    t.add_argument("--distributed", action="store_true",
+                   help="multi-process run, one rank per device: join the "
+                        "process group before any device use (every rank "
+                        "runs the same command; the flags below, or "
+                        "torchrun's environment)")
+    t.add_argument("--coordinator", default=None,
+                   help="coordinator host:port (with --distributed)")
+    t.add_argument("--num-processes", type=int, default=None,
+                   help="total process count (with --distributed)")
+    t.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank (with --distributed)")
+    t.add_argument("--dp", type=int, default=1,
+                   help="data-parallel mesh axis for neural training and "
+                        "LR's CV sweep (-1 = every rank; the batch is "
+                        "sharded over dp, gradients all-reduced)")
+    t.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel mesh axis (Megatron placements "
+                        "over hidden dims, as DTensors)")
     t.add_argument("--output-dir", default="main_result")
     t.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
@@ -231,9 +249,10 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("--seed", type=int, default=2018)
     s.add_argument("--no-cv", action="store_true")
     s.add_argument("--dp", type=int, default=1,
-                   help="data-parallel mesh axis (not ported: only 1)")
+                   help="data-parallel mesh axis (LR's CV sweep and the "
+                        "neural trainers; dp x tp ranks, torchrun)")
     s.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel mesh axis (not ported: only 1)")
+                   help="tensor-parallel mesh axis of the neural trainers")
     s.add_argument("--output-dir", default="main_result")
     s.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
@@ -1107,6 +1126,35 @@ def main(argv=None) -> int:
     from har_tpu_torch.runner import canonical_model_name, run
     from har_tpu_torch.utils.profiling import trace
 
+    device = args.device
+    if args.distributed:
+        # before the first device use, on every rank
+        import os
+
+        import torch.distributed as dist
+
+        from har_tpu_torch.parallel.mesh import initialize_distributed
+
+        device = str(initialize_distributed(
+            coordinator_address=args.coordinator,
+            num_processes=args.num_processes,
+            process_id=args.process_id,
+            device=args.device,
+        ))
+        # every rank writes its report and saved models, rank r > 0 under
+        # <dir>/rank_<r>, so ranks that share a directory never write one
+        # file together (the training snapshots stay shared: rank 0 writes)
+        if dist.get_rank() > 0:
+            sub = f"rank_{dist.get_rank()}"
+            args.output_dir = os.path.join(args.output_dir, sub)
+            if args.save_models_dir:
+                args.save_models_dir = os.path.join(args.save_models_dir, sub)
+    elif any(getattr(args, k) is not None
+             for k in ("coordinator", "num_processes", "process_id")):
+        raise SystemExit(
+            "--coordinator/--num-processes/--process-id require --distributed"
+        )
+
     models = [canonical_model_name(m) for m in args.models]
     neural_params = {
         k: getattr(args, k)
@@ -1125,12 +1173,19 @@ def main(argv=None) -> int:
             split_method=args.split_method,
         ),
         model=ModelConfig(name=models[0], params=neural_params),
+        mesh=MeshConfig(dp=args.dp, tp=args.tp),
         tuning=TuningConfig(selection_metric=args.cv_metric),
         output_dir=args.output_dir,
     )
-    with trace(args.trace_dir, args.device):
-        outcome = run(config, models=models, with_cv=not args.no_cv, device=args.device,
-                      save_models_dir=args.save_models_dir, with_eda=args.eda)
+    try:
+        with trace(args.trace_dir, device):
+            outcome = run(config, models=models, with_cv=not args.no_cv, device=device,
+                          save_models_dir=args.save_models_dir, with_eda=args.eda)
+    finally:
+        if args.distributed:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     print(json.dumps({"accuracies": outcome.accuracies,
                       "artifacts": outcome.report_paths}))
     return 0

@@ -369,14 +369,37 @@ def transformer_params_to_flax(state_dict, patch_size: int = 1,
     return tree
 
 
-def neural_params_to_flax(model_name: str, module) -> dict:
-    """A neural module's parameters as the flax tree of its family."""
-    state_dict = module.state_dict()
+def neural_params_to_flax(model_name: str, module, state_dict=None) -> dict:
+    """A neural module's parameters (or ``state_dict``, values of the
+    module's shapes) as the flax tree of its family."""
+    state_dict = module.state_dict() if state_dict is None else state_dict
     if model_name == "transformer":
         return transformer_params_to_flax(
             state_dict, patch_size=module.patch_size, scan_layers=module.scan_layers
         )
     return _TO_FLAX[model_name](state_dict)
+
+
+def flax_leaf_names(model_name: str, module) -> dict[str, tuple[str, int]]:
+    """Each ``state_dict`` name of a neural module -> the flax leaf that
+    holds its values (its ``/``-joined path) and that leaf's ndim: the
+    family's conversion run on tensors that each hold their own index
+    (a ``scan_layers`` block's leaves share one stacked flax leaf)."""
+    names = list(module.state_dict())
+    marked = {name: torch.full(tuple(value.shape), float(i))
+              for i, (name, value) in enumerate(module.state_dict().items())}
+    out: dict = {}
+
+    def walk(tree, path):
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                walk(value, path + (key,))
+            else:
+                for i in np.unique(value):
+                    out[names[int(i)]] = ("/".join(path + (key,)), value.ndim)
+
+    walk(neural_params_to_flax(model_name, module, marked), ())
+    return out
 
 
 def neural_params_from_flax(model_name: str, tree) -> dict:

@@ -26,8 +26,12 @@ steps depends on the order of float arithmetic, so the port agrees with
 it within a tolerance (tests/test_torch_logistic_regression.py), not bit
 for bit.
 
-Not ported: the mesh-sharded sweep (ROADMAP.md Queue 1 item 14) and the
-bit-exact MLlib replay lane (item 4, exact lane).
+With a ``mesh`` (``parallel.mesh``), ``cv_scores`` splits the lanes of
+its (reg × fold) sweep over the data ranks, padded to a multiple of the
+shard count by repeating the last reg, and all-gathers the score matrix,
+so every rank returns the same scores.
+
+Not ported here: the bit-exact MLlib replay lane (item 4, exact lane).
 """
 
 from __future__ import annotations
@@ -42,6 +46,8 @@ from har_tpu_torch.device import resolve_device
 from har_tpu_torch.features.wisdm_pipeline import FeatureSet
 from har_tpu_torch.models.base import Predictions
 from har_tpu_torch.models.lbfgs import LBFGS
+from har_tpu_torch.parallel.data_parallel import gather_data_shards
+from har_tpu_torch.parallel.mesh import data_shard_count, linear_data_shard_index
 
 # in-program validation metrics of the vectorized CV sweep; the reference's
 # quirky MAE over label indices included
@@ -287,8 +293,8 @@ class LogisticRegression:
     # by n / (num_classes * count(class))
     class_weight: str | None = None
     num_classes: int | None = None  # inferred from labels when None
-    # the JAX package shards cv_scores' grid axis over a mesh; that waits
-    # for the parallel layer here
+    # a parallel.mesh mesh of ranks: cv_scores splits the grid's lanes over
+    # its data axes and gathers the scores; fit() ignores it
     mesh: object | None = dataclasses.field(default=None, compare=False, repr=False)
     device: str = "cuda"
 
@@ -309,11 +315,6 @@ class LogisticRegression:
             or self.class_weight is not None
         ):
             return None
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "the mesh-sharded CV sweep is not ported to har_tpu_torch "
-                "yet: ROADMAP.md Queue 1 item 14 (the parallel layer)"
-            )
         device = resolve_device(self.device)
         num_classes = self.num_classes or int(data.label.max()) + 1
         x = torch.as_tensor(data.features, dtype=torch.float32).to(device)
@@ -330,16 +331,26 @@ class LogisticRegression:
             by_enp.setdefault(enp, []).append(i)
         with full_f32():
             for enp, idxs in by_enp.items():
-                regs = torch.tensor(
-                    [float(grid[i].get("reg_param", self.reg_param)) for i in idxs],
-                    dtype=torch.float32, device=device,
-                )
+                reg_vals = [float(grid[i].get("reg_param", self.reg_param)) for i in idxs]
+                lanes = slice(None)
+                if self.mesh is not None:
+                    # this data shard's lanes of the (reg × fold) sweep; the
+                    # padding lanes repeat the last reg and are dropped
+                    shards = data_shard_count(self.mesh)
+                    reg_vals += reg_vals[-1:] * ((-len(reg_vals)) % shards)
+                    per = len(reg_vals) // shards
+                    s = linear_data_shard_index(self.mesh)
+                    lanes = slice(s * per, (s + 1) * per)
+                regs = torch.tensor(reg_vals[lanes], dtype=torch.float32, device=device)
                 out = _cv_scores_group(
                     x, y, tidx.long(), tw, vidx.long(), vw, regs, num_classes,
                     self.max_iter, enp, self.fit_intercept, self.standardize,
                     metric,
                 )
-                scores[idxs] = out.cpu().numpy().astype(np.float64)
+                if self.mesh is not None:
+                    # every rank returns the whole score matrix
+                    out = gather_data_shards(out, self.mesh)
+                scores[idxs] = out[: len(idxs)].cpu().numpy().astype(np.float64)
         return scores
 
     def fit(self, data: FeatureSet) -> "LogisticRegressionModel":

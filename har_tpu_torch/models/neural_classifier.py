@@ -35,6 +35,8 @@ class NeuralClassifier:
     # for raw (B, T, 3) window models, None / "none" for no augmentation
     augment: str | None = None
     device: str = "cuda"
+    # a parallel.mesh mesh of ranks (train.Trainer(mesh=)), or None
+    mesh: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     def copy_with(self, **params) -> "NeuralClassifier":
         """A copy with ``params`` set: the estimator's own fields directly,
@@ -58,7 +60,7 @@ class NeuralClassifier:
             in_features=x.shape[-1], **self.model_kwargs
         )
         trainer = Trainer(module, self.config, device=self.device,
-                          augment=build_augment(self.augment))
+                          augment=build_augment(self.augment), mesh=self.mesh)
         trained = trainer.fit(x, y, num_classes=num_classes)
         return NeuralClassifierModel(
             inner=trained, scaler=scaler, num_classes=num_classes

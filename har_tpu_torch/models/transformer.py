@@ -28,8 +28,19 @@ block-diagonal sequence after the positions are added, zero-pads the batch
 to the pack and slices the padding back off after per-window pooling.
 ``scan_layers`` names the JAX package's stacked parameter layout
 (``convert.transformer_params_from_flax`` unstacks it); the port runs its
-encoder stack as a Python loop either way.  ``sp_axis`` (sequence
-parallelism) waits for the parallel layer.
+encoder stack as a Python loop either way.
+
+``sp_axis`` names the mesh axis (``parallel.mesh.use_mesh``) or gives the
+process group over which the sequence is sharded: each rank holds a
+(B, T/sp, C) block of every window.  The positions of a block start at
+its rank's offset, rank × T_local; each attention is a ring over the group
+(``parallel.ring_attention``), and the pooled mean is the mean of the
+ranks' means (equal blocks), so every rank returns the whole logits.  The
+ring's route follows ``use_flash`` as the unsharded attention does, not
+the JAX package's TPU rule: with ``use_flash`` None (or True) each hop
+launches K2 (``ring_flash_attention``), whose own check refuses a head dim
+it cannot take; ``use_flash=False`` is the plain ring.  ``window_pack``
+and ``sp_axis`` are mutually exclusive.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -45,7 +57,12 @@ from har_tpu_torch.ops.flash_attention import (
     segment_attention,
     segment_flash_attention,
 )
-from har_tpu_torch.parallel.ring_attention import full_attention
+from har_tpu_torch.parallel.mesh import resolve_group
+from har_tpu_torch.parallel.ring_attention import (
+    full_attention,
+    ring_attention,
+    ring_flash_attention,
+)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -123,7 +140,7 @@ class EncoderBlock(nn.Module):
     tokens), output projection, GELU MLP of width 4·E."""
 
     def __init__(self, embed_dim: int, num_heads: int, dtype: torch.dtype,
-                 use_flash: bool | None = None):
+                 use_flash: bool | None = None, sp_axis=None):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(
@@ -131,6 +148,7 @@ class EncoderBlock(nn.Module):
             )
         self.num_heads = num_heads
         self.use_flash = use_flash
+        self.sp_axis = sp_axis
         self.norm1 = LayerNorm(embed_dim, dtype)
         self.qkv = Dense(embed_dim, 3 * embed_dim, dtype)
         self.proj = Dense(embed_dim, embed_dim, dtype)
@@ -149,6 +167,10 @@ class EncoderBlock(nn.Module):
         flash = self.use_flash is not False
         if seg is not None:
             attn = (segment_flash_attention if flash else segment_attention)(q, k, v, seg)
+        elif self.sp_axis is not None:
+            attn = (ring_flash_attention if flash else ring_attention)(
+                q, k, v, self.sp_axis
+            )
         else:
             attn = (flash_attention if flash else full_attention)(q, k, v)
         x = x + self.proj(attn.reshape(b, t, e))
@@ -176,11 +198,10 @@ class Transformer1D(nn.Module):
         in_features: int = 3,
     ):
         super().__init__()
-        if sp_axis is not None:
-            raise NotImplementedError(
-                "sequence-parallel attention (sp_axis) is not ported to "
-                "har_tpu_torch yet: ROADMAP.md Queue 1 item 14 (Slice 6, "
-                "the parallel layer)"
+        if window_pack > 1 and sp_axis is not None:
+            raise ValueError(
+                "window_pack and sp_axis are mutually exclusive: the ring "
+                "sequence-shards one long window, packing glues many short ones"
             )
         if patch_size < 1 or window_pack < 1:
             raise ValueError(
@@ -194,12 +215,13 @@ class Transformer1D(nn.Module):
         self.patch_size = patch_size
         self.window_pack = window_pack
         self.scan_layers = scan_layers
+        self.sp_axis = sp_axis
         if patch_size > 1:
             self.patch_embed = Dense(patch_size * in_features, embed_dim, self.dtype)
         else:
             self.embed = Dense(in_features, embed_dim, self.dtype)
         self.blocks = nn.ModuleList(
-            EncoderBlock(embed_dim, num_heads, self.dtype, use_flash)
+            EncoderBlock(embed_dim, num_heads, self.dtype, use_flash, sp_axis)
             for _ in range(num_layers)
         )
         self.norm = LayerNorm(embed_dim, self.dtype)
@@ -228,7 +250,10 @@ class Transformer1D(nn.Module):
             x = self.embed(x)
         # positions are per window and added BEFORE packing, so a packed
         # window carries the encoding it would carry alone
-        x = x + sinusoidal_positions(t, self.embed_dim, device=x.device).to(self.dtype)
+        offset = 0.0
+        if self.sp_axis is not None:  # global position = rank × block length
+            offset = float(dist.get_rank(resolve_group(self.sp_axis)) * t)
+        x = x + sinusoidal_positions(t, self.embed_dim, offset, device=x.device).to(self.dtype)
         seg = None
         pack = self.window_pack
         if pack > 1:
@@ -246,9 +271,28 @@ class Transformer1D(nn.Module):
             pooled = pooled.reshape(-1, self.embed_dim)[:b]
         else:
             pooled = x.mean(1)
+            if self.sp_axis is not None:
+                # local mean → global mean (equal blocks on the ring)
+                pooled = _SpMean.apply(pooled, resolve_group(self.sp_axis))
         if train and self.dropout_rate > 0:
             pooled = dropout(pooled, self.dropout_rate, generator)
         return self.head(pooled).float()
+
+
+class _SpMean(torch.autograd.Function):
+    """The mean of every rank's ``x`` over ``group``; each rank's share of
+    the cotangent is its own 1/n (every rank holds the same loss)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.n = dist.get_world_size(group)
+        out = x.float().clone()
+        dist.all_reduce(out, group=group)
+        return (out / ctx.n).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
 
 
 def dropout(x, rate: float, generator: torch.Generator | None):

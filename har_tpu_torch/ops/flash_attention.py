@@ -27,6 +27,11 @@ forward the JAX package writes in Pallas.  Public functions keep the JAX
   reference's is XLA: a recompute through :func:`attention_with_lse_plain`
   for T <= ``_BWD_FULL_T``, else :func:`chunked_attention_bwd`
   (O(T·block) memory), both including the cotangent of ``lse``.
+- On DTensors (a tensor-parallel step, ``parallel.tensor_parallel``) the
+  op runs on each rank's local tensors inside ``local_map``: a shard of
+  the batch or of the heads stays where it is, any other placement is
+  gathered to ``Replicate`` first, and on CUDA tensors the kernel
+  launches as on one device.
 - ``FLASH_LAUNCHES`` counts kernel launches, so a run can show that its
   attention went through the kernel.
 - The op's flop formula (4·B·H·T²·D) is registered with
@@ -384,9 +389,47 @@ def _flash_attention_fwd_flops(q_shape, k_shape, v_shape, *args, out_shape=None,
     return 4 * b * h * t * t * d
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _dtensor_fwd(q, k, v, with_lse: bool):
+    """The op on DTensors (a tensor-parallel step): each rank launches it
+    on its local rows or heads inside ``local_map``.  A mesh axis on which
+    q, k and v share a ``Shard`` of the batch (dim 0) or of the heads
+    (dim 2) keeps it; any other placement is redistributed to
+    ``Replicate`` first (the sequence and head dim must be whole).  The
+    backward is the op's own, on the local tensors."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    where = tuple(
+        pq if pq == pk == pv and pq in (Shard(0), Shard(2)) else Replicate()
+        for pq, pk, pv in zip(q.placements, k.placements, v.placements)
+    )
+    # lse is (B, H, T): the heads' shard moves to dim 1
+    lse_where = tuple(Shard(1) if p == Shard(2) else p for p in where)
+
+    def local(q, k, v):
+        return flash_attention_fwd(q, k, v, with_lse)
+
+    out_lse_where = lse_where if with_lse else tuple(Replicate() for _ in where)
+    return local_map(
+        local,
+        out_placements=(where, out_lse_where),
+        in_placements=(where, where, where),
+        device_mesh=q.device_mesh,
+        redistribute_inputs=True,
+    )(q, k, v)
+
+
 def flash_attention(q, k, v):
     """Fused attention, (B, T, H, D) layout, bidirectional."""
     _check(q, k, v)
+    if _is_dtensor(q):
+        return _dtensor_fwd(q, k, v, False)[0]
     return flash_attention_fwd(q, k, v, False)[0]
 
 
@@ -394,6 +437,8 @@ def flash_attention_with_lse(q, k, v):
     """Fused attention returning (out (B,T,H,D), lse (B,H,T) float32);
     ``lse[b,h,t] = log Σ_k exp(q·k/√d)``.  Gradients flow through both."""
     _check(q, k, v)
+    if _is_dtensor(q):
+        return _dtensor_fwd(q, k, v, True)
     return flash_attention_fwd(q, k, v, True)
 
 

@@ -118,9 +118,11 @@ def _known_params() -> set[str]:
     return known - {"device", "mesh"}
 
 
-def build_estimator(name: str, params: dict | None = None, device="cuda"):
+def build_estimator(name: str, params: dict | None = None, device="cuda", mesh=None):
     """The estimator for ``name``; each keeps only the knobs it has from
-    the shared ``params`` dict, and a knob no estimator has is an error."""
+    the shared ``params`` dict, and a knob no estimator has is an error.
+    ``mesh`` (``parallel.mesh``) reaches the neural trainers and LR's CV
+    sweep; the trees ignore it."""
     name = canonical_model_name(name)
     if name not in _ESTIMATORS and name not in _NEURAL:
         raise ValueError(f"unknown model {name!r}")
@@ -144,10 +146,13 @@ def build_estimator(name: str, params: dict | None = None, device="cuda"):
             model_kwargs={k: v for k, v in params.items() if k in fields},
             augment=augment,
             device=str(device),
+            mesh=mesh,
         )
     cls = _ESTIMATORS[name]
     fields = {f.name for f in dataclasses.fields(cls)}
     kwargs = {k: v for k, v in params.items() if k in fields}
+    if mesh is not None and "mesh" in fields:
+        kwargs["mesh"] = mesh
     return cls(**kwargs, device=str(device))
 
 
@@ -452,17 +457,27 @@ def _model_config(config: RunConfig, name: str) -> RunConfig:
     )
 
 
-def _refuse_unported_mesh(config: RunConfig, models) -> None:
-    """A dp/tp mesh reaches the neural trainers and LR's sharded sweep,
-    which wait for the parallel layer; the trees ignore it."""
-    if (config.mesh.dp, config.mesh.tp) != (1, 1) and any(
-        name in _NEURAL or name == "logistic_regression" for name in models
-    ):
-        raise NotImplementedError(
-            "data- and tensor-parallel neural training and the mesh-sharded "
-            "LR sweep are not ported to har_tpu_torch yet: ROADMAP.md Queue 1 "
-            "item 14 (the parallel layer)"
+def _mesh_from_config(config: RunConfig, device: torch.device):
+    """The mesh of ranks the config asks for, or None for one device.
+
+    ``MeshConfig.dp = -1`` takes every rank; ``dp × tp == 1`` returns
+    None, so a single-device run takes the plain path.  Otherwise
+    ``dp × tp`` must be the process group's world size (one rank per
+    device): start the ranks with ``--distributed`` or ``torchrun``.  The
+    neural trainers shard batches over dp and parameters over tp, LR's CV
+    sweep splits its lanes over dp, and the trees ignore the mesh."""
+    from har_tpu_torch.parallel import mesh as pmesh
+
+    world = pmesh.world_size()
+    dp, tp = config.mesh.shape(world)
+    if dp * tp == 1:
+        return None
+    if dp * tp != world:
+        raise ValueError(
+            f"mesh dp={dp} x tp={tp} needs {dp * tp} ranks but the process "
+            f"group has {world}: " + pmesh.RANK_HINT
         )
+    return pmesh.create_mesh(dp=dp, tp=tp, device=device)
 
 
 def _model_names(models) -> list[str]:
@@ -491,7 +506,8 @@ def sweep(
     models = _model_names(models)
     if not models or not fractions:
         raise ValueError("sweep needs at least one model and one fraction")
-    _refuse_unported_mesh(config, models)
+    mesh = _mesh_from_config(config, device)
+    on_mesh = {} if mesh is None else {"mesh": mesh}
     table = load_dataset(config)
     timer = StepTimer(device)
     rows: list[dict] = []
@@ -505,7 +521,7 @@ def sweep(
         split_name = f"{round(frac * 100)}-{round((1 - frac) * 100)}"
         for name in models:
             train, test = view_cache[modes[name]][:2]
-            est = build_estimator(name, config.model.params, device)
+            est = build_estimator(name, config.model.params, device, **on_mesh)
             jobs = [(name, est)]
             if with_cv and name in REFERENCE_GRIDS:
                 jobs.append((f"{name}_cv", CrossValidator(
@@ -577,10 +593,11 @@ def run(
     table's numeric columns under ``<output_dir>/plot``."""
     device = resolve_device(device)
     models = _model_names(models)
+    mesh = _mesh_from_config(config, device)
+    on_mesh = {} if mesh is None else {"mesh": mesh}
     estimators = [
-        build_estimator(name, config.model.params, device) for name in models
+        build_estimator(name, config.model.params, device, **on_mesh) for name in models
     ]
-    _refuse_unported_mesh(config, models)
     # every model's feature view, resolved before any work: it raises for a
     # model that cannot run on this dataset
     for name in models:

@@ -53,21 +53,57 @@ so for an MLP of widths 64→256→128→6 in float32 at batch 128 the port
 counts 34,144,256 and XLA 38,498,872 (a ratio of 0.887; both counted on
 the CPU: a count does not depend on the device).
 
-The ``dp``/``tp``/``zero1`` meshes wait for the parallel layer.
+``Trainer(mesh=...)`` trains over a ``(dp, tp)`` or ``(dp_dcn, dp, tp)``
+mesh of ranks (``parallel.mesh``), the port of the JAX trainer's
+``dp``/``tp``/``zero1`` branches.  Every rank runs the same fit on the
+whole data and schedule and steps on its columns of each batch; the loss
+sum, the weight sum and the gradients are summed over the data axes
+(``parallel.data_parallel``), so the update is the full batch's.  A mesh
+with ``tp`` > 1 makes the parameters DTensors placed as the JAX trainer
+places them, by ``dense_alternating_specs`` (``parallel.tensor_parallel``;
+gathered back whole at the end);
+``zero1=True`` shards AdamW's moments over the data axes
+(``parallel.zero1``).  The dropout and augmentation generators of data
+shard ``s`` are seeded from ``(seed, s)`` — shard 0 keeps the seed, so a
+mesh of one trains as one device — as the JAX trainer folds the step key
+with the shard index.  Snapshots are written by rank 0 and hold every
+shard's generator states; a zero1 snapshot holds the whole moments, and
+its own checkpoint slot.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from har_tpu_torch.device import resolve_device
+from har_tpu_torch.parallel.data_parallel import make_module_step
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole (a collective), or the tensor."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _copy_in(own: torch.Tensor, saved: torch.Tensor) -> None:
+    """``own[...] = saved`` where ``own`` may be a DTensor (its local
+    shard takes its part of the whole ``saved``)."""
+    if hasattr(own, "to_local"):
+        from torch.distributed.tensor import distribute_tensor
+
+        own.to_local().copy_(distribute_tensor(
+            saved.to(own.device), own.device_mesh, own.placements, src_data_rank=None
+        ).to_local())
+    else:
+        own.copy_(saved)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,7 +241,22 @@ def _should_snapshot(cfg: TrainerConfig, stopped: bool, epoch: int) -> bool:
 
 
 def _host(state: dict) -> dict:
-    return {k: v.detach().cpu().clone() for k, v in state.items()}
+    return {k: _whole(v.detach()).cpu().clone() for k, v in state.items()}
+
+
+def _load_params(module: nn.Module, state: dict) -> None:
+    with torch.no_grad():
+        own = module.state_dict()
+        for k, v in state.items():
+            _copy_in(own[k], v)
+
+
+def _shard_seed(seed: int, shard: int) -> int:
+    """The generators' seed of data shard ``shard``: ``seed`` itself for
+    shard 0, else a draw keyed by both."""
+    if shard == 0:
+        return seed
+    return int(np.random.SeedSequence([seed, shard]).generate_state(1, np.uint64)[0] >> 1)
 
 
 def warmup_cosine_decay_schedule(
@@ -239,7 +290,8 @@ class AdamW:
         u  ← (mu / (1−b1^(c+1))) / (√(nu / (1−b2^(c+1))) + eps) + wd·p
         p  ← p − schedule(c)·u
 
-    Gradients are divided by ``grad_scale`` first (the step's weight sum).
+    The step (``parallel.data_parallel.make_dp_train_step``) has divided
+    the gradients by the step's weight sum.
     """
 
     def __init__(self, params, schedule, weight_decay: float,
@@ -255,14 +307,15 @@ class AdamW:
     def state_dict(self) -> dict:
         """Host copies of the moments and the step count."""
         return {
-            "mu": [m.detach().cpu().clone() for m in self.mu],
-            "nu": [v.detach().cpu().clone() for v in self.nu],
+            "mu": [_whole(m.detach()).cpu().clone() for m in self.mu],
+            "nu": [_whole(v.detach()).cpu().clone() for v in self.nu],
             "count": self.count,
         }
 
     def load_state_dict(self, state: dict) -> None:
-        for own, saved in zip(self.mu + self.nu, state["mu"] + state["nu"]):
-            own.copy_(saved)
+        with torch.no_grad():
+            for own, saved in zip(self.mu + self.nu, state["mu"] + state["nu"]):
+                _copy_in(own, saved)
         self.count = int(state["count"])
 
     def zero_grad(self) -> None:
@@ -270,14 +323,14 @@ class AdamW:
             p.grad = None
 
     @torch.no_grad()
-    def step(self, grad_scale: torch.Tensor | float = 1.0) -> None:
+    def step(self) -> None:
         lr = self.schedule(self.count)
         self.count += 1
         b1, b2 = self.b1, self.b2
         bc1 = float(1 - np.float32(b1) ** np.float32(self.count))
         bc2 = float(1 - np.float32(b2) ** np.float32(self.count))
         for p, mu, nu in zip(self.params, self.mu, self.nu):
-            g = p.grad / grad_scale
+            g = p.grad
             mu.copy_((1 - b1) * g + b1 * mu)
             nu.copy_((1 - b2) * (g * g) + b2 * nu)
             update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
@@ -351,7 +404,8 @@ _AUGMENT_SEED_OFFSET = 0x9E3779B9
 
 
 class Trainer:
-    """Fits a module on (x, y) arrays on one device; ``scan=False``
+    """Fits a module on (x, y) arrays on one device, or with ``mesh`` on
+    every rank of a mesh (see the module's note); ``scan=False``
     streams the batches from the host instead of staging the data on the
     device; ``augment(generator, xb) -> xb`` transforms each training
     batch inside the step;
@@ -364,7 +418,7 @@ class Trainer:
                  device: str | torch.device = "cuda",
                  augment: Callable | None = None,
                  optimizer_factory: Callable | None = None,
-                 scan: bool = True):
+                 scan: bool = True, mesh=None, zero1: bool = False):
         self.module = module
         self.config = config or TrainerConfig()
         self.device = resolve_device(device)
@@ -372,6 +426,19 @@ class Trainer:
         self.optimizer_factory = optimizer_factory
         # staged (the whole dataset and schedule on the device) or streamed
         self.scan = scan
+        self.mesh = mesh
+        # zero1 shards AdamW's moments 1/N over the data axes
+        self.zero1 = zero1
+        if zero1 and not scan:
+            raise ValueError(
+                "zero1=True requires scan=True: the sharded-optimizer fit is "
+                "the staged one"
+            )
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(
+                f"the mesh is over {mesh.device_type} ranks but the trainer's "
+                f"device is {self.device}"
+            )
 
     def _open_checkpointer(self, cfg, x, y, warm_start_digest):
         """One slot derivation for the chunked and the early-stop run."""
@@ -383,6 +450,16 @@ class Trainer:
         if self.optimizer_factory is not None:
             tag = getattr(self.optimizer_factory, "fingerprint_tag",
                           getattr(self.optimizer_factory, "__qualname__", "custom"))
+        if self.zero1:
+            # a zero1 snapshot holds the flat moments: a slot of its own
+            tag = f"zero1:{tag or ''}"
+        if self.mesh is not None:
+            from har_tpu_torch.parallel.mesh import mesh_shape
+
+            # a mesh snapshot holds every data shard's generators
+            tag = f"mesh:{sorted(mesh_shape(self.mesh).items())}:{tag or ''}"
+            # every rank reads the snapshot rank 0 wrote in an earlier fit
+            dist.barrier()
         return TrainCheckpointer(os.path.join(
             cfg.checkpoint_dir,
             _run_fingerprint(cfg, x, y, self.module, augment=self.augment,
@@ -441,6 +518,28 @@ class Trainer:
                 "save_every_epochs is set but checkpoint_dir is not — "
                 "snapshots have nowhere to go"
             )
+        mesh = self.mesh
+        shard, dp, tp = 0, 1, 1
+        if mesh is not None:
+            from har_tpu_torch.parallel.mesh import (
+                data_shard_count,
+                linear_data_shard_index,
+                model_shard_count,
+            )
+
+            dp, tp = data_shard_count(mesh), model_shard_count(mesh)
+            shard = linear_data_shard_index(mesh)
+            if cfg.batch_size % dp:
+                raise ValueError(
+                    f"batch_size {cfg.batch_size} must be divisible by the "
+                    f"data-parallel shard count ({dp})"
+                )
+            if self.zero1 and tp > 1:
+                raise ValueError(
+                    "zero1=True composes with data parallelism only — a tp>1 "
+                    "mesh already shards the parameters (and the moments "
+                    "with them)"
+                )
         steps_per_epoch = max(1, -(-n // cfg.batch_size))
         total_steps = steps_per_epoch * cfg.epochs
 
@@ -467,6 +566,30 @@ class Trainer:
                 digest.update(np.ascontiguousarray(value.numpy()).tobytes())
             warm_start_digest = digest.hexdigest()
         module.to(device)
+
+        history: dict[str, Any] = {}
+        if (cfg.compute_flops and self.scan and not cfg.checkpoint_dir
+                and not cfg.early_stop_patience):
+            # the plain staged run, as in the JAX package; counted on fake
+            # tensors outside the timed run, which it leaves untouched
+            raw = float(step_flops(module, (cfg.batch_size, *x.shape[1:]), device,
+                                   self.augment))
+            history["program_flops_raw"] = raw
+            history["program_flops_steps"] = total_steps
+            history["program_flops"] = raw * total_steps
+        context = contextlib.nullcontext
+        if tp > 1:
+            from har_tpu_torch.parallel.tensor_parallel import (
+                dense_alternating_specs,
+                replication,
+                shard_params,
+                tp_dim_check,
+            )
+
+            specs = dense_alternating_specs(module)
+            tp_dim_check(module, specs, tp)
+            shard_params(module, mesh, specs)
+            context = replication
         if self.optimizer_factory is not None:
             optimizer = self.optimizer_factory(cfg, module, total_steps)
         else:
@@ -479,6 +602,12 @@ class Trainer:
                 n / (num_classes * np.maximum(counts, 1.0))
             ).to(device)
 
+        # this rank's columns of every batch (all of them on one device)
+        cols = slice(None)
+        if mesh is not None:
+            from har_tpu_torch.parallel.data_parallel import shard_columns
+
+            cols = shard_columns(mesh, cfg.batch_size)
         host_rng = np.random.default_rng(cfg.seed)
         if self.scan:
             batch_idx = np.stack(
@@ -487,10 +616,10 @@ class Trainer:
                     for _ in range(cfg.epochs)
                     for idx in batch_iterator(n, cfg.batch_size, host_rng)
                 ]
-            )
+            )[:, cols]
             x_dev = torch.from_numpy(x).to(device)
             y_dev = torch.from_numpy(y).long().to(device)
-            idx_dev = torch.from_numpy(batch_idx).to(device)
+            idx_dev = torch.from_numpy(np.ascontiguousarray(batch_idx)).to(device)
 
             def batches(lo: int, hi: int) -> Iterator:
                 for step in range(lo * steps_per_epoch, hi * steps_per_epoch):
@@ -512,61 +641,76 @@ class Trainer:
                 drawn = hi
                 for _ in range(lo, hi):
                     yield from prefetch_to_device(
-                        batch_iterator(n, cfg.batch_size, host_rng),
+                        (idx[cols] for idx in batch_iterator(n, cfg.batch_size, host_rng)),
                         size=2, device=device, source=host,
                     )
 
+        seed = _shard_seed(cfg.seed, shard)
         generators = {
-            "dropout": torch.Generator(device=device).manual_seed(cfg.seed),
+            "dropout": torch.Generator(device=device).manual_seed(seed),
             "augment": torch.Generator(device=device).manual_seed(
-                cfg.seed + _AUGMENT_SEED_OFFSET
+                seed + _AUGMENT_SEED_OFFSET
             ),
         }
+
+        # one step body for every route: on one device the data-parallel
+        # sum has no group to run over
+        if self.zero1:
+            from har_tpu_torch.parallel.zero1 import FlatSlice
+
+            optimizer = FlatSlice(optimizer.params, optimizer, mesh)
+            history["zero1_shards"] = dp
+        train_step = make_module_step(module, optimizer, mesh, self.augment, generators,
+                                      context)
 
         def train_epochs(lo: int, hi: int) -> list:
             """Epochs [lo, hi): the last step's loss of each."""
             module.train()
             losses = []
             for step, (xb, yb) in enumerate(batches(lo, hi), lo * steps_per_epoch):
-                if self.augment is not None:
-                    xb = self.augment(generators["augment"], xb)
                 wb = (
                     weights[yb] if weights is not None
                     else torch.ones(yb.shape, device=device)
                 )
-                logits = module(xb, train=True, generator=generators["dropout"])
-                loss_sum = (F.cross_entropy(logits, yb, reduction="none") * wb).sum()
-                count = wb.sum()
-                optimizer.zero_grad()
-                loss_sum.backward()
-                optimizer.step(grad_scale=count)
+                loss = train_step(xb, yb, wb)
                 if (step + 1) % steps_per_epoch == 0:
-                    losses.append((loss_sum / count).detach())
+                    losses.append(loss.detach())
             module.eval()
             return losses
 
         def train_state() -> dict:
-            """What a snapshot holds beside the parameters."""
-            return dict(optimizer.state_dict(), generators={
-                name: g.get_state() for name, g in generators.items()
-            })
+            """What a snapshot holds beside the parameters: the moments and
+            count, and the generators' states (every data shard's, on a
+            mesh)."""
+            states = {name: g.get_state() for name, g in generators.items()}
+            if mesh is None:
+                return dict(optimizer.state_dict(), generators=states)
+            every = [None] * dist.get_world_size()
+            dist.all_gather_object(every, (shard, states))
+            by_shard = dict(every)
+            return dict(optimizer.state_dict(),
+                        generators=[by_shard[s] for s in range(dp)])
 
         def resume(params, opt_state) -> None:
-            module.load_state_dict(params)
+            _load_params(module, params)
             optimizer.load_state_dict(opt_state)
+            states = opt_state["generators"]
+            if mesh is not None:
+                states = states[shard]
             for name, g in generators.items():
-                g.set_state(opt_state["generators"][name])
+                g.set_state(states[name])
 
-        history: dict[str, Any] = {}
-        if (cfg.compute_flops and self.scan and not cfg.checkpoint_dir
-                and not cfg.early_stop_patience):
-            # the plain staged run, as in the JAX package; counted on fake
-            # tensors outside the timed run, which it leaves untouched
-            raw = float(step_flops(module, (cfg.batch_size, *x.shape[1:]), device,
-                                   self.augment))
-            history["program_flops_raw"] = raw
-            history["program_flops_steps"] = total_steps
-            history["program_flops"] = raw * total_steps
+        def snapshot(ckptr, epoch: int, **extra) -> None:
+            """Every rank builds the snapshot (the gathers are
+            collectives); rank 0 writes it."""
+            params, state = _host(module.state_dict()), train_state()
+            if mesh is None or dist.get_rank() == 0:
+                ckptr.save(epoch, params, state, **extra)
+
+        def predict_val(x_val_dev) -> np.ndarray:
+            with torch.no_grad(), context():
+                return _whole(module(x_val_dev)).argmax(-1).cpu().numpy()
+
         epoch_losses: list = []
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -587,7 +731,7 @@ class Trainer:
                     chunk = min(cfg.save_every_epochs or 1, cfg.epochs - epoch)
                     epoch_losses += train_epochs(epoch, epoch + chunk)
                     epoch += chunk
-                    ckptr.save(epoch, _host(module.state_dict()), train_state())
+                    snapshot(ckptr, epoch)
             finally:
                 ckptr.close()
             history["resumed_from_epoch"] = start_epoch
@@ -617,8 +761,7 @@ class Trainer:
             try:
                 while not stopped and epoch < cfg.epochs:
                     epoch_losses += train_epochs(epoch, epoch + 1)
-                    with torch.no_grad():
-                        pred = module(x_val_dev).argmax(-1).cpu().numpy()
+                    pred = predict_val(x_val_dev)
                     acc = float((pred == y_val).mean())
                     val_accs.append(acc)
                     epoch += 1
@@ -629,13 +772,12 @@ class Trainer:
                         carry["bad"] += 1
                         stopped = carry["bad"] >= cfg.early_stop_patience
                     if ckptr is not None and _should_snapshot(cfg, stopped, epoch):
-                        ckptr.save(epoch, _host(module.state_dict()), train_state(),
-                                   extra=carry)
+                        snapshot(ckptr, epoch, extra=carry)
             finally:
                 if ckptr is not None:
                     ckptr.close()
             if carry["best_params"] is not None:
-                module.load_state_dict(carry["best_params"])
+                _load_params(module, carry["best_params"])
             history["val_accuracy"] = val_accs
             history["best_epoch"] = carry["best_epoch"]
             history["stopped_epoch"] = epoch
@@ -643,6 +785,10 @@ class Trainer:
         else:
             epoch_losses = train_epochs(0, cfg.epochs)
         module.eval()
+        if tp > 1:
+            from har_tpu_torch.parallel.tensor_parallel import gather_params
+
+            gather_params(module)
         history["loss"] = torch.stack(epoch_losses).tolist() if epoch_losses else []
         history["train_time_s"] = time.perf_counter() - t0
         steps_run = (epoch - start_epoch) * steps_per_epoch

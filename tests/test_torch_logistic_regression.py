@@ -210,11 +210,15 @@ def test_convert_carries_jax_weights(jax_fits):
     np.testing.assert_array_equal(got.prediction, np.asarray(ref.prediction))
 
 
-def test_mesh_sweep_and_missing_gpu_raise(monkeypatch):
-    est = port_lr.LogisticRegression(mesh=object(), device="cpu")
-    folds = [(np.arange(100, 300), np.arange(100))]
-    with pytest.raises(NotImplementedError, match="item 14"):
-        est.cv_scores(FeatureSet(X, Y), folds, [{"reg_param": 0.1}], "accuracy")
+def test_mesh_sweep_and_missing_gpu_raise(monkeypatch, tmp_path):
+    """The mesh-sharded sweep is ported: on 2 gloo ranks each computes its
+    lanes of the (reg × fold) grid (padded by the last reg) and every rank
+    returns the whole score matrix, equal to the unsharded one."""
+    import _torch_ranks
+
+    for r in _torch_ranks.run_ranks(["lr_sweep"], 2, tmp_path):
+        np.testing.assert_allclose(r["lr_sweep"]["sharded"], r["lr_sweep"]["plain"],
+                                   rtol=1e-6, atol=1e-7)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         port_lr.LogisticRegression().fit(FeatureSet(X, Y))

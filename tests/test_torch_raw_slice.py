@@ -225,13 +225,17 @@ def test_unported_or_impossible_combinations_raise(tmp_path, dataset, models, pa
 
 
 def test_neural_mesh_raises(tmp_path):
+    """A dp mesh of the transformer needs its ranks: in one process the
+    runner refuses it before any fit (tests/test_torch_parallel.py runs
+    the ranks)."""
     config = RunConfig(
         data=DataConfig(dataset="wisdm_raw", synthetic_rows=ROWS),
         mesh=MeshConfig(dp=2),
         output_dir=str(tmp_path),
     )
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         port_runner.run(config, models=["transformer"], device="cpu")
+    assert not (tmp_path / "result.txt").exists()
 
 
 def test_unknown_hyperparameter_raises():

@@ -247,18 +247,21 @@ def test_cli_without_gpu_raises_unless_cpu_is_named(tmp_path, monkeypatch):
     ],
 )
 def test_unported_parts_raise_not_implemented(tmp_path, kwargs):
-    """Parts of `train` still to port (ROADMAP.md Queue 1 item 14): the
-    tensor- and data-parallel meshes (neural training and LR's sharded
-    sweep).  The trainer's FLOP count is ported
-    (tests/test_torch_flops.py)."""
+    """The tensor- and data-parallel meshes of `train` are ported (neural
+    training and LR's sharded sweep, tests/test_torch_parallel.py): a mesh
+    of more than one rank needs a process group of dp × tp ranks, and a
+    run of one process refuses it with a ValueError that names the way to
+    start the ranks, before any fit or report, as `har_tpu`'s runner
+    refuses a mesh larger than its device count."""
     config = RunConfig(
         data=DataConfig(synthetic_rows=ROWS, **kwargs.get("data", {})),
         model=ModelConfig(params=dict(kwargs.get("params", {}), epochs=1)),
         mesh=MeshConfig(**kwargs.get("mesh", {})),
         output_dir=str(tmp_path),
     )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="--distributed"):
         port_runner.run(config, models=kwargs["models"], device="cpu")
+    assert not (tmp_path / "result.txt").exists()
 
 
 def assert_same_report_structure(port_dir, jax_dir) -> None:

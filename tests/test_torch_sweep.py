@@ -159,9 +159,11 @@ def test_sweep_empty_arguments_raise(tmp_path, kwargs):
 
 
 def test_sweep_mesh_raises_item_14(tmp_path):
+    """LR's mesh-sharded sweep is ported (item 14): a dp mesh needs its
+    ranks, and a sweep of one process refuses it before any fit."""
     config = RunConfig(data=DataConfig(synthetic_rows=300), mesh=MeshConfig(dp=2),
                        output_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="torchrun"):
         port_runner.sweep(config, models=["lr"], device="cpu")
     assert not (tmp_path / "sweep.csv").exists()
 

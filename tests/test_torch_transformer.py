@@ -142,8 +142,14 @@ def test_fresh_init_follows_flax_initializers():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Transformer1D(sp_axis="sp")
+    """sp_axis is ported (tests/test_torch_ring_attention.py): the module
+    builds, its forward needs the axis bound by a mesh, and it refuses
+    window packing, as the JAX module does."""
+    model = Transformer1D(sp_axis="sp")
+    with pytest.raises(ValueError, match="not bound"):
+        model(torch.zeros((1, 8, 3)))
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        Transformer1D(sp_axis="sp", window_pack=2)
     # the other neural families are ported: each builds
     for name in ("mlp", "cnn1d", "bilstm"):
         assert isinstance(build_model(name, num_classes=6), torch.nn.Module)
