@@ -237,14 +237,40 @@ exits nonzero without the final ``ok`` line:
     them, against K2 over the whole sequence, the plain ring and float32
     attention (within 1e-2 of the largest output), gradients of q, k, v
     within 2e-2 of the largest; K2 exactly sp² a loop;
-33. with ``--profile`` only: one DT, one RF and one transformer fit, one
+33. mesh_serve_main: serving over a single-controller mesh over the
+    visible cards in turn (``cuda:0`` repeated in a ``ServingMesh`` on a
+    machine of one card).  The CLI transformer (phase 22's bf16
+    checkpoint) and the float32 demo MLP (TF32 off) on a FakeClock fleet
+    of 256 sessions x 4 windows through ``ShardedScorer`` (2x1) and
+    ``ModelParallelScorer`` (2x2, 1x4): labels, raw labels and drift
+    equal to one card's and to the CPU port's on the same layout,
+    probabilities within 1e-3 of one card and 1e-2 of the CPU (the
+    demo: 1e-6 of both), weights a device below the total on a model
+    axis, K2 exactly layers x dp x tp a dispatch;
+    ``model_parallel_smoke`` (the demo on 2x4, 1e-6; the transformer on
+    2x2, 1e-3); the transformer's fleet resized onto 2x2 and off again
+    against the fleet never resized (1e-3); ``run_kill_point`` behind
+    2x2; ``cli serve --mesh 1`` and ``--mesh-shape 1x1`` (K2 layers x
+    dispatches), and ``--mesh 2`` on one card (its message) or, on N
+    cards, ``--mesh N`` and ``--mesh-shape 2x(N/2)``; the exported
+    transformer batch-sharded over max(2, N) shards (loaded again on
+    each other card) against one card; then ``make_moe_fn`` and
+    ``make_pipeline_fn`` on one-rank NCCL meshes against
+    ``moe_dense_reference`` and the stages in turn, outputs and
+    gradients within 1e-5 (one rank: a single expert, so no routing, no
+    router gradient and no exchange between ranks);
+34. with ``--profile`` only: one DT, one RF and one transformer fit, one
     default run, one parity run, one GBDT fit and a 2-epoch BiLSTM fit
     under torch.profiler, with K1's and K2's shares of the device time;
-34. the kernels line (K1's launches over every path that grows trees),
+35. the kernels line (K1's launches over every path that grows trees),
     a short ``summary`` line, then ``{"ok": true, "device": {...}}``.
 
 ``train --eda`` (host matplotlib, no kernel) is not driven here: the card's
 machine has no matplotlib; the CPU tests hold it to har_tpu's files.
+
+``--mesh-only`` runs phases 1, 2, 8 and 33 and stops there, without the
+last lines: the check of serving over a mesh, on as many cards as are
+visible (on a machine of four cards each mesh is laid over the four).
 
 ``--flash-only`` runs phases 1, 2 and 4 and stops there, without the last
 two lines: the quick way to time K2, or to time another checkout's K2 by
@@ -2448,10 +2474,12 @@ def fleet_tap():
         FleetServer.poll = poll
 
 
-def fleet_serve(tag: str, argv: list[str], layers: int, n_events: int) -> dict:
+def fleet_serve(tag: str, argv: list[str], layers: int, n_events: int,
+                shards: int = 1) -> dict:
     """``cli serve --device cuda`` with ``argv``: every window scored once,
-    none dropped, no retry; K2 exactly layers x (dispatches + the
-    calibration's calls) (``layers`` 0: the host model, no launch)."""
+    none dropped, no retry; K2 exactly layers x (dispatches x ``shards``,
+    the mesh's dp x tp, + the calibration's calls) (``layers`` 0: the host
+    model, no launch)."""
     t0 = time.perf_counter()
     with launch_counts() as launches:
         out = run_cli_json(["serve", "--device", "cuda", *argv])
@@ -2460,7 +2488,7 @@ def fleet_serve(tag: str, argv: list[str], layers: int, n_events: int) -> dict:
     acct = snap["accounting"]
     calls = FLEET_CALIBRATION_CALLS * len(snap.get("device_ms") or {})
     expected = dict(hist=0, hist_rows=0,
-                    flash_attention=layers * (snap["dispatches"] + calls))
+                    flash_attention=layers * (snap["dispatches"] * shards + calls))
     r = dict(
         n_events=out["n_events"], scored=out["scored"], dropped=out["dropped"],
         windows_per_sec=out["windows_per_sec"], event_p50_ms=out["event_p50_ms"],
@@ -2497,11 +2525,12 @@ def _fleet_recordings():
     return recordings, ref
 
 
-def fleet_fixed_schedule(model, recordings, ref) -> tuple[dict, dict]:
+def fleet_fixed_schedule(model, recordings, ref, mesh=None) -> tuple[dict, dict]:
     """One fleet over ``recordings`` on a FakeClock that never moves:
     batches dispatch when FLEET_AGREE_BATCH windows are due and at the
-    final flush, so any two devices score the same batches.  Events by
-    (session, t_index) and the stats snapshot."""
+    final flush, so any two devices (or meshes) score the same batches.
+    Events by (session, t_index) and the stats snapshot, with the
+    scorer's weight bytes."""
     from har_tpu_torch.monitoring import DriftMonitor
     from har_tpu_torch.serve import FakeClock, FleetConfig, FleetServer, drive_fleet
 
@@ -2509,13 +2538,13 @@ def fleet_fixed_schedule(model, recordings, ref) -> tuple[dict, dict]:
     server = FleetServer(
         model, window=200, hop=200, smoothing="ema",
         config=FleetConfig(max_sessions=n, target_batch=FLEET_AGREE_BATCH),
-        clock=FakeClock(),
+        clock=FakeClock(), mesh=mesh,
     )
     for i in range(n):
         server.add_session(i, monitor=DriftMonitor(*ref))
     events, _ = drive_fleet(server, recordings, seed=1)
     return ({(fe.session_id, fe.event.t_index): fe.event for fe in events},
-            server.stats_snapshot())
+            dict(server.stats_snapshot(), params_bytes=server.scorer.params_bytes()))
 
 
 def fleet_agree(card_model, cpu_model, recordings, ref, layers: int, prob_atol: float) -> dict:
@@ -3641,6 +3670,358 @@ def phase_parallel_main() -> dict:
                 launches=dict(flash_attention=launches))
 
 
+MESH_SESSIONS = FLEET_AGREE_SESSIONS  # the fleet's card-against-CPU sessions, 4 windows each
+# a mesh against one card (bf16): the mesh changes only the order of the
+# row-parallel sums (1.5e-5 at most on one NVIDIA H100 80GB HBM3 at 700 W)
+MESH_PROB_ATOL_BF16 = 1e-3
+# (dp, tp) layouts over the visible cards in turn: batch-sharded, 2D, model only
+MESH_SHAPES = ((2, 1), (2, 2), (1, 4))
+MESH_DEMO_PROB_ATOL = 1e-6  # float32, TF32 off
+MESH_CLI_SESSIONS = 64
+MESH_DIR = OUT / "mesh"
+MESH_MOE = dict(experts=1, tokens=256, hidden=64, ff=256)
+MESH_PIPELINE = dict(micro=6, mb=32, hidden=64)
+MESH_PARALLEL_ATOL = 1e-5
+
+
+def serving_mesh(dp: int, tp: int, device: str):
+    """A dp x tp serving mesh over the visible cards in turn (``cuda:0``
+    repeated on a machine of one card), or of the CPU repeated."""
+    from har_tpu_torch.parallel.mesh import create_serving_mesh
+
+    if device == "cuda":
+        cards = torch.cuda.device_count()
+        devices = [torch.device("cuda", i % cards) for i in range(dp * tp)]
+    else:
+        devices = [torch.device("cpu")] * (dp * tp)
+    return create_serving_mesh(dp=dp, tp=tp, devices=devices)
+
+
+def _compare_events(got: dict, want: dict) -> dict:
+    """Keys, labels, raw labels and drift equal; the largest probability
+    difference."""
+    same = got.keys() == want.keys()
+    out = dict(keys_equal=same)
+    if same:
+        out.update(
+            labels_equal=all(got[k].label == want[k].label and got[k].raw_label
+                             == want[k].raw_label and got[k].drift == want[k].drift
+                             for k in got),
+            max_prob_diff=max(float(np.abs(got[k].probability - want[k].probability).max())
+                              for k in got))
+    return out
+
+
+def mesh_layouts(tag: str, card_model, cpu_model, layers: int, atol_single: float,
+                 atol_cpu: float) -> dict:
+    """``card_model`` on one card and on each MESH_SHAPES layout of the
+    cards (FakeClock, fixed batches): every layout against the single
+    card (probabilities within ``atol_single``) and against ``cpu_model``
+    on the same layout of the CPU (within ``atol_cpu``) — labels, raw
+    labels and drift equal; the scorer's kind; weight bytes a device
+    below the total on a model axis; K2 exactly layers x dp x tp a
+    dispatch."""
+    recordings, ref = _fleet_recordings()
+    single, _ = fleet_fixed_schedule(card_model, recordings, ref)
+    out = {}
+    for dp, tp in MESH_SHAPES:
+        t0 = time.perf_counter()
+        with launch_counts() as launches:
+            card, snap = fleet_fixed_schedule(card_model, recordings, ref,
+                                              serving_mesh(dp, tp, "cuda"))
+        seconds = time.perf_counter() - t0
+        cpu, _ = fleet_fixed_schedule(cpu_model, recordings, ref, serving_mesh(dp, tp, "cpu"))
+        kind = "sharded" if tp == 1 else "model_parallel"
+        r = dict(
+            kind=snap["dispatch_backend"], devices=snap["devices"],
+            model_axis_shards=snap["model_axis_shards"], dispatches=snap["dispatches"],
+            batch_sizes=snap["batch_sizes"], params_bytes=snap["params_bytes"],
+            vs_single=_compare_events(card, single), vs_cpu=_compare_events(card, cpu),
+            launches=launches, seconds=seconds,
+            expected_launches=dict(hist=0, hist_rows=0,
+                                   flash_attention=layers * snap["dispatches"] * dp * tp))
+        pb = r["params_bytes"]
+        r["ok"] = bool(
+            r["kind"] == kind and r["devices"] == dp and r["model_axis_shards"] == tp
+            and all(c.get("labels_equal") and c["max_prob_diff"] <= a
+                    for c, a in ((r["vs_single"], atol_single), (r["vs_cpu"], atol_cpu)))
+            and (tp == 1 or pb["per_device"] < pb["total"])
+            and launches == r["expected_launches"])
+        out[f"{dp}x{tp}"] = r
+    emit("mesh_layouts", model=tag, **out)
+    bad = {k: r for k, r in out.items() if not r["ok"]}
+    if bad:
+        raise AssertionError(f"mesh layouts of {tag}: {bad}")
+    return out
+
+
+def mesh_smoke(card_model, layers: int) -> dict:
+    """``model_parallel_smoke`` on 2x4 of the cards with the float32 demo
+    MLP (probabilities within 1e-6 of one card) and on 2x2 with the
+    transformer (1e-3; K2 layers x (the single run's dispatches + 4 a
+    mesh dispatch))."""
+    from har_tpu_torch.serve import model_parallel_smoke
+
+    demo = model_parallel_smoke(device="cuda", mesh=serving_mesh(2, 4, "cuda"),
+                                atol=MESH_DEMO_PROB_ATOL)
+    with launch_counts() as launches:
+        tr = model_parallel_smoke(sessions=MESH_SESSIONS, target_batch=FLEET_AGREE_BATCH,
+                                  mesh=serving_mesh(2, 2, "cuda"), model=card_model,
+                                  atol=MESH_PROB_ATOL_BF16)
+    tr = dict(tr, launches=launches, expected_launches=dict(
+        hist=0, hist_rows=0,
+        flash_attention=layers * (tr["dispatches_single"] + 4 * tr["dispatches"])))
+    out = dict(demo=demo, transformer=tr)
+    emit("mesh_smoke", **out)
+    if not (demo["ok"] and tr["ok"] and launches == tr["expected_launches"]):
+        raise AssertionError(f"model_parallel_smoke: {out}")
+    return out
+
+
+def mesh_resize(card_model, layers: int) -> dict:
+    """A FakeClock fleet of the transformer resized onto 2x2 of the cards
+    for its second third and off again for the last, against the fleet
+    never resized: labels equal, probabilities within 1e-3, K2 layers x 4
+    a dispatch on the mesh."""
+    from har_tpu_torch.serve import FakeClock, FleetConfig, FleetServer, drive_fleet
+
+    recordings, _ = _fleet_recordings()
+    recordings = recordings[FLEET_DRIFTED:]
+    thirds = [(r[:200], r[200:600], r[600:]) for r in recordings]
+
+    def run(resize):
+        server = FleetServer(card_model, window=200, hop=200, smoothing="ema",
+                             config=FleetConfig(max_sessions=len(recordings),
+                                                target_batch=FLEET_AGREE_BATCH),
+                             clock=FakeClock())
+        for i in range(len(recordings)):
+            server.add_session(i)
+        events, dispatches, kinds = {}, [], []
+        for k in range(3):
+            if resize and k == 1:
+                server.resize(mesh=serving_mesh(2, 2, "cuda"))
+            if resize and k == 2:
+                server.resize(mesh=None)
+            got, _ = drive_fleet(server, [t[k] for t in thirds], seed=k)
+            events.update({(fe.session_id, fe.event.t_index): fe.event for fe in got})
+            dispatches.append(server.stats.dispatches)
+            kinds.append(server.scorer.kind)
+        return events, dispatches, kinds, server
+
+    flat, _, _, _ = run(False)
+    with launch_counts() as launches:
+        resized, d, kinds, server = run(True)
+    out = dict(_compare_events(resized, flat), kinds=kinds, resizes=server.stats.resizes,
+               dispatches=d, launches=launches,
+               expected_launches=dict(hist=0, hist_rows=0, flash_attention=layers * (
+                   d[0] + 4 * (d[1] - d[0]) + (d[2] - d[1]))))
+    emit("mesh_resize", **out)
+    if not (out["keys_equal"] and out["labels_equal"]
+            and out["max_prob_diff"] <= MESH_PROB_ATOL_BF16
+            and kinds == ["device", "model_parallel", "device"] and out["resizes"] == 2
+            and launches == out["expected_launches"]):
+        raise AssertionError(f"resize onto and off a mesh: {out}")
+    return out
+
+
+def mesh_cli(path: str, layers: int) -> dict:
+    """``cli serve --mesh 1`` and ``--mesh-shape 1x1`` of the transformer
+    on the card (K2 layers x dispatches); on a machine of one card,
+    ``--mesh 2``'s message; on N > 1 cards, ``--mesh N`` and
+    ``--mesh-shape 2x(N/2)`` (``1xN`` for N < 4) over the cards (K2
+    layers x N a dispatch)."""
+    base = ["--sessions", str(MESH_CLI_SESSIONS), "--checkpoint", path]
+    n = 2 * MESH_CLI_SESSIONS
+    out = {"mesh_1": fleet_serve("mesh_1", base + ["--mesh", "1"], layers, n),
+           "mesh_shape_1x1": fleet_serve("mesh_shape_1x1", base + ["--mesh-shape", "1x1"],
+                                         layers, n)}
+    cards = torch.cuda.device_count()
+    if cards == 1:
+        try:
+            cli.main(["serve", "--device", "cuda", *base, "--mesh", "2"])
+            out["mesh_2"] = "ran"
+        except SystemExit as e:
+            out["mesh_2"] = str(e)
+        if "--mesh 2 needs 2 devices but only 1 are visible" not in out["mesh_2"]:
+            raise AssertionError(f"serve --mesh 2 on one card: {out['mesh_2']}")
+    else:
+        out["mesh_2"] = f"not checked: {cards} cards"
+        shape = f"2x{cards // 2}" if cards >= 4 and cards % 2 == 0 else f"1x{cards}"
+        runs = [(f"mesh_{cards}", ["--mesh", str(cards)], "sharded"),
+                (f"mesh_shape_{shape}", ["--mesh-shape", shape], "model_parallel")]
+        for tag, flags, kind in runs:
+            out[tag] = fleet_serve(tag, base + flags, layers, n, shards=cards)
+            if out[tag]["dispatch_backend"] != kind:
+                raise AssertionError(f"serve {tag}: {out[tag]['dispatch_backend']}")
+    emit("mesh_cli", **{k: v if isinstance(v, str) else
+                        {f: v[f] for f in ("dispatches", "launches", "dispatch_backend")}
+                        for k, v in out.items()})
+    return out
+
+
+def mesh_artifact(path: str, layers: int) -> dict:
+    """``export`` of the transformer, loaded on the card and served by a
+    ShardedScorer over max(2, cards) data shards (on other cards the
+    artifact is loaded again there): logits within 1e-3 of one card's
+    DeviceScorer, K2 exactly layers x shards."""
+    from har_tpu_torch.export import load_exported
+    from har_tpu_torch.serve import make_scorer
+
+    out_dir = MESH_DIR / "transformer_artifact"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    run_cli_json(["export", "--checkpoint", path, "--output", str(out_dir)])
+    art = load_exported(str(out_dir), "cuda")
+    dp = max(2, torch.cuda.device_count())
+    recordings, _ = _fleet_recordings()
+    x = np.stack([r[:200] for r in recordings[:FLEET_AGREE_BATCH]])
+    single = make_scorer(art, None)
+    want = single.launch(single.pad(x)).float().cpu().numpy()[: len(x)]
+    scorer = make_scorer(art, serving_mesh(dp, 1, "cuda"))
+    with launch_counts() as launches:
+        got = scorer.launch(scorer.pad(x)).float().cpu().numpy()[: len(x)]
+    out = dict(kind=scorer.kind, devices=scorer.devices,
+               replicas=sorted(str(d) for d in scorer._replicas),
+               max_abs_diff=float(np.abs(got - want).max()),
+               labels_equal=bool((got.argmax(-1) == want.argmax(-1)).all()),
+               launches=launches,
+               expected_launches=dict(hist=0, hist_rows=0, flash_attention=layers * dp))
+    emit("mesh_artifact", **out)
+    if not (out["kind"] == "sharded" and out["labels_equal"]
+            and out["max_abs_diff"] <= MESH_PROB_ATOL_BF16
+            and launches == out["expected_launches"]):
+        raise AssertionError(f"an artifact on a mesh: {out}")
+    return out
+
+
+def _max_diff(a, b) -> float:
+    return float((a - b).detach().abs().max())
+
+
+def mesh_expert_pipeline() -> dict:
+    """``make_moe_fn`` and ``make_pipeline_fn`` on one-rank NCCL meshes:
+    outputs and gradients against ``moe_dense_reference`` and the stages
+    run one after another (float32, TF32 off), within 1e-5."""
+    import torch.distributed as dist
+
+    from har_tpu_torch.parallel import (
+        dropless_capacity,
+        expert_mesh,
+        init_moe_params,
+        make_moe_fn,
+        make_pipeline_fn,
+        moe_dense_reference,
+        pipeline_mesh,
+    )
+
+    if dist.is_initialized():
+        raise AssertionError("a process group is already running")
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = MESH_MOE
+        params = init_moe_params(0, cfg["experts"], cfg["hidden"], cfg["ff"], device="cuda")
+        x = torch.from_numpy(np.random.default_rng(0).normal(
+            size=(cfg["tokens"], cfg["hidden"])).astype(np.float32)).cuda()
+        moe = make_moe_fn(expert_mesh(1, device="cuda"), dropless_capacity(cfg["tokens"]))
+
+        def grads(fn, p):
+            p = {"router": p["router"].clone().requires_grad_(),
+                 "experts": {k: v.clone().requires_grad_() for k, v in p["experts"].items()}}
+            (fn(p) ** 2).mean().backward()
+            return [p["router"].grad, *(v.grad for v in p["experts"].values())]
+
+        y, aux = moe(params, x)
+        ref = moe_dense_reference(params, x)
+        g_moe = grads(lambda p: moe(p, x)[0], params)
+        g_ref = grads(lambda p: moe_dense_reference(p, x), params)
+        out = dict(moe=dict(max_abs_diff=_max_diff(y, ref),
+                            max_grad_abs_diff=max(_max_diff(a, b) for a, b in zip(g_moe, g_ref)),
+                            load_balance_loss=float(aux["load_balance_loss"])))
+        cfg = MESH_PIPELINE
+        rng = np.random.default_rng(1)
+        stacked = {"w": torch.from_numpy(rng.normal(0, 0.3, (1, cfg["hidden"], cfg["hidden"]))
+                                         .astype(np.float32)).cuda().requires_grad_(),
+                   "b": torch.from_numpy(rng.normal(0, 0.1, (1, cfg["hidden"]))
+                                         .astype(np.float32)).cuda().requires_grad_()}
+        xs = torch.from_numpy(rng.normal(size=(cfg["micro"], cfg["mb"], cfg["hidden"]))
+                              .astype(np.float32)).cuda()
+
+        def stage(p, a):
+            return torch.relu(a @ p["w"] + p["b"])
+
+        pp = make_pipeline_fn(stage, pipeline_mesh(1, device="cuda"))
+        y = pp(stacked, xs)
+        (y ** 2).mean().backward()
+        g_pp = [v.grad.clone() for v in stacked.values()]
+        for v in stacked.values():
+            v.grad = None
+        ref = stage({k: v[0] for k, v in stacked.items()}, xs)
+        (ref ** 2).mean().backward()
+        out["pipeline"] = dict(
+            max_abs_diff=_max_diff(y, ref),
+            max_grad_abs_diff=max(_max_diff(a, v.grad) for a, v in zip(g_pp, stacked.values())))
+        out["backend"] = dist.get_backend()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+        dist.destroy_process_group()
+    emit("mesh_expert_pipeline", **out)
+    if not (out["backend"] == "nccl" and all(
+            out[k][m] <= MESH_PARALLEL_ATOL for k in ("moe", "pipeline")
+            for m in ("max_abs_diff", "max_grad_abs_diff"))):
+        raise AssertionError(f"expert and pipeline parallelism: {out}")
+    return out
+
+
+def phase_mesh_serve_main() -> dict:
+    """Serving over a single-controller mesh over the visible cards
+    (cuda:0 repeated on one card): the CLI transformer (bf16, fleet_main's
+    checkpoint) and the float32 demo MLP through ShardedScorer and
+    ModelParallelScorer, card against one card and against the CPU port;
+    ``model_parallel_smoke``; a resize onto a mesh and off it; a kill
+    point behind 2x2; ``serve --mesh/--mesh-shape``; the exported
+    transformer batch-sharded; MoE and the GPipe schedule on one-rank
+    NCCL meshes."""
+    from har_tpu_torch.serve import JitDemoModel, run_kill_point
+
+    t0 = time.perf_counter()
+    path = str(MODELS_DIR / "transformer")
+    layers = len(checkpoint.load_model(path, "cpu").inner.module.blocks)
+    card_model = checkpoint.load_model(path, "cuda")
+    layouts = {"transformer": mesh_layouts("transformer", card_model,
+                                           checkpoint.load_model(path, "cpu"), layers,
+                                           MESH_PROB_ATOL_BF16, PREDICT_PROB_ATOL_BF16)}
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        layouts["demo_f32"] = mesh_layouts("demo_f32", JitDemoModel(device="cuda"),
+                                           JitDemoModel(device="cpu"), 0, MESH_DEMO_PROB_ATOL,
+                                           MESH_DEMO_PROB_ATOL)
+        smoke = mesh_smoke(card_model, layers)
+        kill = run_kill_point("mid_dispatch", mesh=serving_mesh(2, 2, "cuda"))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    emit("mesh_kill_point", **{k: kill[k] for k in ("ok", "why", "windows_lost", "recovery_ms")})
+    if not kill["ok"]:
+        raise AssertionError(f"kill point behind 2x2: {kill}")
+    resize = mesh_resize(card_model, layers)
+    mesh_cli_run = mesh_cli(path, layers)
+    artifact = mesh_artifact(path, layers)
+    parallel = mesh_expert_pipeline()
+    launches = (sum(r["launches"]["flash_attention"] for r in layouts["transformer"].values())
+                + smoke["transformer"]["launches"]["flash_attention"]
+                + resize["launches"]["flash_attention"]
+                + sum(r["launches"]["flash_attention"]
+                      for r in mesh_cli_run.values() if not isinstance(r, str))
+                + artifact["launches"]["flash_attention"])
+    seconds = time.perf_counter() - t0
+    emit("mesh_serve_main", seconds=seconds, nvidia_smi=nvidia_smi(), launches=launches)
+    return dict(seconds=seconds, layouts=layouts, smoke=smoke, kill=kill, resize=resize,
+                cli=mesh_cli_run, artifact=artifact, parallel=parallel,
+                launches=dict(flash_attention=launches))
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
                  checked: dict, shape: str, library: str = "library_ms",
                  **extra) -> dict:
@@ -3665,6 +4046,10 @@ def main(argv: list[str]) -> int:
     phase_build()
     if "--flash-only" in argv:
         phase_flash()
+        return 0
+    if "--mesh-only" in argv:
+        phase_raw_main()
+        phase_mesh_serve_main()
         return 0
     hist = phase_hist()
     hist_rows = phase_hist_rows()
@@ -3701,6 +4086,7 @@ def main(argv: list[str]) -> int:
     sweep_main = phase_sweep_main()
     raw_lane_main = phase_raw_lane_main()
     parallel_main = phase_parallel_main()
+    mesh_serve_main = phase_mesh_serve_main()
     if "--profile" in argv:
         phase_profile()
     flash_launches = {
@@ -3711,7 +4097,8 @@ def main(argv: list[str]) -> int:
                            ("lifecycle_main", lifecycle["scoring"]),
                            ("serving_main", serving_main), ("fleet_main", fleet_main),
                            ("adapt_main", adapt_main), ("traffic_main", traffic_main),
-                           ("parallel_main", parallel_main))
+                           ("parallel_main", parallel_main),
+                           ("mesh_serve_main", mesh_serve_main))
     }
     hist_rows_launches = {
         name: path["launches"]["hist_rows"]
@@ -3850,6 +4237,23 @@ def main(argv: list[str]) -> int:
              ring={sp: {k: r[k] for k in ("launches", "forward_ms", "max_abs_diff_k2_whole",
                                           "max_grad_abs_diff")}
                    for sp, r in parallel_main["ring"]["by_sp"].items()}),
+         mesh_serve_main=dict(
+             seconds=mesh_serve_main["seconds"], launches=mesh_serve_main["launches"],
+             layouts={tag: {shape: {k: r[k] for k in ("kind", "dispatches", "launches",
+                                                      "params_bytes", "seconds")}
+                            | {"vs_single": r["vs_single"].get("max_prob_diff"),
+                               "vs_cpu": r["vs_cpu"].get("max_prob_diff")}
+                            for shape, r in rs.items()}
+                      for tag, rs in mesh_serve_main["layouts"].items()},
+             smoke={tag: {k: r[k] for k in ("ok", "mesh", "max_abs_prob_diff",
+                                             "params_bytes_per_device", "params_bytes_single")}
+                    for tag, r in mesh_serve_main["smoke"].items()},
+             resize_max_prob_diff=mesh_serve_main["resize"]["max_prob_diff"],
+             kill_ok=mesh_serve_main["kill"]["ok"],
+             mesh_2=mesh_serve_main["cli"]["mesh_2"],
+             artifact={k: mesh_serve_main["artifact"][k]
+                       for k in ("kind", "devices", "max_abs_diff", "launches")},
+             parallel=mesh_serve_main["parallel"]),
          ucihar_split_candidates_s=ucihar_main["split_candidates_s"],
          ucihar_parity_lane_result=ucihar_lane["lane"], raw_lane_result=raw_lane_main["lane"])
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -326,9 +326,19 @@ def _serve_arguments(sub) -> None:
                          "device, dequantized inside the forward)")
     sv.add_argument("--mesh", type=int, default=0,
                     help="shard each dispatch batch over this many "
-                         "devices (not ported yet: ROADMAP.md item 14)")
+                         "devices (distinct visible cards; with --device "
+                         "cpu, the CPU repeated as a dry-run mesh; "
+                         "batches pad to devices x pow2).  0 = single "
+                         "device.  A host model (the analytic demo) "
+                         "falls back to host scoring")
     sv.add_argument("--mesh-shape", type=str, default=None,
-                    help="2D BxM serving mesh (not ported yet: item 14)")
+                    help="2D BxM (batch x model) serving mesh, e.g. "
+                         "2x4: batch rows shard over B devices while the "
+                         "model's weights place model-parallel over M by "
+                         "the partition-rule tables (har_tpu_torch."
+                         "parallel.rules) — serves models bigger than one "
+                         "device.  Mutually exclusive with --mesh; needs "
+                         "B*M devices, as --mesh does")
     sv.add_argument("--workers", type=int, default=0,
                     help="multi-worker fleet cluster; 0/1 = the "
                          "single-process engine (a cluster is not "
@@ -545,8 +555,6 @@ def _stream(args) -> int:
 
 # serve's flags of the parts not ported yet: (is it set, flag, item)
 _SERVE_WAITING = (
-    (lambda a: a.mesh, "--mesh", 14),
-    (lambda a: a.mesh_shape, "--mesh-shape", 14),
     (lambda a: a.workers and a.workers > 1, "--workers", 15),
     (lambda a: a.net, "--net", 15),
     (lambda a: a.kill_worker is not None, "--kill-worker", 15),
@@ -580,6 +588,7 @@ def _serve(args) -> int:
     )
 
     device = resolve_device(args.device)
+    mesh = _serving_mesh(args, device)
     window, channels = 200, 3
     if args.checkpoint is not None:
         from har_tpu_torch.checkpoint import load_model, load_model_meta
@@ -635,7 +644,8 @@ def _serve(args) -> int:
             snapshot_every=args.journal_snapshot_every,
         )
     if args.trace:
-        return _serve_trace(args, model, window, channels, fault_hook, journal_cfg)
+        return _serve_trace(args, model, window, channels, fault_hook, journal_cfg,
+                            mesh)
     recordings, class_names = synthetic_sessions(
         args.sessions,
         windows_per_session=args.windows_per_session,
@@ -675,6 +685,7 @@ def _serve(args) -> int:
             lambda ver: model,
             fault_hook=fault_hook,
             journal_config=journal_cfg,
+            mesh=mesh,
         )
         recovered_events = server.poll(force=True)
         recordings = [
@@ -702,6 +713,7 @@ def _serve(args) -> int:
             fault_hook=fault_hook,
             journal=args.journal,
             journal_config=journal_cfg,
+            mesh=mesh,
         )
         # --adapt tightens the monitor (faster EWMA, shorter debounce)
         # so the demo loop closes within a short synthetic drive; plain
@@ -828,6 +840,42 @@ def _serve(args) -> int:
     return 0
 
 
+def _serving_mesh(args, device):
+    """The serving mesh ``--mesh N`` (N × 1) or ``--mesh-shape BxM`` names
+    (``har_tpu``'s checks and messages; the hint is the port's own), or
+    None."""
+    import re
+
+    from har_tpu_torch.parallel.mesh import create_serving_mesh, serving_devices
+
+    if args.mesh_shape and args.mesh:
+        raise SystemExit(
+            "--mesh-shape and --mesh both name a serving mesh; pass one "
+            "(--mesh-shape BxM covers the 1D case as Bx1)"
+        )
+    if args.mesh:
+        flag, (b, m) = f"--mesh {args.mesh}", (args.mesh, 1)
+    elif args.mesh_shape:
+        match = re.fullmatch(r"(\d+)x(\d+)", args.mesh_shape.strip())
+        if not match or int(match.group(1)) < 1 or int(match.group(2)) < 1:
+            raise SystemExit(
+                f"--mesh-shape {args.mesh_shape!r} is not BxM (two positive "
+                "integers, e.g. 2x4)"
+            )
+        b, m = int(match.group(1)), int(match.group(2))
+        flag = f"--mesh-shape {b}x{m}"
+    else:
+        return None
+    try:
+        devices = serving_devices(b * m, device)
+    except ValueError as exc:
+        raise SystemExit(
+            f"{flag} {exc}; on a CPU host pass --device cpu for a dry-run "
+            f"mesh of {b * m} (the CPU repeated)"
+        ) from None
+    return create_serving_mesh(dp=b, tp=m, devices=devices)
+
+
 def _raise_device_faults(server) -> None:
     """``serve`` injects no dispatch failures and its shadow scoring has
     no reason to fail: a failed dispatch or a raising dispatch tap is a
@@ -847,13 +895,14 @@ def _raise_device_faults(server) -> None:
         ) from err
 
 
-def _serve_trace(args, model, window, channels, fault_hook, journal_cfg) -> int:
+def _serve_trace(args, model, window, channels, fault_hook, journal_cfg,
+                 mesh) -> int:
     """``serve --trace``: instead of N flat sessions, drive a seeded
     arrival process with session churn — and, with ``--autoscale``, let
-    the capacity controller walk target_batch / pipeline_depth up the
-    swing and back down through ``FleetServer.resize``'s zero-drop
-    dispatch-boundary path.  ``har_tpu``'s spec, floor and ceiling, and
-    summary keys."""
+    the capacity controller walk target_batch / pipeline_depth (/ the
+    mesh, when ``--mesh N`` names a ladder ceiling) up the swing and back
+    down through ``FleetServer.resize``'s zero-drop dispatch-boundary
+    path.  ``har_tpu``'s spec, floor and ceiling, and summary keys."""
     import time
 
     if (
@@ -931,9 +980,17 @@ def _serve_trace(args, model, window, channels, fault_hook, journal_cfg) -> int:
         fault_hook=fault_hook,
         journal=args.journal,
         journal_config=journal_cfg,
+        mesh=None if args.autoscale else mesh,
     )
     controller = None
     if args.autoscale:
+        ladder, mesh_for = (1,), None
+        if args.mesh and args.mesh > 1:
+            from har_tpu_torch.parallel.mesh import create_serving_mesh
+
+            ladder = (1, args.mesh)
+            grid = list(mesh.devices.flat)
+            mesh_for = lambda d: create_serving_mesh(dp=d, tp=1, devices=grid[:d])  # noqa: E731
         controller = CapacityController(
             server,
             config=AutoscaleConfig(
@@ -943,10 +1000,12 @@ def _serve_trace(args, model, window, channels, fault_hook, journal_cfg) -> int:
                 max_target_batch=args.target_batch,
                 min_depth=1,
                 max_depth=max(args.pipeline_depth, 2),
+                mesh_ladder=ladder,
                 up_after=1,
                 down_after=3,
                 cooldown_s=0.0,
             ),
+            mesh_for=mesh_for,
         )
     t0 = time.perf_counter()
     events, report = drive_trace(
@@ -1117,7 +1176,15 @@ def main(argv=None) -> int:
     if args.command == "export":
         return _export(args)
     if args.command == "serve":
-        return _serve(args)
+        from har_tpu_torch.serve.model_parallel import NoTensorParallelForward
+
+        try:
+            return _serve(args)
+        except NoTensorParallelForward as exc:
+            raise SystemExit(
+                f"--mesh-shape {args.mesh_shape}: {exc}; serve it batch-sharded "
+                "with --mesh N"
+            )
     if args.validation_fraction is not None and not args.early_stop_patience:
         raise SystemExit(
             "--validation-fraction only takes effect with "

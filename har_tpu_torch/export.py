@@ -306,6 +306,7 @@ class ExportedPredictor:
     example_shape: tuple[int, ...]
     meta: dict
     device: torch.device
+    path: str | None = None  # the artifact's directory, where it was loaded from
 
     def __post_init__(self):
         self._module = self.program.module()
@@ -324,6 +325,16 @@ class ExportedPredictor:
         """True for an int8 artifact (``make_scorer(..., tier="int8")``
         then serves it as it is)."""
         return (self.meta.get("quantization") or {}).get("scheme") == "int8_weight_only"
+
+    def to(self, device) -> ExportedPredictor:
+        """The artifact loaded again onto ``device`` (this one stays
+        where it is): a serving mesh's replica on another card."""
+        if self.path is None:
+            raise ValueError(
+                "an artifact that was not loaded from a directory cannot be "
+                f"copied to {device}"
+            )
+        return load_exported(self.path, device)
 
     def serving_inner(self):
         """The device program the fleet's dispatch plane serves
@@ -368,7 +379,8 @@ class _ExportedServingInner:
         from har_tpu_torch.serve.dispatch import DeviceProgram
 
         return DeviceProgram(
-            self, self.art.device_call, self.device, supports_fused=False
+            self, self.art.device_call, self.device, supports_fused=False,
+            replicate=lambda device: self.art.to(device).device_call,
         )
 
 
@@ -405,6 +417,7 @@ def load_exported(path: str, device: str | torch.device = "cuda") -> ExportedPre
         example_shape=tuple(meta["example_shape"]),
         meta=meta,
         device=device,
+        path=path,
     )
 
 

@@ -164,18 +164,23 @@ class EncoderBlock(nn.Module):
         q, k, v = (
             z.view(b, t, h, e // h) for z in self.qkv(self.norm1(x)).split(e, dim=-1)
         )
-        flash = self.use_flash is not False
-        if seg is not None:
-            attn = (segment_flash_attention if flash else segment_attention)(q, k, v, seg)
-        elif self.sp_axis is not None:
-            attn = (ring_flash_attention if flash else ring_attention)(
-                q, k, v, self.sp_axis
-            )
-        else:
-            attn = (flash_attention if flash else full_attention)(q, k, v)
+        attn = self.attend(q, k, v, seg)
         x = x + self.proj(attn.reshape(b, t, e))
         y = self.mlp_out(F.gelu(self.mlp_in(self.norm2(x)), approximate="tanh"))
         return x + y
+
+    def attend(self, q, k, v, seg: int | None = None):
+        """The attention of (B, T, H, D) ``q``, ``k``, ``v``: K2 unless
+        ``use_flash`` is False, over segments of ``seg`` tokens or the
+        sequence ring where asked.  A tensor-parallel copy of the block
+        (``serve.model_parallel``) replaces it with one that runs it on
+        each device's heads."""
+        flash = self.use_flash is not False
+        if seg is not None:
+            return (segment_flash_attention if flash else segment_attention)(q, k, v, seg)
+        if self.sp_axis is not None:
+            return (ring_flash_attention if flash else ring_attention)(q, k, v, self.sp_axis)
+        return (flash_attention if flash else full_attention)(q, k, v)
 
 
 class Transformer1D(nn.Module):

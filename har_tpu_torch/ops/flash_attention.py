@@ -63,7 +63,6 @@ note and in PERF.md.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -92,7 +91,6 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # share an SM
 _SMEM_BYTES = 232_448
 _SMEM_BUDGET = _SMEM_BYTES // 2 - 1024
-_STATIC_SMEM_BYTES = 48 << 10  # a block takes this much without an attribute
 _ROW_TILE = 16  # query rows of a warp
 _GROUP_WARPS = 4  # warps of a block that holds several heads
 _KEY_CHUNK = 32  # keys per softmax update
@@ -274,14 +272,23 @@ def _check_hopper(device: torch.device) -> None:
 
 
 def _launch(q, k, v, with_lse: bool):
+    # the op's CUDA registration gets no device guard: the launch, the
+    # C entry's shared-memory attribute and the stream are all those of
+    # the tensors' device, whichever device is current (a serving mesh
+    # scores shards on several cards from one process)
+    with torch.cuda.device(q.device):
+        return _launch_here(q, k, v, with_lse)
+
+
+def _launch_here(q, k, v, with_lse: bool):
     global FLASH_LAUNCHES
     b, t, h, d = q.shape
     _check_hopper(q.device)
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError("flash attention needs unit stride over the head dim")
     q, k, v = (_aligned(x) for x in (q, k, v))
-    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) if with_lse else None
+    out = q.new_empty((b, t, h, d))
+    lse = q.new_empty((b, h, t), dtype=torch.float32) if with_lse else None
     if out.numel() == 0:
         return out, lse
     plan = (
@@ -295,16 +302,12 @@ def _launch(q, k, v, with_lse: bool):
         if plan is not None
         else (0,) * 6
     )
-    # past 48 KB of shared memory the C entry raises its kernel's limit on
-    # the current device, so the launch runs under the tensors' device
-    big = plan is not None and plan.smem_bytes > _STATIC_SMEM_BYTES
-    with torch.cuda.device(q.device) if big else contextlib.nullcontext():
-        err = _kernel()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(),
-            b, t, h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            _DTYPE_CODES[q.dtype], *plan_args, torch.cuda.current_stream(q.device).cuda_stream,
-        )
+    err = _kernel()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
+        b, t, h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        _DTYPE_CODES[q.dtype], *plan_args, torch.cuda.current_stream(q.device).cuda_stream,
+    )
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error {err}")
     FLASH_LAUNCHES += 1

@@ -1,8 +1,10 @@
-"""The parallel layer: meshes of ranks, placements, data- and
-tensor-parallel steps, ZeRO-1 and ring attention.
+"""The parallel layer: meshes of ranks and the single-controller serving
+mesh, placements, data- and tensor-parallel steps, ZeRO-1, ring
+attention, expert and pipeline parallelism.
 
 Port of ``har_tpu/parallel`` (``mesh``, ``sharding``, ``rules``,
-``data_parallel``, ``tensor_parallel``, ``zero1``, ``ring_attention``).
+``data_parallel``, ``tensor_parallel``, ``zero1``, ``ring_attention``,
+``expert_parallel``, ``pipeline_parallel``).
 
 Design.  JAX builds one single-controller ``Mesh`` over ``jax.devices()``
 and compiles each step as one SPMD program.  PyTorch's idiom is one
@@ -25,10 +27,19 @@ CPU), with the axis names ``("dp", "tp")`` or ``("dp_dcn", "dp", "tp")``.
 - ZeRO-1 shards AdamW's moments over the flat parameter vector; the ring
   rotates K/V with ``batch_isend_irecv`` and runs K2 with its lse per hop.
 - ``data_shard_count`` / ``model_shard_count`` read only the mesh's shape
-  (a ``DeviceMesh`` or a mapping), with no collective.
+  (a ``DeviceMesh``, a ``ServingMesh`` or a mapping), with no collective.
+- MoE (``expert_parallel``) exchanges tokens with an autograd-capable
+  ``all_to_all_single`` over a 1-D ``ep`` mesh of ranks; the GPipe
+  schedule (``pipeline_parallel``) rotates activations with
+  ``batch_isend_irecv`` over a 1-D ``pp`` mesh.
 
-The serving meshes, ``expert_parallel`` and ``pipeline_parallel`` are not
-ported yet (ROADMAP.md Queue 1 item 14).
+Serving is single-controller, as in the JAX package: one engine process
+drives every device of a ``ServingMesh`` (``create_serving_mesh``), a
+grid of ``torch.device`` objects with no process group; the rule tables
+place a served model's weights on it (``rules.place_local``), and
+``serve.dispatch``'s ``ShardedScorer`` / ``ModelParallelScorer`` launch on
+each device.  Several rank processes each running the engine would batch
+by their own clocks and part ways in the collectives.
 """
 
 from har_tpu_torch.parallel.mesh import (
@@ -44,6 +55,9 @@ from har_tpu_torch.parallel.mesh import (
     linear_data_shard_index,
     linear_mesh,
     model_shard_count,
+    ServingMesh,
+    create_serving_mesh,
+    serving_devices,
     single_device_mesh,
     use_mesh,
 )
@@ -68,6 +82,7 @@ from har_tpu_torch.parallel.rules import (
     make_shard_fns,
     match_partition_rules,
     match_rule,
+    place_local,
     rules_for_params,
 )
 from har_tpu_torch.parallel.tensor_parallel import (
@@ -82,6 +97,20 @@ from har_tpu_torch.parallel.ring_attention import (
     ring_attention,
     ring_flash_attention,
     ring_hop,
+)
+from har_tpu_torch.parallel.pipeline_parallel import (
+    PP_AXIS,
+    make_pipeline_fn,
+    pipeline_mesh,
+    stack_stage_params,
+)
+from har_tpu_torch.parallel.expert_parallel import (
+    EP_AXIS,
+    dropless_capacity,
+    expert_mesh,
+    init_moe_params,
+    make_moe_fn,
+    moe_dense_reference,
 )
 
 __all__ = [
@@ -98,6 +127,7 @@ __all__ = [
     "make_shard_fns",
     "match_partition_rules",
     "match_rule",
+    "place_local",
     "rules_for_params",
     "DP_AXIS",
     "DP_DCN_AXIS",
@@ -111,6 +141,9 @@ __all__ = [
     "linear_data_shard_index",
     "linear_mesh",
     "model_shard_count",
+    "ServingMesh",
+    "create_serving_mesh",
+    "serving_devices",
     "single_device_mesh",
     "use_mesh",
     "batch_sharding",
@@ -129,4 +162,14 @@ __all__ = [
     "ring_attention",
     "ring_flash_attention",
     "ring_hop",
+    "PP_AXIS",
+    "make_pipeline_fn",
+    "pipeline_mesh",
+    "stack_stage_params",
+    "EP_AXIS",
+    "dropless_capacity",
+    "expert_mesh",
+    "init_moe_params",
+    "make_moe_fn",
+    "moe_dense_reference",
 ]

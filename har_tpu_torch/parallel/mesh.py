@@ -18,6 +18,15 @@ place on the grid is its coordinate in the mesh.
 - :func:`use_mesh` makes a mesh current, so modules that name a mesh axis
   (``Transformer1D(sp_axis=...)``) find its group with :func:`axis_group`,
   as a JAX axis name is bound inside ``shard_map``.
+
+Serving is single-controller, as in the JAX package: one engine process
+drives every device.  Its mesh is a :class:`ServingMesh`, a ``(dp, tp)``
+grid of ``torch.device`` objects with no process group and no
+collective (:func:`create_serving_mesh`, the counterpart of JAX's
+``create_mesh(dp, tp, devices=)``).  An entry may repeat: the CPU tests
+lay 2×4 over torch's one ``cpu`` device, as JAX's dry-run mesh splits the
+host, and one card can hold a 2×2 layout.  :func:`serving_devices` picks
+the devices: distinct visible cards on CUDA, the CPU repeated on the CPU.
 """
 
 from __future__ import annotations
@@ -113,8 +122,73 @@ def create_multihost_mesh(num_slices: int, tp: int = 1, device=None):
     )
 
 
+class ServingMesh:
+    """A single-controller mesh: a grid of ``torch.device`` objects with
+    named axes (``("dp", "tp")``), read as a ``DeviceMesh`` is read
+    (``mesh_dim_names``, ``shape``) but holding no process group: the
+    engine process places and launches on every device itself."""
+
+    def __init__(self, grid, axis_names=(DP_AXIS, TP_AXIS)):
+        import numpy as np
+
+        cells = np.empty(np.shape(grid)[: len(axis_names)], dtype=object)
+        for idx in np.ndindex(cells.shape):
+            cells[idx] = torch.device(np.asarray(grid, dtype=object)[idx])
+        if cells.ndim != len(axis_names) or cells.size == 0:
+            raise ValueError(
+                f"a serving mesh needs a non-empty {len(axis_names)}-D device "
+                f"grid for axes {axis_names}"
+            )
+        self.devices = cells
+        self.mesh_dim_names = tuple(axis_names)
+        self.shape = tuple(int(n) for n in cells.shape)
+
+    def __repr__(self) -> str:
+        cells = ", ".join(str(d) for d in self.devices.flat)
+        return f"ServingMesh({dict(zip(self.mesh_dim_names, self.shape))}, [{cells}])"
+
+
+def create_serving_mesh(dp: int = -1, tp: int = 1, devices=None, device=None) -> ServingMesh:
+    """A ``(dp, tp)`` serving mesh over ``devices`` (default: every
+    device :func:`serving_devices` finds for ``device``), the JAX
+    package's ``create_mesh`` rules: ``dp=-1`` takes every device left
+    after ``tp``, and ``tp`` devices are adjacent (the fastest-varying
+    axis)."""
+    import numpy as np
+
+    devices = serving_devices(-1, device) if devices is None else list(devices)
+    n = len(devices)
+    if tp < 1 or n % tp:
+        raise ValueError(f"tp={tp} must divide device count {n}")
+    if dp == -1:
+        dp = n // tp
+    if dp * tp != n:
+        raise ValueError(f"dp*tp={dp * tp} != device count {n}")
+    grid = np.empty(n, dtype=object)
+    grid[:] = [torch.device(d) for d in devices]
+    return ServingMesh(grid.reshape(dp, tp))
+
+
+def serving_devices(n: int, device=None) -> list:
+    """``n`` devices for a serving mesh (``-1``: as many as there are).
+
+    On CUDA, distinct visible cards ``cuda:0 … cuda:n-1``; a ``ValueError``
+    names the shortfall when fewer are visible.  On the CPU, torch's one
+    ``cpu`` device repeated ``n`` times (``-1``: once), as the JAX
+    package's dry-run mesh splits the host."""
+    dev = torch.device(_device_type(device))
+    if dev.type == "cpu":
+        return [torch.device("cpu")] * (1 if n == -1 else int(n))
+    count = torch.cuda.device_count()
+    n = count if n == -1 else int(n)
+    if n > count:
+        raise ValueError(f"needs {n} devices but only {count} are visible")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
 def mesh_shape(mesh) -> dict:
-    """``{axis name: size}`` of a ``DeviceMesh``, or the mapping itself."""
+    """``{axis name: size}`` of a ``DeviceMesh`` or a :class:`ServingMesh`,
+    or the mapping itself."""
     if hasattr(mesh, "mesh_dim_names"):
         return dict(zip(mesh.mesh_dim_names, mesh.shape))
     return dict(mesh)

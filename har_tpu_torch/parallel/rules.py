@@ -135,6 +135,35 @@ def match_partition_rules(rules, params):
     return _map(assign, _as_tree(params))
 
 
+def place_local(mesh, spec, x):
+    """One leaf on a single-controller :class:`~har_tpu_torch.parallel.mesh.
+    ServingMesh`: an object array of the mesh's grid shape whose cell holds
+    that device's local tensor — ``x`` sliced by ``spec`` (each dim an axis
+    shards, cut into equal blocks, the block index the cell's coordinate
+    along that axis, several axes of one dim major first) and moved to the
+    cell's device.  A replicated dim is whole; a tensor already on the
+    cell's device is not copied, so a mesh that repeats one device holds
+    views of ``x``."""
+    names = mesh.mesh_dim_names
+    out = np.empty(mesh.devices.shape, dtype=object)
+    for idx in np.ndindex(out.shape):
+        coord = dict(zip(names, idx))
+        local = x
+        for dim, entry in enumerate(tuple(spec)):
+            axes = [a for a in (entry if isinstance(entry, tuple) else (entry,))
+                    if a is not None]
+            if not axes:
+                continue
+            parts, block = 1, 0
+            for ax in axes:
+                n = mesh.shape[names.index(ax)]
+                parts, block = parts * n, block * n + coord[ax]
+            size = local.shape[dim] // parts
+            local = local.narrow(dim, block * size, size)
+        out[idx] = local.to(mesh.devices[idx])
+    return out
+
+
 def make_shard_fns(mesh, partition_specs):
     """Per-leaf placement closures for a resolved spec tree: each puts a
     whole tensor (the same on every rank) onto the mesh in its layout."""

@@ -1,8 +1,10 @@
 """Fleet serving: continuous batching for thousands of concurrent
-20 Hz accelerometer streams over one predict path on one device.
+20 Hz accelerometer streams over one predict path, on one device or a
+single-controller serving mesh.
 
 Port of ``har_tpu/serve``'s single-process engine; the model runs on
-its own device (``cuda`` unless the caller builds it on the CPU).
+its own device (``cuda`` unless the caller builds it on the CPU), or
+over a ``parallel.mesh.ServingMesh`` (``FleetServer(mesh=...)``).
 
 Public surface:
   FleetServer / FleetConfig / FleetEvent  — the engine (engine.py)
@@ -11,7 +13,11 @@ Public surface:
                                             + pending-queue estates
                                             (arena.py)
   DispatchTicket / StagingArena / make_scorer — pipelined dispatch
-                                            plane (dispatch.py)
+                                            plane (dispatch.py; the
+                                            batch-sharded and model-
+                                            parallel scorers, and
+                                            model_parallel.py's tensor-
+                                            parallel forwards)
   DispatchFaults / DeliveryFaults / FakeClock — fault injection
   AnalyticDemoModel / JitDemoModel / synthetic_sessions / drive_fleet
                                           — load generation
@@ -22,18 +28,18 @@ Public surface:
                                             the engine points drive the
                                             adaptation loop,
                                             har_tpu_torch.adapt)
-  fleet_slo_smoke / fleet_pipeline_smoke  — the serving checks
+  fleet_slo_smoke / fleet_pipeline_smoke / model_parallel_smoke
+                                          — the serving checks
   har_tpu_torch.serve.traffic             — elastic traffic on one
                                             server (TrafficTrace: diurnal/
                                             bursty/storm churn loadgen;
                                             CapacityController: online
-                                            target_batch / depth
+                                            target_batch / depth / mesh
                                             autoscaling)
 
-Not ported yet (ROADMAP.md Queue 1): mesh-sharded and model-parallel
-scorers and the ladder's mesh rungs (item 14); the cluster, wire
-transport, warm replicas, worker autoscaling and ``elastic_smoke``
-(item 15); the bench cells and the recovery benchmark (item 16).
+Not ported yet (ROADMAP.md Queue 1): the cluster, wire transport, warm
+replicas, worker autoscaling and ``elastic_smoke`` (item 15); the bench
+cells and the recovery benchmark (item 16).
 """
 
 from har_tpu_torch.serve.arena import PendingArena, SessionArena
@@ -87,6 +93,7 @@ from har_tpu_torch.serve.slo import (
     events_equal,
     fleet_pipeline_smoke,
     fleet_slo_smoke,
+    model_parallel_smoke,
 )
 from har_tpu_torch.serve.stats import FleetStats, HostProfile, StageHistogram
 from har_tpu_torch.serve.traffic import (
@@ -142,6 +149,7 @@ __all__ = [
     "host_plane_benchmark",
     "host_plane_summary",
     "make_scorer",
+    "model_parallel_smoke",
     "recovery_smoke",
     "restore_server",
     "run_kill_point",

@@ -55,7 +55,7 @@ The verdict of every point is the same three-part contract
 
 Port of the engine half of ``har_tpu/serve/chaos.py``: ``run_kill_point``
 and ``run_engine_kill_point`` take ``device=`` to run behind the device
-dispatch plane.  ``ENGINE_KILL_POINTS`` drive the adaptation engine
+dispatch plane, and ``mesh=`` behind a serving mesh.  ``ENGINE_KILL_POINTS`` drive the adaptation engine
 (har_tpu_torch.adapt); the cluster, ship, tail and gateway matrices
 wait for ROADMAP.md Queue 1 item 15.
 """
@@ -228,8 +228,13 @@ def run_kill_point(
     ``device`` (``"cuda"`` or ``"cpu"``) runs the whole matrix behind
     the device dispatch plane: the A/B models become two
     ``JitDemoModel``s on that device (the analytic pair has no device
-    program).  None keeps the analytic pair on the host.  A ``mesh``
-    (sharded serving) is not ported yet (ROADMAP.md Queue 1 item 14).
+    program).  None keeps the analytic pair on the host.  ``mesh`` (a
+    ``parallel.mesh.ServingMesh``) runs the matrix behind a mesh-backed
+    dispatch plane — a 2D ``(dp, tp)`` mesh serves through
+    ``ModelParallelScorer`` — with the demo pair on the mesh's first
+    device (``device`` defaults to it), and recovery re-places the
+    weights through the SAME table: placement is a runtime resource like
+    the mesh, never journaled.
 
     Runs under the FakeClock + DispatchFaults harness (periodic
     injected stalls on the fake clock: the fault plumbing is live, the
@@ -241,16 +246,13 @@ def run_kill_point(
     bit-identical-continuation contract must hold unchanged, because a
     ticket in flight is un-acked by construction.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "kill points behind a serving mesh are not ported yet: "
-            "ROADMAP.md Queue 1 item 14"
-        )
+    if mesh is not None and device is None:
+        device = mesh.devices.flat[0]
     if point in ENGINE_KILL_POINTS:
         return run_engine_kill_point(
             point, at=at, sessions=sessions, seed=seed,
             journal_dir=journal_dir, pipeline_depth=pipeline_depth,
-            device=device,
+            device=device, mesh=mesh,
         )
     if point not in KILL_POINTS:
         raise ValueError(f"unknown kill point {point!r}")
@@ -284,7 +286,7 @@ def run_kill_point(
             fault_hook=DispatchFaults(
                 stall_every=3, stall_ms=1.0, fake_clock=clock
             ),
-            clock=clock, model_version="A", journal=journal,
+            clock=clock, model_version="A", journal=journal, mesh=mesh,
         )
         for i in range(sessions):
             server.add_session(i)
@@ -346,6 +348,7 @@ def run_kill_point(
             fault_hook=DispatchFaults(
                 stall_every=3, stall_ms=1.0, fake_clock=clock2
             ),
+            mesh=mesh,
         )
         recovery_ms = (time.perf_counter() - t0) * 1e3
 
@@ -426,8 +429,8 @@ def run_random_kill(seed: int, mesh=None, device=None) -> dict:
     depth draw spans the full ticket ring {1, 2, 3, 4}: at depth >= 3
     several tickets are genuinely in flight at the kill instant, and
     every one of them must recover as ordinary un-acked pending.
-    ``device`` runs the draw behind the device dispatch plane (see
-    `run_kill_point`)."""
+    ``device`` and ``mesh`` run the draw behind the device dispatch
+    plane or a mesh (see `run_kill_point`)."""
     rng = np.random.default_rng((seed, 0xDEAD))
     point = KILL_POINTS[int(rng.integers(len(KILL_POINTS)))]
     at = _DEFAULT_AT[point] + int(rng.integers(0, 3))
@@ -456,7 +459,7 @@ def run_random_kill(seed: int, mesh=None, device=None) -> dict:
 def run_engine_kill_point(
     point: str, *, at: int | None = None, sessions: int = 8, seed: int = 0,
     journal_dir: str | None = None, pipeline_depth: int = 1,
-    device=None,
+    device=None, mesh=None,
 ) -> dict:
     """Kill inside the adaptation controller's registry transitions —
     after ``registry.promote`` but before the fleet swap applies
@@ -470,7 +473,7 @@ def run_engine_kill_point(
     JAX package's mesh run has it, and probation's reverse-shadow
     floor, which such a pair would breach as soon as 16 windows are
     scored): the matrix tests the journaled transition, not candidate
-    quality."""
+    quality.  ``mesh`` serves it behind a mesh, as in `run_kill_point`."""
     import shutil
 
     from har_tpu_torch.adapt.registry import ModelRegistry
@@ -481,6 +484,8 @@ def run_engine_kill_point(
 
     if point not in ENGINE_KILL_POINTS:
         raise ValueError(f"unknown engine kill point {point!r}")
+    if mesh is not None and device is None:
+        device = mesh.devices.flat[0]
     at = _DEFAULT_AT[point] if at is None else at
     tmp = None
     if journal_dir is None:
@@ -530,7 +535,7 @@ def run_engine_kill_point(
                 max_sessions=sessions, max_delay_ms=0.0, retries=0,
                 pipeline_depth=pipeline_depth,
             ),
-            clock=clock, fault_hook=faults, journal=journal,
+            clock=clock, fault_hook=faults, journal=journal, mesh=mesh,
         )
         rng = np.random.default_rng((seed, 77))
         recs = [
@@ -586,7 +591,8 @@ def run_engine_kill_point(
         # ---- recovery ----------------------------------------------------
         t0 = time.perf_counter()
         clock2 = FakeClock(clock.t)
-        restored = FleetServer.restore(journal_dir, loader, clock=clock2)
+        restored = FleetServer.restore(journal_dir, loader, clock=clock2,
+                                       mesh=mesh)
         registry2 = ModelRegistry(reg_root, clock=clock2)
         engine2 = adaptation(restored, registry2, clock2, resume=True,
                              loader=loader)

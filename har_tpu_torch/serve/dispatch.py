@@ -1,7 +1,7 @@
 """Pipelined batch dispatch for the fleet engine.
 
-Port of ``har_tpu/serve/dispatch.py`` for one device.  The engine
-composes three pieces:
+Port of ``har_tpu/serve/dispatch.py``.  The engine composes three
+pieces:
 
   ``StagingArena`` — a preallocated contiguous ``(capacity, window,
     channels)`` staging block for queued windows (numpy, copied).  The
@@ -30,9 +30,19 @@ composes three pieces:
                           transform`` uses — probs are bit-identical to
                           the synchronous path.
 
-    A mesh-sharded scorer (``ShardedScorer`` / ``ModelParallelScorer``)
-    is not ported yet (ROADMAP.md Queue 1 item 14): ``make_scorer`` with
-    a mesh raises ``NotImplementedError``.
+      ``ShardedScorer`` — a DeviceScorer over a single-controller
+                          serving mesh (``parallel.mesh.ServingMesh``):
+                          rows split over the data axes, padded to
+                          ``devices × pow2`` (``serving.pad_shard``);
+                          each data shard's device holds a replica and
+                          scores its own rows with no collective, and
+                          the outputs are gathered to the engine's
+                          device in device order.
+      ``ModelParallelScorer`` — a ShardedScorer whose weights are placed
+                          once over the ``tp`` axis by the family's rule
+                          table; each data shard runs the tensor-
+                          parallel forward of ``serve.model_parallel``
+                          (K2 on each device's heads for a transformer).
 
 The staging copy is synchronous (a pageable ``.to(device)``; on the CPU
 the forward itself runs inside ``launch``), so a slab the engine
@@ -56,7 +66,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from har_tpu_torch.serving import pad_pow2
+from har_tpu_torch.serving import pad_pow2, pad_shard
 
 class NoDeviceProgram(ValueError):
     """The model has no device forward to launch (trees, MLlib replicas,
@@ -476,6 +486,8 @@ class DeviceProgram:
     device: torch.device
     params: tuple = ()
     supports_fused: bool = True
+    # the forward on another device, where it is not a module to copy
+    replicate: Callable | None = None
 
 
 def _split_predict(model):
@@ -519,6 +531,26 @@ def _split_predict(model):
 def _synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _fused_program(forward, pre, device):
+    """cast to f32 → scaler on ``device`` → logits → softmax in f32 →
+    argmax (int32) + top-prob, as one function of a device tensor."""
+    mean = std = None
+    if pre is not None:
+        mean = torch.as_tensor(np.asarray(pre.mean, np.float32), device=device)
+        std = torch.as_tensor(np.asarray(pre.std, np.float32), device=device)
+
+    @torch.no_grad()
+    def fused(x):
+        x = x.to(torch.float32)
+        if mean is not None:
+            x = (x - mean) / std
+        probs = torch.softmax(forward(x).to(torch.float32), dim=-1)
+        labels = torch.argmax(probs, dim=-1).to(torch.int32)
+        return labels, probs.amax(dim=-1)
+
+    return fused
 
 
 class DeviceScorer:
@@ -575,6 +607,13 @@ class DeviceScorer:
         # runs to its end inside launch)
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
+    def _run(self, x):
+        """The bare forward on placed input: device logits."""
+        return self._program.forward(x)
+
+    def _sync(self) -> None:
+        _synchronize(self.device)
+
     def _wait_rtt(self, handle):
         if not self.tunnel_rtt_ms:
             return handle
@@ -593,7 +632,7 @@ class DeviceScorer:
         x = windows if self._pre is None else self._pre.transform(windows)
         x = self._place(np.asarray(x, np.float32))
         with torch.no_grad():
-            handle = self._program.forward(x)
+            handle = self._run(x)
         if self.tunnel_rtt_ms:
             return (handle, time.perf_counter())
         return handle
@@ -628,26 +667,7 @@ class DeviceScorer:
                 if entry_pre is pre:
                     self._fused = fn
                     return fn
-            device = self._program.device
-            mean = std = None
-            if pre is not None:
-                mean = torch.as_tensor(
-                    np.asarray(pre.mean, np.float32), device=device
-                )
-                std = torch.as_tensor(
-                    np.asarray(pre.std, np.float32), device=device
-                )
-            forward = self._program.forward
-
-            @torch.no_grad()
-            def fused(x):
-                x = x.to(torch.float32)
-                if mean is not None:
-                    x = (x - mean) / std
-                probs = torch.softmax(forward(x).to(torch.float32), dim=-1)
-                labels = torch.argmax(probs, dim=-1).to(torch.int32)
-                return labels, probs.amax(dim=-1)
-
+            fused = _fused_program(self._program.forward, pre, self._program.device)
             self._fused = fused
             entries.append((pre, fused))
         return self._fused
@@ -704,21 +724,19 @@ class DeviceScorer:
         and ``dispatch_p99_attribution`` stay honest when the engine
         serves fused.  Every call (one warm-up and ``iters`` timed) runs
         the model's forward once."""
-        device = self._program.device
-        x = torch.zeros(
-            (int(batch), self.model_window, self.model_channels),
-            dtype=torch.float32, device=device,
-        )
-        fn = self._fused_fn() if fused else self._program.forward
+        x = self._place(np.zeros(
+            (int(batch), self.model_window, self.model_channels), np.float32,
+        ))
+        fn = self._fused_fn() if fused else self._run
         self._programs.add(("fused" if fused else "bare", int(batch)))
         times = []
         with torch.no_grad():
             fn(x)  # warm
-            _synchronize(device)
+            self._sync()
             for _ in range(iters):
                 t0 = time.perf_counter()
                 fn(x)
-                _synchronize(device)
+                self._sync()
                 times.append((time.perf_counter() - t0) * 1e3)
         return {
             "batch": int(batch),
@@ -731,16 +749,174 @@ class DeviceScorer:
     # geometry for measure(); the engine stamps these after construction
     model_window = 200
     model_channels = 3
-    # model-axis shard count: 1 until a model-parallel scorer is ported
+    # model-axis shard count: 1 everywhere except ModelParallelScorer
     model_axis_shards = 1
+
+
+def _canonical(device) -> torch.device:
+    """``cuda`` with its index filled in, so one card compares equal to
+    itself however it was named."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+class ShardedScorer(DeviceScorer):
+    """DeviceScorer with the batch split over a serving mesh.
+
+    The mesh is a single-controller ``parallel.mesh.ServingMesh``: rows
+    split over its data axes, one block a data shard, each placed on its
+    shard's first device with one host-to-device copy; that device holds
+    a replica of the model (the model's own program where the devices
+    are one, a copy of its module or its artifact loaded again on any
+    other, made when the scorer is built) and scores its own rows, with
+    no collective.  The shards'
+    logits are gathered to the engine's device in device order.  Batches
+    pad to ``devices × pow2`` (``serving.pad_shard``), so per device
+    count the program budget stays the same log2 ladder the single-device
+    policy pins.
+    """
+
+    kind = "sharded"
+
+    def __init__(self, model, mesh, *, replicas: bool = True):
+        super().__init__(model)
+        from har_tpu_torch.parallel.mesh import data_shard_count
+
+        self.mesh = mesh
+        self.devices = data_shard_count(mesh)
+        grid = mesh.devices.reshape(self.devices, -1)
+        self._shard_devices = [_canonical(d) for d in grid[:, 0]]
+        # one label per mesh cell, its position in the grid (the JAX
+        # package's device ids on its dry-run mesh): every cell's share
+        # of a batch lands in the device-windows gauge
+        self.device_labels = tuple(str(k) for k in range(grid.size))
+        self._replicas: dict = {}
+        if replicas:
+            for i in range(self.devices):
+                self._shard_forward(i)
+
+    def pad(self, windows: np.ndarray) -> np.ndarray:
+        return pad_shard(windows, self.devices)
+
+    def pad_size(self, k: int) -> int:
+        per = -(-max(int(k), 1) // self.devices)
+        return self.devices * (1 << (per - 1).bit_length())
+
+    def _place(self, x: np.ndarray) -> list:
+        # one synchronous copy a shard, as DeviceScorer._place
+        x = np.ascontiguousarray(x)
+        per = len(x) // self.devices
+        return [
+            torch.from_numpy(x[i * per:(i + 1) * per]).to(d)
+            for i, d in enumerate(self._shard_devices)
+        ]
+
+    def _shard_forward(self, i: int):
+        """Data shard ``i``'s forward: the model's program on its own
+        device, a copy of its module (or the program's own replica) on
+        any other."""
+        device = self._shard_devices[i]
+        fwd = self._replicas.get(device)
+        if fwd is None:
+            fwd = self._program.forward
+            if device != _canonical(self._program.device):
+                if isinstance(fwd, torch.nn.Module):
+                    import copy
+
+                    fwd = copy.deepcopy(fwd).to(device)
+                elif self._program.replicate is not None:
+                    fwd = self._program.replicate(device)
+                else:
+                    raise ValueError(
+                        f"{type(self.model).__name__}'s program cannot be "
+                        f"copied to {device}"
+                    )
+            self._replicas[device] = fwd
+        return fwd
+
+    def _gather(self, outs):
+        return torch.cat([o.to(self.device) for o in outs])
+
+    def _run(self, parts):
+        return self._gather([self._shard_forward(i)(x) for i, x in enumerate(parts)])
+
+    def _sync(self) -> None:
+        for d in {_canonical(d) for d in (*self.mesh.devices.flat, self.device)}:
+            _synchronize(d)
+
+    def _fused_fn(self):
+        if self._fused is None:
+            progs = [
+                _fused_program(self._shard_forward(i), self._pre, d)
+                for i, d in enumerate(self._shard_devices)
+            ]
+
+            def fused(parts):
+                outs = [f(x) for f, x in zip(progs, parts)]
+                return (self._gather([o[0] for o in outs]),
+                        self._gather([o[1] for o in outs]))
+
+            self._fused = fused
+        return self._fused
+
+
+class ModelParallelScorer(ShardedScorer):
+    """ShardedScorer with the WEIGHTS placed over the mesh's model axis.
+
+    The 2D ``(dp, tp)`` layout: rows split over the data axes exactly as
+    in ShardedScorer (``pad_shard`` pads per BATCH-shard count), while the
+    model's weight leaves split over ``tp`` in the layout of the family's
+    partition-rule table (``parallel.rules``, the tables the tp trainer
+    reads; ``rules`` overrides it).  Placement happens ONCE, here; every
+    launch (bare, fused, calibration) runs the tensor-parallel forward of
+    ``serve.model_parallel`` on the placed leaves, one data shard at a
+    time.  Per-device residency is the sharded leaves' 1/tp share,
+    reported by ``params_bytes``.
+
+    The placement is a runtime resource like the mesh: a journal recovery
+    or an engine ``resize`` onto a model-axis mesh rebuilds the scorer,
+    which re-places the weights through the same table.  A model this
+    layout that does not divide the mesh raises
+    ``model_parallel.NotModelParallel``, and ``make_scorer`` takes the
+    batch-only rung; a family with no tensor-parallel forward here raises
+    ``model_parallel.NoTensorParallelForward``, which it lets through.
+    """
+
+    kind = "model_parallel"
+
+    def __init__(self, model, mesh, rules=None):
+        super().__init__(model, mesh, replicas=False)
+        from har_tpu_torch.parallel.mesh import model_shard_count
+        from har_tpu_torch.serve.model_parallel import tp_program
+
+        self._tp = tp_program(model, self._program, mesh, rules)
+        self.rules = self._tp.rules
+        self.param_specs = self._tp.specs
+        self.model_axis_shards = model_shard_count(mesh)
+
+    def _shard_forward(self, i: int):
+        return lambda x: self._tp.forward_row(i, x)
+
+    def params_bytes(self) -> dict:
+        return self._tp.params_bytes()
 
 
 def make_scorer(model, mesh=None, *, tier: str = "f32",
                 window: int = 200, channels: int = 3, rules=None):
-    """The one scorer-selection policy: a model with a device forward
-    gets the async single-device path, and everything else (the models
-    :func:`_split_predict` refuses with :class:`NoDeviceProgram`) the
-    synchronous HostScorer.  Any other error propagates: a device
+    """The one scorer-selection policy: a mesh with a model axis
+    (``tp > 1``) gets the 2D model-parallel path (weights placed once via
+    the family's partition-rule table — ``rules`` overrides the
+    auto-detected table), any other >1-device mesh the batch-sharded
+    path, a model with a device forward the async single-device path,
+    and everything else (the models :func:`_split_predict` refuses with
+    :class:`NoDeviceProgram`) the synchronous HostScorer.  A host model,
+    or a layout that does not divide the mesh (hidden dims or heads),
+    takes the next rung down, as in the JAX package; any other error
+    propagates: a family with no tensor-parallel forward in the port
+    (``model_parallel.NoTensorParallelForward``) is refused on a model
+    axis rather than served on fewer devices than asked, and a device
     program that fails to build is never quietly served on the host.
     Model swaps rebuild the scorer — the engine calls this again with
     the new model.
@@ -750,15 +926,7 @@ def make_scorer(model, mesh=None, *, tier: str = "f32",
     ticket / fused-program interface; a model that is already
     int8-backed (``Int8ServingModel``, an int8 artifact) passes through
     unchanged, and a host-only model raises ValueError (there is no
-    device program to quantize).
-
-    A ``mesh`` (batch- or model-sharded serving) is not ported yet."""
-    if mesh is not None or rules is not None:
-        raise NotImplementedError(
-            "sharded and model-parallel serving (ShardedScorer, "
-            "ModelParallelScorer) are not ported yet: ROADMAP.md Queue 1 "
-            "item 14"
-        )
+    device program to quantize)."""
     if tier == "int8":
         from har_tpu_torch.quantize import Int8ServingModel, quantize_serving
 
@@ -768,10 +936,26 @@ def make_scorer(model, mesh=None, *, tier: str = "f32",
             model = quantize_serving(model)
     elif tier != "f32":
         raise ValueError(f"unknown serving tier {tier!r}")
-    try:
-        scorer = DeviceScorer(model)
-    except NoDeviceProgram:
-        scorer = HostScorer(model)
+    scorer = None
+    if mesh is not None:
+        from har_tpu_torch.parallel.mesh import data_shard_count, model_shard_count
+        from har_tpu_torch.serve.model_parallel import NotModelParallel
+
+        if model_shard_count(mesh) > 1:
+            try:
+                scorer = ModelParallelScorer(model, mesh, rules=rules)
+            except (NoDeviceProgram, NotModelParallel):
+                scorer = None
+        if scorer is None and data_shard_count(mesh) > 1:
+            try:
+                scorer = ShardedScorer(model, mesh)
+            except NoDeviceProgram:
+                scorer = None
+    if scorer is None:
+        try:
+            scorer = DeviceScorer(model)
+        except NoDeviceProgram:
+            scorer = HostScorer(model)
     scorer.model_window = int(window)
     scorer.model_channels = int(channels)
     return scorer

@@ -46,9 +46,10 @@ amortizes.  ``push`` ingests, ``poll`` dispatches what is due,
 async transport shim).
 
 Port of ``har_tpu/serve/engine.py``, whole (numpy; the model runs on
-its own device behind ``serve.dispatch``).  The port serves on one
-device: ``mesh=`` and ``resize(mesh=...)`` naming a mesh raise
-``NotImplementedError`` (ROADMAP.md Queue 1 item 14).  The session
+its own device behind ``serve.dispatch``).  ``mesh=`` takes a
+single-controller ``parallel.mesh.ServingMesh`` (``ShardedScorer`` /
+``ModelParallelScorer``), and ``resize(mesh=...)`` moves onto and off
+one at a dispatch boundary.  The session
 hand-off methods (``export_session`` / ``adopt_session`` /
 ``handoff_session``) are kept for the cluster (item 15).
 """
@@ -99,18 +100,14 @@ from har_tpu_torch.serving import (
 _MESH_UNSET = object()
 
 
-_MESH_NOT_PORTED = (
-    "mesh-sharded serving is not ported yet: ROADMAP.md Queue 1 item 14"
-)
-
-
 def _mesh_devices(mesh) -> int:
     """Data-shard count of a dispatch mesh (1 for no mesh) — the
-    capacity-direction arithmetic's device factor.  The port serves on
-    one device: any mesh raises."""
+    capacity-direction arithmetic's device factor."""
     if mesh is None:
         return 1
-    raise NotImplementedError(_MESH_NOT_PORTED)
+    from har_tpu_torch.parallel.mesh import data_shard_count
+
+    return data_shard_count(mesh)
 
 
 class AdmissionError(RuntimeError):
@@ -332,8 +329,6 @@ class FleetServer:
         journal_config: JournalConfig | None = None,
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(_MESH_NOT_PORTED)
         if window <= 0 or hop <= 0:
             raise ValueError("window and hop must be positive")
         if smoothing not in ("ema", "vote", "none"):

@@ -1,0 +1,332 @@
+"""Tensor-parallel forwards of served models on a single-controller mesh.
+
+The JAX package's ``ModelParallelScorer`` places a checkpoint's leaves by
+its family's partition-rule table and lets GSPMD insert the collectives
+the layout implies.  The port has no compiler to do that, so this module
+runs the layout itself, one data shard (one row of ``tp`` devices of a
+:class:`~har_tpu_torch.parallel.mesh.ServingMesh`) at a time, for the
+families a fleet serves:
+
+- ``JitDemoModel``'s ``tanh(x @ w1 + b1) @ w2``, placed by the generated
+  ``alternating_rules`` table on its weights in ``(out, in)`` layout, and
+  its int8 tier (``quantize_serving``) by ``INT8_RULES`` on the stored
+  int8 leaves in their ``(in, out)`` layout;
+- the neural MLP (``DENSE_MLP_RULES`` or its ``alternating_rules``) and
+  ``Transformer1D`` under ``TRANSFORMER_RULES``: the model's own forward
+  runs on a copy of the module whose ``Dense`` layers are swapped for
+  layers of the table's layout and whose encoder blocks attend on each
+  device's heads.
+
+Each weight leaf sits on each device as its block of the table's spec
+(``rules.place_local``); activations are whole on the row's first device
+between layers.  A column-parallel layer (output dim sharded) runs on
+each device over the whole input and its output blocks are gathered in
+device order; a row-parallel layer (input dim sharded) runs on each
+device over its block of the input, and the partial sums, taken in
+float32 over the operands rounded to the layer's dtype, are added on the
+first device in device order (so one mesh gives the same bits twice),
+the bias after and the sum rounded once; a replicated layer runs on the
+first device.  ``qkv``'s column split cuts across q | k | v, so the
+``(B, T, 3E)`` projection is gathered, and each device then runs kernel
+K2 on its own heads, ``(B/dp, T, H/tp, D)``; ``proj``'s row-parallel
+input split is the split by heads.  On CUDA tensors K2 launches or
+raises; nothing falls back to the plain attention.
+
+A layout whose sharded dims or heads do not divide the mesh raises
+:class:`NotModelParallel` (a ``ValueError``), and ``dispatch.make_scorer``
+then takes the batch-only rung, as the JAX package does.  A family with
+no tensor-parallel forward here (CNN1D, BiLSTM, the int8 tier of a
+neural family, an exported program) raises
+:class:`NoTensorParallelForward`, which ``make_scorer`` lets through: a
+model axis that was asked for is never quietly dropped.
+"""
+
+from __future__ import annotations
+
+import copy
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from har_tpu_torch.parallel.mesh import TP_AXIS
+from har_tpu_torch.parallel.rules import (
+    INT8_RULES,
+    P,
+    match_partition_rules,
+    place_local,
+    rules_for_params,
+    shard_divisibility_check,
+    spec_shard_count,
+)
+
+
+class NotModelParallel(ValueError):
+    """The layout does not divide this mesh: serve the model
+    batch-sharded instead."""
+
+
+class NoTensorParallelForward(ValueError):
+    """The model's family has no tensor-parallel forward in the port:
+    serve it on a mesh with no model axis."""
+
+
+def _kind(spec, ndim: int) -> str:
+    """How a weight of the port's ``(out, in)`` layout is split: ``col``
+    (output dim over ``tp``), ``row`` (input dim) or ``rep``."""
+    entries = tuple(spec) + (None,) * (ndim - len(tuple(spec)))
+    if all(e is None for e in entries):
+        return "rep"
+    if ndim == 2 and entries == (TP_AXIS, None):
+        return "col"
+    if ndim == 2 and entries == (None, TP_AXIS):
+        return "row"
+    raise NoTensorParallelForward(f"no tensor-parallel layer for a weight placed {spec}")
+
+
+class _Row:
+    """One data shard: its tp devices and each leaf's local tensors."""
+
+    def __init__(self, devices, leaves: dict, specs: dict):
+        self.devices = devices
+        self.leaves = leaves
+        self.specs = specs
+
+    def leaf(self, name: str):
+        """A leaf whole, on the row's first device (a block-split 1-D leaf
+        is concatenated)."""
+        parts = self.leaves[name]
+        if all(e is None for e in tuple(self.specs[name])):
+            return parts[0]
+        if parts[0].dim() != 1:
+            raise NoTensorParallelForward(f"leaf {name!r} must be replicated")
+        return torch.cat([p.to(self.devices[0]) for p in parts])
+
+    def _bias_block(self, name, j: int, size: int):
+        parts = self.leaves[name]
+        if any(e is not None for e in tuple(self.specs[name])):
+            return parts[j]
+        return parts[j].narrow(0, j * size, size)
+
+    def linear(self, x, weight: str, bias: str | None, dtype):
+        """``x @ Wᵀ + b`` (``Dense``'s cast to ``dtype`` at use) in the
+        layout of ``weight``'s spec; ``x`` and the result whole on the
+        row's first device."""
+        ws = self.leaves[weight]
+        d0 = self.devices[0]
+        kind = _kind(self.specs[weight], ws[0].dim())
+        if kind == "col":
+            return torch.cat([
+                F.linear(x.to(d).to(dtype), w.to(dtype),
+                         None if bias is None
+                         else self._bias_block(bias, j, w.shape[0]).to(dtype)).to(d0)
+                for j, (d, w) in enumerate(zip(self.devices, ws))
+            ], -1)
+        if kind == "row":
+            size = ws[0].shape[1]
+            total = None
+            for j, (d, w) in enumerate(zip(self.devices, ws)):
+                # partial sums of the dtype-rounded operands in float32,
+                # added in device order and rounded once, as the
+                # unsharded layer accumulates its one product
+                xj = x.narrow(-1, j * size, size).to(d)
+                part = F.linear(xj.to(dtype).float(), w.to(dtype).float()).to(d0)
+                total = part if total is None else total + part
+            if bias is not None:
+                total = total + self.leaf(bias).to(dtype).float()
+            return total.to(dtype)
+        return F.linear(x.to(dtype), ws[0].to(dtype),
+                        None if bias is None else self.leaf(bias).to(dtype))
+
+    def attention(self, attend, q, k, v, seg=None):
+        """``attend`` on each device's heads of (B, T, H, D) ``q``, ``k``,
+        ``v`` (views the kernel reads through their strides); the heads
+        come back to the first device in order."""
+        hl = q.shape[2] // len(self.devices)
+        d0 = self.devices[0]
+        return torch.cat([
+            attend(*(u[:, :, j * hl:(j + 1) * hl].to(d) for u in (q, k, v)), seg).to(d0)
+            for j, d in enumerate(self.devices)
+        ], dim=2)
+
+
+class _RowDense(nn.Module):
+    """A ``Dense`` of a placed copy: ``_Row.linear`` on the row's blocks
+    of its weight and bias."""
+
+    def __init__(self, row: _Row, name: str, dtype):
+        super().__init__()
+        self.row, self.name, self.dtype = row, name, dtype
+
+    def forward(self, x):
+        return self.row.linear(x, f"{self.name}.weight", f"{self.name}.bias", self.dtype)
+
+
+def _placed_module(module, row: _Row):
+    """A copy of ``module`` for one row, none of its weights copied: each
+    ``Dense`` swapped for a :class:`_RowDense`, every other parameter the
+    row's replicated leaf on its first device, and each encoder block's
+    ``attend`` run on the devices' heads."""
+    from har_tpu_torch.models.transformer import Dense, EncoderBlock
+
+    placed = copy.deepcopy(module, {id(p): None for p in module.parameters()})
+    for name, sub in list(placed.named_modules()):
+        if isinstance(sub, Dense):
+            parent, _, child = name.rpartition(".")
+            setattr(placed.get_submodule(parent), child, _RowDense(row, name, sub.dtype))
+    for name, sub in placed.named_modules():
+        if isinstance(sub, _RowDense):
+            continue
+        for key in sub._parameters:
+            full = f"{name}.{key}" if name else key
+            sub._parameters[key] = nn.Parameter(row.leaf(full), requires_grad=False)
+        if isinstance(sub, EncoderBlock):
+            sub.attend = functools.partial(row.attention, type(sub).attend.__get__(sub))
+    return placed.to(row.devices[0])
+
+
+def _demo_forward(row: _Row, x):
+    h = torch.tanh(row.linear(x.reshape(x.shape[0], -1), "w1", "b1", torch.float32))
+    return row.linear(h, "w2", None, torch.float32)
+
+
+def _specs(table, tree, mesh):
+    """``table`` resolved against ``tree``; a sharded dim that does not
+    divide its mesh axis refuses the placement."""
+    specs = match_partition_rules(table, tree)
+    try:
+        shard_divisibility_check(tree, specs, mesh)
+    except ValueError as exc:
+        raise NotModelParallel(str(exc)) from exc
+    return specs
+
+
+class TPProgram:
+    """A model's forward over a serving mesh: its leaves placed once by a
+    rule table, one data shard run at a time (:meth:`forward_row`).
+    ``row_forward`` makes a row's forward from its :class:`_Row`."""
+
+    def __init__(self, row_forward, tree: dict, specs: dict, mesh, rules):
+        self.rules = rules
+        self.tree = tree
+        self.specs = specs
+        self.mesh = mesh
+        tp = mesh.devices.shape[-1]
+        rows = mesh.devices.reshape(-1, tp)
+        # leaf name -> (data shard, tp index) grid of local tensors
+        placed = {name: place_local(mesh, specs[name], t).reshape(-1, tp)
+                  for name, t in tree.items()}
+        self._forwards = [
+            row_forward(_Row(list(devices), {n: c[i] for n, c in placed.items()}, specs))
+            for i, devices in enumerate(rows)
+        ]
+
+    def forward_row(self, i: int, x):
+        """Logits of data shard ``i``'s rows (on that row's first
+        device)."""
+        return self._forwards[i](x)
+
+    def params_bytes(self) -> dict:
+        """The placed leaves' bytes: total, and one device's share (each
+        leaf divided by its spec's shard count)."""
+        total = per_device = 0
+        for name, t in self.tree.items():
+            nbytes = int(t.numel()) * t.element_size()
+            total += nbytes
+            per_device += nbytes // spec_shard_count(self.mesh, self.specs[name])
+        return {"total": total, "per_device": per_device}
+
+
+def _int8_demo(model, mesh, rules):
+    """The int8 tier of ``JitDemoModel``: the stored leaves ``[b1, w1,
+    w2]`` (int8 kernels in their ``(in, out)`` layout) placed by
+    position (``INT8_RULES``), each scale with its kernel's output dim;
+    a device dequantizes its blocks (``int8 → f32 × scale``, as the
+    single-device forward does) into the ``(out, in)`` leaves of the
+    demo's forward."""
+    stored = list(model.stored)
+    names = ("b1", "w1", "w2")
+    if len(stored) != 3:
+        raise NoTensorParallelForward("an int8 program of an unexpected shape")
+    tree, kernels = {}, {}
+    for i, (name, s) in enumerate(zip(names, stored)):
+        tree[str(i)] = torch.from_numpy(np.ascontiguousarray(s.value))
+        if s.kind == "q8":
+            kernels[str(i)] = name
+    table = INT8_RULES if rules is None else rules
+    specs = dict(zip(tree, _specs(table, list(tree.values()), mesh)))
+    for key in kernels:
+        out_spec = (tuple(specs[key]) + (None, None))[1]
+        tree[f"s{key}"] = torch.from_numpy(np.ascontiguousarray(stored[int(key)].scale))
+        specs[f"s{key}"] = P(out_spec)
+
+    def dequant(grid):
+        leaves, out_specs = {}, {}
+        for key, name in zip(("0", "1", "2"), names):
+            if key in kernels:
+                leaves[name] = [(q.to(torch.float32) * s).t()
+                                for q, s in zip(grid[key], grid[f"s{key}"])]
+                out_specs[name] = P(*reversed((tuple(specs[key]) + (None, None))[:2]))
+            else:
+                leaves[name], out_specs[name] = grid[key], specs[key]
+        return leaves, out_specs
+
+    def row_forward(row):
+        # dequantized at every call, as the single-device forward does:
+        # the int8 blocks are what stays on the devices
+        return lambda x: _demo_forward(_Row(row.devices, *dequant(row.leaves)), x)
+
+    return TPProgram(row_forward, tree, specs, mesh, table)
+
+
+def tp_program(model, program, mesh, rules=None) -> TPProgram:
+    """The tensor-parallel program of a served model on ``mesh``.
+    ``program`` is the model's ``dispatch.DeviceProgram``; ``rules``
+    overrides the family's table.  Raises :class:`NotModelParallel` for
+    a layout whose sharded dims do not divide the mesh or heads that do
+    not divide ``tp``, and :class:`NoTensorParallelForward` for a family
+    with no tensor-parallel forward here."""
+    from har_tpu_torch.models.neural import MLP
+    from har_tpu_torch.models.transformer import Transformer1D
+    from har_tpu_torch.quantize import Int8Forward
+    from har_tpu_torch.serve.loadgen import _DemoMLP
+
+    fwd = program.forward
+    if isinstance(fwd, Int8Forward):
+        if isinstance(fwd.core.module, _DemoMLP) and hasattr(model, "stored"):
+            return _int8_demo(model, mesh, rules)
+        raise NoTensorParallelForward(
+            "the int8 tier of a neural family has no tensor-parallel forward"
+        )
+    if not isinstance(fwd, nn.Module):
+        raise NoTensorParallelForward(f"{type(model).__name__} serves an exported program")
+    if isinstance(fwd, _DemoMLP):
+        # the demo keeps JAX's (in, out) weights: its table is read on
+        # the (out, in) layout every other family has
+        tree = {"w1": fwd.w1.detach().t(), "b1": fwd.b1.detach(), "w2": fwd.w2.detach().t()}
+        row_forward = lambda row: functools.partial(_demo_forward, row)  # noqa: E731
+    elif isinstance(fwd, (MLP, Transformer1D)):
+        tree = {k: v.detach() for k, v in fwd.named_parameters()}
+        row_forward = functools.partial(_placed_module, fwd)
+        if isinstance(fwd, Transformer1D) and fwd.sp_axis is not None:
+            raise NoTensorParallelForward("a sequence-sharded transformer has no "
+                                          "tensor-parallel forward")
+    else:
+        raise NoTensorParallelForward(
+            f"{type(fwd).__name__} has no tensor-parallel forward"
+        )
+    table = rules_for_params(tree) if rules is None else rules
+    specs = _specs(table, tree, mesh)
+    for name, spec in specs.items():
+        if tree[name].dim() == 2:
+            _kind(spec, 2)
+    if isinstance(fwd, Transformer1D):
+        tp = dict(zip(mesh.mesh_dim_names, mesh.shape)).get(TP_AXIS, 1)
+        heads = fwd.blocks[0].num_heads if len(fwd.blocks) else tp
+        if heads % tp:
+            raise NotModelParallel(
+                f"num_heads {heads} not divisible by mesh axis {TP_AXIS!r}={tp}"
+            )
+    return TPProgram(row_forward, tree, specs, mesh, table)

@@ -14,8 +14,10 @@ the two properties the fleet engine ships on:
 serving counterpart of the published test counts: generated from a run,
 never typed.
 
-Port of ``har_tpu/serve/slo.py`` on one device; ``model_parallel_smoke``
-waits for ROADMAP.md Queue 1 item 14.
+Port of ``har_tpu/serve/slo.py``.  Its meshes are single-controller
+``parallel.mesh.ServingMesh``es: distinct visible cards on CUDA, or the
+CPU repeated where a caller passes such a mesh (``mesh=``), as the JAX
+package's dry-run mesh splits the host.
 """
 
 from __future__ import annotations
@@ -127,18 +129,19 @@ def fleet_pipeline_smoke(
     tunnel_rtt_ms: float = 5.0,
     fused: bool = True,
     seed: int = 0,
+    max_devices: int = 8,
     device: str = "cuda",
     model=None,
     window: int = 200,
     fake_clock: bool = False,
+    mesh=None,
 ) -> dict:
     """The pipelined-dispatch check: the SAME load run once synchronous
-    (depth 1, unfused — the reference) and once through the full hot
-    path (depth-3 ticket ring, FUSED device program), with the decision
-    streams compared per session.  The JAX package's smoke also shards
-    the second run over a mesh when several devices are visible; the
-    port serves on one device (a mesh waits for ROADMAP.md Queue 1
-    item 14).
+    (depth 1, single device, unfused — the reference) and once through
+    the full hot path (depth-3 ticket ring, batch-sharded over ``mesh``
+    — by default over up to ``max_devices`` distinct visible cards when
+    ``device`` is CUDA and there are several — FUSED device program),
+    with the decision streams compared per session.
 
     Verdict contract:
       - every session's (t_index, label, raw_label, drift) sequence is
@@ -167,9 +170,17 @@ def fleet_pipeline_smoke(
     round a row differently in batches of different sizes, which the
     1e-6 confidence check would read as a fault of the fused program.
     """
+    import torch
+
+    from har_tpu_torch.parallel.mesh import create_serving_mesh, serving_devices
     from har_tpu_torch.serve.faults import FakeClock
     from har_tpu_torch.serve.loadgen import JitDemoModel
 
+    if mesh is None and torch.device(device).type == "cuda":
+        n_dev = min(int(max_devices), torch.cuda.device_count())
+        if n_dev > 1:
+            mesh = create_serving_mesh(dp=n_dev, tp=1,
+                                       devices=serving_devices(n_dev, device))
     if model is None:
         model = JitDemoModel(window=window, tunnel_rtt_ms=tunnel_rtt_ms,
                              device=device)
@@ -178,7 +189,7 @@ def fleet_pipeline_smoke(
         window=window,
     )
 
-    def one_run(depth, run_fused):
+    def one_run(depth, run_mesh, run_fused):
         server = FleetServer(
             model, window=window, hop=window, smoothing="none",
             config=FleetConfig(
@@ -188,6 +199,7 @@ def fleet_pipeline_smoke(
                 fused=run_fused,
             ),
             clock=FakeClock() if fake_clock else None,
+            mesh=run_mesh,
         )
         for i in range(sessions):
             server.add_session(i)
@@ -197,8 +209,8 @@ def fleet_pipeline_smoke(
             by_sid[ev.session_id].append(ev.event)
         return server, report, by_sid
 
-    s1, r1, ref = one_run(1, False)
-    s2, r2, got = one_run(pipeline_depth, fused)
+    s1, r1, ref = one_run(1, None, False)
+    s2, r2, got = one_run(pipeline_depth, mesh, fused)
 
     equivalent = True
     for i in range(sessions):
@@ -264,6 +276,140 @@ def fleet_pipeline_smoke(
                  # no time passes on a FakeClock: the evidence of the
                  # ring is several tickets in flight at once instead
                  else max(map(int, snap2["inflight_depth"]), default=0) > 1)
+        ),
+    }
+
+
+def model_parallel_smoke(
+    sessions: int = 48,
+    *,
+    windows_per_session: int = 2,
+    target_batch: int = 16,
+    pipeline_depth: int = 2,
+    dp: int = 2,
+    tp: int = 4,
+    seed: int = 11,
+    device: str = "cuda",
+    mesh=None,
+    model=None,
+    window: int = 200,
+    atol: float = 1e-6,
+) -> dict:
+    """The model-parallel check: the SAME load run once on a single
+    device and once on the 2D ``dp × tp`` (batch × model) mesh through a
+    ``ModelParallelScorer`` — weights placed ONCE via the partition-rule
+    table, then served behind the ordinary ticket ring.
+
+    Verdict contract:
+      - every session's (t_index, label, raw_label, drift) sequence is
+        identical across the two runs and the probability vectors match
+        to ``atol`` (1e-6: the re-tiled partial sums; this is the unfused
+        tier, so the FULL vector is compared, not the label surrogate);
+      - the mesh run really is model-parallel: scorer kind
+        ``model_parallel``, ``model_axis_shards == tp``, and
+        ``params_bytes()["per_device"]`` STRICTLY below the
+        single-device scorer's total — the one property that makes a
+        bigger-than-one-device model servable at all;
+      - zero dropped windows and balanced accounting in both runs.
+
+    ``mesh`` defaults to ``dp × tp`` devices of ``device``
+    (``parallel.mesh.serving_devices``: distinct cards on CUDA, the CPU
+    repeated); too few cards gives ``ok: False`` and the shortfall.
+    ``model`` (default ``JitDemoModel`` on the mesh's first device)
+    serves ``window``-sample windows.
+    """
+    from har_tpu_torch.parallel.mesh import create_serving_mesh, serving_devices
+    from har_tpu_torch.serve.dispatch import ModelParallelScorer
+    from har_tpu_torch.serve.loadgen import JitDemoModel
+
+    if mesh is None:
+        try:
+            devices = serving_devices(dp * tp, device)
+        except ValueError as exc:
+            return {"ok": False, "error": f"a {dp}x{tp} mesh {exc}"}
+        mesh = create_serving_mesh(dp=dp, tp=tp, devices=devices)
+    shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    dp, tp = shape.get("dp", 1), shape.get("tp", 1)
+    if model is None:
+        model = JitDemoModel(window=window, device=mesh.devices.flat[0])
+    recordings, _ = synthetic_sessions(
+        sessions, windows_per_session=windows_per_session, seed=seed,
+        window=window,
+    )
+
+    def one_run(run_mesh):
+        server = FleetServer(
+            model, window=window, hop=window, smoothing="ema",
+            config=FleetConfig(
+                max_sessions=sessions,
+                target_batch=target_batch,
+                pipeline_depth=pipeline_depth if run_mesh else 1,
+            ),
+            mesh=run_mesh,
+        )
+        for i in range(sessions):
+            server.add_session(i)
+        events, report = drive_fleet(server, recordings, seed=seed)
+        by_sid: dict[int, list] = {i: [] for i in range(sessions)}
+        for ev in events:
+            by_sid[ev.session_id].append(ev.event)
+        return server, report, by_sid
+
+    s1, r1, ref = one_run(None)
+    s2, r2, got = one_run(mesh)
+
+    equivalent = True
+    max_abs = 0.0
+    for i in range(sessions):
+        a, b = ref[i], got[i]
+        if len(a) != len(b) or not all(
+            x.t_index == y.t_index
+            and x.label == y.label
+            and x.raw_label == y.raw_label
+            and x.drift == y.drift
+            for x, y in zip(a, b)
+        ):
+            equivalent = False
+            break
+        for x, y in zip(a, b):
+            max_abs = max(max_abs, float(np.abs(x.probability - y.probability).max()))
+    equivalent = equivalent and max_abs <= atol
+
+    snap1, snap2 = s1.stats_snapshot(), s2.stats_snapshot()
+    clean = all(
+        s["accounting"]["dropped"] == 0
+        and s["accounting"]["pending"] == 0
+        and s["accounting"]["balanced"]
+        for s in (snap1, snap2)
+    )
+    placed = isinstance(s2.scorer, ModelParallelScorer)
+    shards = s2.scorer.model_axis_shards
+    single_bytes = s1.scorer.params_bytes()
+    placed_bytes = s2.scorer.params_bytes()
+    fits = placed_bytes["per_device"] < single_bytes["total"]
+    scored = snap2["accounting"]["scored"]
+    return {
+        "sessions": sessions,
+        "mesh": f"{dp}x{tp}",
+        "model_axis_shards": shards,
+        "batch_shards": s2.scorer.devices,
+        "params_bytes_single": single_bytes["total"],
+        "params_bytes_per_device": placed_bytes["per_device"],
+        "p99_ms": snap2["stages"]["event_ms"].get("p99_ms"),
+        "dropped": snap2["accounting"]["dropped"],
+        "dispatches_single": snap1["dispatches"],
+        "dispatches": snap2["dispatches"],
+        "max_abs_prob_diff": max_abs,
+        "windows_per_sec": (
+            round(scored / r2.duration_s, 1) if r2.duration_s else None
+        ),
+        "equivalent": equivalent,
+        "ok": bool(
+            equivalent
+            and clean
+            and placed
+            and shards == tp
+            and fits
         ),
     }
 

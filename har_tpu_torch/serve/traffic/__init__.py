@@ -3,7 +3,7 @@ capacity control.
 
 Port of ``har_tpu/serve/traffic`` (the JAX package's
 docs/elasticity.md describes it), for one ``FleetServer`` on one
-device.  Public surface:
+device or a serving mesh.  Public surface:
   TraceSpec / TrafficTrace / TraceReport / drive_trace
       — seeded diurnal/bursty/storm arrival processes driving session
         connect/disconnect churn, overnight-cohort storms, slow-client
@@ -11,14 +11,14 @@ device.  Public surface:
         trace is a replayable artifact (export/replay by seed+params),
         and its schedule and sample pool equal the JAX package's.
   AutoscaleConfig / CapacityController
-      — the hysteresis/cooldown policy loop that resizes target_batch
-        and pipeline_depth online (FleetServer.resize, zero-drop at a
-        dispatch boundary).
+      — the hysteresis/cooldown policy loop that resizes target_batch,
+        pipeline_depth and the mesh rung online (FleetServer.resize,
+        zero-drop at a dispatch boundary).
   DECLARED_SHEDS / undeclared_drops — the elastic run's loss verdict.
 
-Not ported yet (ROADMAP.md Queue 1): the mesh rungs of the ladder
-(item 14); the cluster's worker scaling and ``elastic_smoke`` (item
-15); the ``elastic_traffic`` bench lane (item 16).
+Not ported yet (ROADMAP.md Queue 1): the cluster's worker scaling and
+``elastic_smoke`` (item 15); the ``elastic_traffic`` bench lane (item
+16).
 """
 
 from har_tpu_torch.serve.traffic.autoscale import (

@@ -7,7 +7,8 @@ p99 and the shed-rate delta from ``FleetStats``, applies HYSTERESIS
 (consecutive-evidence streaks, so one bursty poll never resizes) and a
 COOLDOWN (a resize must amortize), and walks a fixed capacity ladder:
 
-    scale UP    target_batch x2 ... max -> pipeline_depth +1 ... max
+    scale UP    target_batch x2 ... max -> pipeline_depth +1 ... max ->
+                next mesh rung (``mesh_ladder`` x ``mesh_for``)
     scale DOWN  the exact reverse
 
 Every action lands through ``FleetServer.resize`` — the
@@ -20,12 +21,11 @@ or ``drive_fleet(on_poll=...)``), and the one thing it does per
 decision is stage a resize the next dispatch boundary applies.
 
 Port of ``har_tpu/serve/traffic/autoscale.py`` in engine mode, one
-``FleetServer`` on one device.  The JAX package's ladder goes on to
-mesh rungs and its controller also scales a cluster's workers: a
-``mesh_ladder`` past one device (with ``mesh_for``) waits for ROADMAP.md
-Queue 1 item 14 and ``cluster=`` for item 15, and both raise
-NotImplementedError at construction.  The JAX package's ValueErrors
-stay as they are.
+``FleetServer``, its mesh rungs included (``mesh_for`` builds a
+``parallel.mesh.ServingMesh`` for a rung).  The JAX package's controller
+also scales a cluster's workers: ``cluster=`` waits for ROADMAP.md
+Queue 1 item 15 and raises NotImplementedError at construction.  The
+JAX package's ValueErrors stay as they are.
 """
 
 from __future__ import annotations
@@ -100,12 +100,14 @@ class AutoscaleConfig:
 
 
 class CapacityController:
-    """The policy loop: resizes one FleetServer's ``target_batch`` and
-    ``pipeline_depth``.  ``cluster=`` (worker scaling, item 15) and a
-    ``mesh_ladder`` past one device (item 14) raise NotImplementedError;
-    ``mesh_for`` is kept for the JAX package's signature.  ``clock`` is
-    the injected seconds source the cooldown reads (FakeClock in
-    tests).
+    """The policy loop: resizes one FleetServer's ``target_batch`` /
+    ``pipeline_depth`` / mesh.  ``cluster=`` (worker scaling, item 15)
+    raises NotImplementedError.
+
+    ``mesh_for(devices) -> mesh | None`` builds the mesh for a ladder
+    rung (``None`` for rung 1 — back to single-device); required only
+    when ``mesh_ladder`` goes past one device.  ``clock`` is the
+    injected seconds source the cooldown reads (FakeClock in tests).
     """
 
     def __init__(
@@ -135,11 +137,8 @@ class CapacityController:
             raise ValueError(
                 "mesh_ladder goes past one device; pass mesh_for="
             )
-        if max(self.config.mesh_ladder) > 1:
-            raise NotImplementedError(
-                "mesh_ladder goes past one device: mesh-sharded serving "
-                "is not ported yet: ROADMAP.md Queue 1 item 14"
-            )
+        self._mesh_for = mesh_for
+        self._mesh_rung = 0  # index into mesh_ladder
         self._up_streak = 0
         self._down_streak = 0
         self._last_action_t: float | None = None
@@ -236,7 +235,7 @@ class CapacityController:
     def _scale_engine(self, direction: int) -> dict | None:
         """Walk the capacity ladder one rung: target_batch first (the
         cheap knob — same scorer, one more batch shape at most),
-        then pipeline depth.  Scale-down walks the
+        then pipeline depth, then the mesh.  Scale-down walks the
         exact reverse, so the configuration retraces its own path."""
         cfg = self.config
         scfg = self.server.config
@@ -251,7 +250,23 @@ class CapacityController:
                 return {
                     "action": "up", "knob": "pipeline_depth", "to": depth
                 }
+            if self._mesh_rung < len(cfg.mesh_ladder) - 1:
+                self._mesh_rung += 1
+                devices = int(cfg.mesh_ladder[self._mesh_rung])
+                self.server.resize(
+                    mesh=(
+                        None if devices <= 1 else self._mesh_for(devices)
+                    )
+                )
+                return {"action": "up", "knob": "mesh", "to": devices}
             return None  # at the ceiling
+        if self._mesh_rung > 0:
+            self._mesh_rung -= 1
+            devices = int(cfg.mesh_ladder[self._mesh_rung])
+            self.server.resize(
+                mesh=(None if devices <= 1 else self._mesh_for(devices))
+            )
+            return {"action": "down", "knob": "mesh", "to": devices}
         if self.server.config.pipeline_depth > cfg.min_depth:
             depth = self.server.config.pipeline_depth - 1
             self.server.resize(pipeline_depth=depth)

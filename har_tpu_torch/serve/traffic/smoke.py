@@ -3,10 +3,9 @@
 Port of the engine-side part of ``har_tpu/serve/traffic/smoke.py``.
 ``DECLARED_SHEDS`` and ``undeclared_drops`` are copied (the CLI's
 ``serve --trace`` summary reads them).  The JAX package's
-``elastic_smoke`` runs a mesh re-shard and a cluster's worker add and
-retire, which wait for ROADMAP.md Queue 1 items 14 and 15, and its
-``elastic_traffic_benchmark`` is a bench lane (item 16): both raise
-NotImplementedError here.
+``elastic_smoke`` also scales a cluster's workers, which waits for
+ROADMAP.md Queue 1 item 15, and its ``elastic_traffic_benchmark`` is a
+bench lane (item 16): both raise NotImplementedError here.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Scenarios that run on every rank of a CPU ``gloo`` group, for the port's
 parallel tests (``tests/test_torch_{parallel,tensor_parallel,zero1,
-ring_attention}.py``).
+ring_attention,expert_parallel,pipeline_parallel}.py``).
 
 ``run_ranks(names, world, workdir)`` starts ``world`` processes of this file,
 each joins one group (rendezvous through a ``FileStore`` under
@@ -749,6 +749,132 @@ def tp_resume_early_stop(rank, world, args):
     return {"whole": whole, "resumed": resumed, "crash": crash,
             "early_tp": fit_mlp(mesh, x, y, stop_cfg, num_classes=4),
             "early_single": fit_mlp(None, x, y, stop_cfg, num_classes=4)}
+
+
+# ---- tests/test_torch_expert_parallel.py and test_torch_pipeline_parallel.py
+
+
+def moe_problem(e, n=32, h=8, ff=16, seed=0):
+    """The port's ``init_moe_params`` (numpy draws from ``seed``) and
+    (n, h) float32 tokens."""
+    from har_tpu_torch.parallel.expert_parallel import init_moe_params
+
+    params = init_moe_params(seed, e, h, ff)
+    x = torch.from_numpy(np.random.default_rng(seed).normal(size=(n, h)).astype(np.float32))
+    return params, x
+
+
+def _summed_grads(params):
+    """Every leaf's gradient summed over the ranks (the loss's gradient
+    under the replicated-output convention)."""
+    flat = {"router": params["router"], **{f"experts/{k}": v
+                                           for k, v in params["experts"].items()}}
+    out = {}
+    for name, p in flat.items():
+        g = p.grad.clone()
+        torch.distributed.all_reduce(g)
+        out[name] = g
+    return out
+
+
+def _with_grad(params):
+    return {"router": params["router"].clone().requires_grad_(),
+            "experts": {k: v.clone().requires_grad_() for k, v in params["experts"].items()}}
+
+
+@scenario
+def moe(rank, world, args):
+    """The MoE layer over every rank (one expert a rank): dropless and
+    tight capacity, gradients with and without the balance loss, and a
+    stack of the wrong expert count."""
+    from har_tpu_torch.parallel.expert_parallel import (
+        dropless_capacity,
+        expert_mesh,
+        make_moe_fn,
+    )
+
+    mesh = expert_mesh(world, device="cpu")
+    params, x = moe_problem(world)
+    n_local = x.shape[0] // world
+    f = make_moe_fn(mesh, capacity=dropless_capacity(n_local))
+    y, aux = f(params, x)
+    out = {"y": y, "aux": aux}
+    _, x64 = moe_problem(world, n=64)
+    out["tight"] = make_moe_fn(mesh, capacity=1)(params, x64)[0]
+    for tag, lb in (("grads", 0.01), ("grads_plain", 0.0)):
+        p = _with_grad(params)
+        y, aux = f(p, x)
+        ((y ** 2).mean() + lb * aux["load_balance_loss"]).backward()
+        out[tag] = _summed_grads(p)
+    if world == 2:
+        four, _ = moe_problem(4)
+        out["mismatch"] = _raises(lambda: f(four, x))
+    return out
+
+
+def stage_fn(params, a):
+    return torch.relu(a @ params["w"] + params["b"])
+
+
+def stage_params(rng, s, h):
+    return {"w": torch.from_numpy(rng.normal(0, 0.3, (s, h, h)).astype(np.float32)),
+            "b": torch.from_numpy(rng.normal(0, 0.1, (s, h)).astype(np.float32))}
+
+
+@scenario
+def pipeline(rank, world, args):
+    """S = world pipelined stages: forward, gradients, a training run,
+    and a stack of the wrong stage count."""
+    from har_tpu_torch.parallel.pipeline_parallel import make_pipeline_fn, pipeline_mesh
+
+    mesh = pipeline_mesh(world, device="cpu")
+    f = make_pipeline_fn(stage_fn, mesh)
+    rng = np.random.default_rng(0)
+    stacked = stage_params(rng, world, 16)
+    x = torch.from_numpy(rng.normal(size=(6, 8, 16)).astype(np.float32))
+    out = {"y": f(stacked, x)}
+    rng = np.random.default_rng(1)
+    stacked = {k: v.requires_grad_() for k, v in stage_params(rng, world, 8).items()}
+    x = torch.from_numpy(rng.normal(size=(5, 4, 8)).astype(np.float32))
+    (f(stacked, x) ** 2).mean().backward()
+    grads = {}
+    for k, v in stacked.items():
+        g = v.grad.clone()
+        torch.distributed.all_reduce(g)
+        grads[k] = g
+    out["grads"] = grads
+    # in-proj → pipeline → head, Adam; gradients summed over the ranks
+    m, mb, d, h, c = 8, 16, 13, 16, 6
+    rng = np.random.default_rng(2)
+    params = {"in": torch.from_numpy(rng.normal(0, 0.3, (d, h)).astype(np.float32)),
+              "stages": stage_params(rng, world, h),
+              "head": torch.from_numpy(rng.normal(0, 0.3, (h, c)).astype(np.float32))}
+    leaves = [params["in"], *params["stages"].values(), params["head"]]
+    for leaf in leaves:
+        leaf.requires_grad_()
+    xs = rng.normal(size=(m, mb, d)).astype(np.float32)
+    ys = torch.from_numpy((xs @ rng.normal(size=(d, c))).argmax(-1))
+    xs = torch.from_numpy(xs)
+    opt = torch.optim.Adam(leaves, lr=3e-3)
+    losses = []
+    for _ in range(60):
+        opt.zero_grad()
+        a = f(params["stages"], xs @ params["in"])
+        loss = torch.nn.functional.cross_entropy((a @ params["head"]).reshape(-1, c),
+                                                 ys.reshape(-1))
+        loss.backward()
+        for leaf in leaves:
+            torch.distributed.all_reduce(leaf.grad)
+            if leaf is params["head"]:
+                # after the pipeline every rank computes the whole head
+                leaf.grad /= world
+        opt.step()
+        losses.append(float(loss))
+    out["losses"] = losses
+    if world == 2:
+        four = stage_params(np.random.default_rng(3), 4, 8)
+        out["mismatch"] = _raises(lambda: f(four, torch.zeros((3, 4, 8))))
+    return out
 
 
 def main(argv) -> None:

@@ -291,3 +291,66 @@ def test_op_gradients_equal_the_old_autograd_function(monkeypatch, route, with_l
         results.append((out.detach(), tq.grad, tk.grad, tv.grad))
     for a, b in zip(*results):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+class _CudaStandIn:
+    """The parts of a CUDA tensor that the launch reads, on a device that
+    this build cannot allocate on."""
+
+    def __init__(self, shape, dtype, device):
+        self.shape = torch.Size(shape)
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.is_cuda = True
+        self._strides = torch.empty(shape, device="meta").stride()
+
+    def stride(self, dim=None):
+        return self._strides if dim is None else self._strides[dim]
+
+    def data_ptr(self):
+        return 1 << 20
+
+    def numel(self):
+        return self.shape.numel()
+
+    def new_empty(self, shape, dtype=None):
+        return _CudaStandIn(shape, dtype or self.dtype, self.device)
+
+
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.float32, (4, 200, 2, 16)),
+    # the CLI transformer's heads of one device: a plan under 48 KB
+    (torch.bfloat16, (4, 200, 2, 16)),
+    (torch.bfloat16, (4, 200, 1, 16)),
+])
+def test_launch_runs_on_the_tensors_device(monkeypatch, dtype, shape):
+    """A shard on cuda:1 while cuda:0 is current (a serving mesh over two
+    cards, one process): the kernel is called with cuda:1 current and
+    cuda:1's stream, whatever the plan's shared memory, and the current
+    device is restored after."""
+    assert fa.flash_plan(*shape).smem_bytes < 48 << 10 or dtype == torch.float32
+    current = [0]
+
+    def exchange(index):
+        prev, current[0] = current[0], index
+        return prev
+
+    seen = []
+
+    def kernel(*args):
+        seen.append((current[0], args[-1]))
+        return 0
+
+    monkeypatch.setattr(torch.cuda, "_exchange_device", exchange)
+    monkeypatch.setattr(torch.cuda, "_maybe_exchange_device", exchange)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: type("S", (), {"cuda_stream": 100 + device.index}))
+    monkeypatch.setattr(fa, "_check_hopper", lambda device: None)
+    monkeypatch.setattr(fa, "sm_count", lambda index: fa.H100_SMS)
+    monkeypatch.setattr(fa, "_kernel", lambda: kernel)
+    q = _CudaStandIn(shape, dtype, "cuda:1")
+    out, lse = fa._launch(q, q, q, True)
+    assert seen == [(1, 101)]
+    assert current[0] == 0
+    assert out.device == q.device and tuple(out.shape) == shape
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (shape[0], shape[2], shape[1])

@@ -4,9 +4,11 @@ The JAX package's CLI pins (tests/test_fleet_serving.py) on the port, then:
 the summary JSON has har_tpu's keys (both CLIs on the same arguments);
 a narrow transformer checkpoint (1 layer, embed 16, float32) served
 plain, pipelined and fused, at the int8 tier, and through a journal with
-a hard kill and a resume that loses and repeats nothing; and every flag
-of a part not ported yet raises NotImplementedError naming its ROADMAP
-item before a session is built.  The drift loop (``--adapt``, its
+a hard kill and a resume that loses and repeats nothing; the serving
+mesh flags (``--mesh``, ``--mesh-shape``, their messages, and the
+``--autoscale`` mesh rung); and every flag of a part not ported yet
+raises NotImplementedError naming its ROADMAP item before a session is
+built.  The drift loop (``--adapt``, its
 journaled kill and ``--resume --adapt --registry``) and the churn fleet
 (``--trace`` with ``--autoscale``) run on the analytic model and the
 transformer, with har_tpu's summary keys.
@@ -60,14 +62,10 @@ def test_cli_serve_pipeline_depth(capsys):
     assert out["stats"]["dispatch_backend"] == "host"
 
 
-def test_cli_serve_honors_checkpoint_geometry(tmp_path, capsys):
-    """serve --checkpoint adopts the checkpoint's recorded input_shape
-    (the from_checkpoint guard, fleet edition): a 128-sample-window
-    model is served 128-sample windows, not the default 200."""
-    import json
-
+def _cnn_checkpoint(tmp_path) -> str:
+    """A CNN1D checkpoint of 128-sample windows, one epoch on synthetic
+    windows."""
     from har_tpu_torch.checkpoint import save_model
-    from har_tpu_torch.cli import main
     from har_tpu_torch.data.raw_windows import synthetic_raw_stream
     from har_tpu_torch.features.wisdm_pipeline import FeatureSet
     from har_tpu_torch.models.neural_classifier import NeuralClassifier
@@ -85,6 +83,18 @@ def test_cli_serve_honors_checkpoint_geometry(tmp_path, capsys):
     ckpt = str(tmp_path / "ckpt")
     save_model(ckpt, model, "cnn1d", model_kwargs={"channels": (8,)},
                input_shape=(128, 3))
+    return ckpt
+
+
+def test_cli_serve_honors_checkpoint_geometry(tmp_path, capsys):
+    """serve --checkpoint adopts the checkpoint's recorded input_shape
+    (the from_checkpoint guard, fleet edition): a 128-sample-window
+    model is served 128-sample windows, not the default 200."""
+    import json
+
+    from har_tpu_torch.cli import main
+
+    ckpt = _cnn_checkpoint(tmp_path)
     rc = main(
         ["serve", "--device", "cpu", "--sessions", "4", "--checkpoint", ckpt,
          "--hop", "128"]
@@ -201,12 +211,15 @@ def test_cli_serve_transformer_journal_kill_and_resume(tmp_path, capsys,
 
 
 @pytest.mark.parametrize("flags, item", [
-    # ids kept: --adapt, --trace and --autoscale were refused here until
-    # the adaptation loop and the traffic engine were ported; each id now
-    # pairs its flag with a part that still waits
-    pytest.param(["--adapt", "--mesh", "2"], 14, id="--adapt-13"),
-    (["--mesh", "2"], 14),
-    (["--mesh-shape", "2x4"], 14),
+    # ids kept: --adapt, --trace, --autoscale, --mesh and --mesh-shape were
+    # refused here until their parts were ported; the ids of ported parts
+    # (item None) now run the flag, the others still name their item
+    pytest.param(["--adapt", "--mesh", "2", "--inject-drift", "0.5",
+                  "--windows-per-session", "6", "--max-delay-ms", "0"], None,
+                 id="--adapt-13"),
+    pytest.param(["--mesh", "8", "--pipeline-depth", "2", "--fused",
+                  "--smoothing", "vote"], None, id="--mesh-14"),
+    pytest.param(["--mesh-shape", "2x4", "--tier", "int8"], None, id="--mesh-shape-14"),
     (["--workers", "2"], 15),
     (["--net"], 15),
     (["--kill-worker", "w0"], 15),
@@ -214,10 +227,22 @@ def test_cli_serve_transformer_journal_kill_and_resume(tmp_path, capsys,
     pytest.param(["--trace", "storm", "--autoscale", "--net"], 15,
                  id="--autoscale-15"),
 ], ids=lambda v: v[0] if isinstance(v, list) else str(v))
-def test_cli_serve_waiting_flags_name_their_item(flags, item, monkeypatch):
+def test_cli_serve_waiting_flags_name_their_item(flags, item, monkeypatch, capsys):
     """Each flag of a part not ported yet is refused before any session
     is built (the recordings generator is never reached), also beside a
-    flag of a part that is ported."""
+    flag of a part that is ported.  The serving mesh is ported: ``--mesh
+    8`` shards the demo MLP's batches over the CPU repeated 8 times,
+    ``--mesh-shape 2x4`` places its int8 tier model-parallel, and
+    ``--adapt`` runs its loop over a mesh."""
+    if item is None:
+        out = _summary(capsys, ["serve", "--device", "cpu", "--sessions", "8", *flags])
+        assert out["dropped"] == 0 and out["scored"] == out["enqueued"] > 0
+        assert out["stats"]["accounting"]["balanced"]
+        if "--adapt" not in flags:
+            stats = out["stats"]
+            assert (stats["devices"], stats["model_axis_shards"], stats["dispatch_backend"]) == (
+                (8, 1, "sharded") if "--mesh" in flags else (2, 4, "model_parallel"))
+        return
     import har_tpu_torch.serve.loadgen as loadgen
 
     def never(*a, **k):
@@ -226,6 +251,51 @@ def test_cli_serve_waiting_flags_name_their_item(flags, item, monkeypatch):
     monkeypatch.setattr(loadgen, "synthetic_sessions", never)
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         cli.main(["serve", "--device", "cpu", "--sessions", "4", *flags])
+
+
+def test_cli_serve_mesh_shape_2d(capsys):
+    """``serve --mesh-shape 2x4`` with the analytic demo model: a host
+    model cannot shard, so the dispatch falls back to host scoring — the
+    flag is honored, not a crash (``har_tpu``'s contract)."""
+    out = _summary(capsys, ["serve", "--device", "cpu", "--sessions", "32",
+                            "--mesh-shape", "2x4"])
+    assert out["dropped"] == 0 and out["scored"] == out["enqueued"]
+    assert out["stats"]["accounting"]["balanced"]
+    assert out["stats"]["dispatch_backend"] == "host"
+
+
+def test_cli_serve_mesh_exceeding_devices_exits_with_hint(monkeypatch):
+    """More devices than the visible cards: ``har_tpu``'s message with
+    the port's hint (``--device cpu`` for a dry-run mesh), before any
+    session is built."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match=r"--mesh 4096 needs 4096 devices but only 1 are "
+                                         r"visible; on a CPU host pass --device cpu"):
+        cli.main(["serve", "--sessions", "2", "--mesh", "4096"])
+    with pytest.raises(SystemExit, match=r"--mesh-shape 64x64 needs 4096 devices"):
+        cli.main(["serve", "--sessions", "2", "--mesh-shape", "64x64"])
+
+
+def test_cli_serve_mesh_shape_rejects_malformed_and_mesh_combo():
+    with pytest.raises(SystemExit, match="not BxM"):
+        cli.main(["serve", "--device", "cpu", "--sessions", "2", "--mesh-shape", "2x"])
+    with pytest.raises(SystemExit, match="pass one"):
+        cli.main(["serve", "--device", "cpu", "--sessions", "2", "--mesh", "4",
+                  "--mesh-shape", "2x2"])
+
+
+def test_cli_serve_mesh_shape_refuses_a_family_without_tensor_parallelism(tmp_path):
+    """A CNN1D checkpoint on a model axis: the port has no tensor-parallel
+    forward for it, so ``--mesh-shape 2x2`` exits with a message instead
+    of serving it on fewer devices; ``--mesh 2`` shards its batch."""
+    ckpt = _cnn_checkpoint(tmp_path)
+    argv = ["serve", "--device", "cpu", "--sessions", "4", "--checkpoint", ckpt,
+            "--hop", "128"]
+    with pytest.raises(SystemExit, match=r"--mesh-shape 2x2: CNN1D has no "
+                                         r"tensor-parallel forward.*--mesh N"):
+        cli.main(argv + ["--mesh-shape", "2x2"])
+    assert cli.main(argv + ["--mesh", "2"]) == 0
 
 
 def _jax_summary(capsys, argv):
@@ -377,19 +447,26 @@ def test_cli_serve_trace_autoscale_transformer(capsys, transformer_checkpoint, t
     assert out["resizes"] >= 1
 
 
-def test_cli_serve_trace_refusals():
-    """``--trace`` refuses the steady-load modes (har_tpu's SystemExit);
-    ``--autoscale --mesh N`` names item 14 and ``--workers`` item 15."""
+def test_cli_serve_trace_refusals(capsys):
+    """``--trace`` refuses the steady-load modes (har_tpu's SystemExit)
+    and ``--workers`` names item 15; ``--autoscale --mesh N`` runs, its
+    ladder ending on the mesh rung (N devices, the CPU repeated)."""
     base = ["serve", "--device", "cpu", "--sessions", "8", "--trace", "diurnal"]
     for flags in (["--adapt"], ["--resume"], ["--kill-after-polls", "2"],
                   ["--monitor"], ["--inject-drift", "0.5"], ["--inject-drop", "0.1"],
                   ["--inject-delay", "0.1"], ["--calibrate-device"]):
         with pytest.raises(SystemExit, match="--trace drives its own churn"):
             cli.main(base + flags)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        cli.main(base + ["--autoscale", "--mesh", "2"])
     with pytest.raises(NotImplementedError, match="item 15"):
         cli.main(base + ["--workers", "2"])
+    out = _summary(capsys, ["serve", "--device", "cpu", "--sessions", "64", "--trace",
+                            "diurnal", "--trace-rounds", "24", "--autoscale", "--mesh", "2",
+                            "--target-batch", "16", "--fused", "--smoothing", "vote"])
+    assert out["undeclared_drops"] == 0 and out["scored"] == out["enqueued"] > 0
+    # floor = ceiling = 16: the ladder's rungs are the depth, then the mesh
+    assert out["scale_ups"] == 2
+    assert out["autoscale"]["last_action"]["knob"] == "mesh"
+    assert out["autoscale"]["last_action"]["to"] == 2
 
 
 def test_cli_serve_runs_on_cuda_by_default(monkeypatch):

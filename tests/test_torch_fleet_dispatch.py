@@ -1,8 +1,10 @@
-"""Pipelined fleet dispatch (har_tpu_torch.serve.dispatch), one device.
+"""Pipelined fleet dispatch (har_tpu_torch.serve.dispatch).
 
 The JAX package's dispatch pins (tests/test_dispatch.py) on the port, with
-``JitDemoModel`` on the CPU; the mesh-sharded cases wait for a sharded
-scorer (ROADMAP.md Queue 1 item 14) and pin its refusal instead.
+``JitDemoModel`` on the CPU; the mesh-sharded cases run on a serving mesh
+that repeats the CPU 8 times (``parallel.mesh.create_serving_mesh``), as
+the JAX tests run on the 8-device dry-run mesh, and the sharded run is
+also held to ``har_tpu``'s on that mesh.
 
 Pins the contracts the dispatch-plane overhaul ships on:
 
@@ -12,8 +14,8 @@ Pins the contracts the dispatch-plane overhaul ships on:
      probabilities, same per-session order (strict FIFO retire);
   2. sharded scoring — a >1-device mesh scores the same decisions as a
      single device (labels/raw labels/drift bit-equal; probabilities to
-     1e-6 — GSPMD re-tiles the matmul, the same reduction-order drift
-     the tp-vs-single training pin documents), under the devices × pow2
+     1e-6 — a shard's GEMM runs over fewer rows, the same reduction-order
+     drift the tp-vs-single training pin documents), under the devices × pow2
      pad policy with the log2-bounded compiled-program budget;
   3. the staging arena — windows staged once at enqueue, batch assembly
      by gather, slots recycled, snapshot format unchanged;
@@ -39,7 +41,13 @@ from har_tpu_torch.serve import (
     make_scorer,
     synthetic_sessions,
 )
-from har_tpu_torch.serve.dispatch import DeviceScorer, HostScorer
+from har_tpu_torch.parallel.mesh import create_serving_mesh
+from har_tpu_torch.serve.dispatch import (
+    DeviceScorer,
+    HostScorer,
+    ModelParallelScorer,
+    ShardedScorer,
+)
 from har_tpu_torch.serving import _Smoother, finite_rows, pad_pow2, pad_shard
 
 torch.set_num_threads(1)
@@ -66,6 +74,22 @@ def _recordings(n, n_samples=450, seed=0):
         rng.normal(size=(n_samples, 3)).astype(np.float32)
         for _ in range(n)
     ]
+
+
+def _mesh(dp=8, tp=1):
+    """A dp × tp serving mesh over the CPU repeated."""
+    return create_serving_mesh(dp=dp, tp=tp, devices=["cpu"] * (dp * tp))
+
+
+def _assert_label_equal_probs_close(d1, d2, atol=1e-6):
+    assert d1.keys() == d2.keys()
+    for sid in d1:
+        a, b = d1[sid], d2[sid]
+        assert [x[:4] for x in a] == [y[:4] for y in b]  # labels/drift
+        for x, y in zip(a, b):
+            np.testing.assert_allclose(
+                np.frombuffer(x[4]), np.frombuffer(y[4]), atol=atol
+            )
 
 
 def _decisions(events):
@@ -186,17 +210,92 @@ def test_pad_shard_policy():
     np.testing.assert_array_equal(pad_shard(x, 8)[5:], np.tile(x[-1:], (3, 1)))
 
 
+def test_sharded_scoring_matches_single_device_and_program_budget():
+    """Mesh-sharded dispatch: decisions equal the single-device run's
+    (probs to 1e-6), batches pad to devices × pow2, and the program
+    count stays log2-bounded."""
+    mesh = _mesh(8)
+    n = 48
+    model = JitDemoModel(device="cpu")
+    recordings, _ = synthetic_sessions(n, windows_per_session=2, seed=5)
+
+    def run(m):
+        server = FleetServer(
+            model, window=200, hop=200, smoothing="ema",
+            config=FleetConfig(max_sessions=n, target_batch=64),
+            mesh=m,
+        )
+        for i in range(n):
+            server.add_session(i)
+        events, _ = drive_fleet(server, recordings, seed=5)
+        return server, events
+
+    s1, ev1 = run(None)
+    s8, ev8 = run(mesh)
+    assert isinstance(s8.scorer, ShardedScorer)
+    assert s8.scorer.devices == 8
+    _assert_label_equal_probs_close(_decisions(ev1), _decisions(ev8))
+    target = 64
+    budget = int(np.log2(target)) + 1
+    for shape in s8.scorer.compiled_shapes:
+        assert shape % 8 == 0
+    assert len(s8.scorer.compiled_shapes) <= budget
+    assert s8.scorer.program_count() <= budget + len(s1.scorer.compiled_shapes)
+    # every device saw the same window share, stamped in the stats
+    dw = s8.stats.device_windows
+    assert len(dw) == 8 and len(set(dw.values())) == 1
+
+
+def test_sharded_fleet_matches_jax_sharded_fleet():
+    """The same sharded fleet in both packages, on 8 devices under a
+    FakeClock: equal decisions (probabilities within 1e-6), equal
+    batches and equal per-device window shares."""
+    import jax
+
+    import har_tpu.serve as jax_serve
+    from har_tpu.parallel.mesh import create_mesh
+
+    n = 24
+    runs = {}
+    for pkg, serve, model, mesh in (
+        ("port", __import__("har_tpu_torch.serve", fromlist=["x"]),
+         JitDemoModel(device="cpu"), _mesh(8)),
+        ("jax", jax_serve, jax_serve.JitDemoModel(),
+         create_mesh(dp=8, tp=1, devices=jax.devices()[:8])),
+    ):
+        clock = serve.FakeClock()
+        server = serve.FleetServer(
+            model, window=200, hop=200, smoothing="ema", clock=clock,
+            config=serve.FleetConfig(max_sessions=n, target_batch=16,
+                                     max_delay_ms=0.0),
+            mesh=mesh,
+        )
+        for i in range(n):
+            server.add_session(i)
+        recordings, _ = serve.synthetic_sessions(n, windows_per_session=2, seed=3)
+        events, _ = serve.drive_fleet(server, recordings, seed=3)
+        runs[pkg] = (server, _decisions(events))
+    _assert_label_equal_probs_close(runs["port"][1], runs["jax"][1])
+    port, jx = runs["port"][0], runs["jax"][0]
+    assert port.stats.batch_sizes == jx.stats.batch_sizes
+    assert port.stats.device_windows == jx.stats.device_windows
+    assert port.stats_snapshot()["devices"] == jx.stats_snapshot()["devices"] == 8
+
+
 def test_scorer_selection_policy():
-    """One device: a host model gets HostScorer, a device model the
-    async DeviceScorer; a mesh (sharded serving) is not ported yet and
-    names its ROADMAP item."""
+    """make_scorer routing: a host model gets HostScorer with or without
+    a mesh (host models cannot shard — fall back, never crash), a device
+    model the async DeviceScorer on one device and ShardedScorer on an
+    8-device mesh."""
+    mesh = _mesh(8)
     assert isinstance(make_scorer(_StubModel(), None), HostScorer)
+    assert isinstance(make_scorer(_StubModel(), mesh), HostScorer)
     jit_model = JitDemoModel(device="cpu")
     assert isinstance(make_scorer(jit_model, None), DeviceScorer)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        make_scorer(jit_model, object())
-    with pytest.raises(NotImplementedError, match="item 14"):
-        make_scorer(_StubModel(), object())
+    sharded = make_scorer(jit_model, mesh)
+    assert isinstance(sharded, ShardedScorer)
+    assert not isinstance(sharded, ModelParallelScorer)
+    assert sharded.kind == "sharded" and sharded.model_axis_shards == 1
 
 
 def test_async_device_scorer_matches_transform():
@@ -326,6 +425,34 @@ def test_assembler_vectorized_burst_equals_sequential_chunks():
 # -------------------------------------- sharding-honest calibration
 
 
+def test_calibrate_device_measures_sharded_emitted_shapes():
+    """Under a mesh, calibrate_device rounds every size through the
+    devices × pow2 policy and measures the SHARDED program, so events'
+    device_ms keys match the dispatched padded shapes."""
+    mesh = _mesh(8)
+    n = 20
+    model = JitDemoModel(device="cpu")
+    server = FleetServer(
+        model, window=200, hop=200, smoothing="none",
+        config=FleetConfig(max_sessions=n, target_batch=64),
+        mesh=mesh,
+    )
+    recordings, _ = synthetic_sessions(n, windows_per_session=1, seed=1)
+    for i in range(n):
+        server.add_session(i)
+    drive_fleet(server, recordings, seed=1)
+    # devices x pow2 → 8 * pow2(ceil(20/8)=3→4) = 32
+    assert set(server.stats.batch_sizes) == {32}
+    cal = server.calibrate_device(iters=2)
+    assert 32 in cal and 8 in cal
+    assert all(b % 8 == 0 for b in cal)
+    for i in range(n):
+        server.push(i, recordings[i])
+    events = server.flush()
+    assert events and all(e.event.device_ms is not None for e in events)
+    assert events[0].event.device_ms == round(cal[32]["p50_ms"] / 20, 4)
+
+
 def test_calibrate_device_host_stub_still_raises():
     server = FleetServer(_StubModel(), window=10, hop=10)
     with pytest.raises(ValueError):
@@ -408,20 +535,39 @@ def test_resize_during_flight_bit_identical_and_balanced(depth):
 
 
 def test_resize_mesh_mid_run_matches_single_device_run():
-    """A mesh re-shard is not ported yet: ``resize(mesh=...)`` naming a
-    mesh raises before anything is staged, ``mesh=None`` (stay on one
-    device) is the identity, and a fleet built with a mesh is refused."""
-    model = JitDemoModel(device="cpu", window=10)
-    server = FleetServer(model, window=10, hop=10, smoothing="none",
-                         config=FleetConfig(target_batch=8))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        server.resize(mesh=object())
-    assert server.config.target_batch == 8
-    assert server.stats.resizes == 0
-    out = server.resize(target_batch=16, mesh=None)
-    assert out["devices"] == 1 and server.config.target_batch == 16
-    with pytest.raises(NotImplementedError, match="item 14"):
-        FleetServer(model, window=10, hop=10, mesh=object())
+    """An online mesh re-shard (1 device → 8-device mesh) at a dispatch
+    boundary: decisions stay label-equal to the never-resized
+    single-device run (probs to 1e-6), zero drops, and the post-resize
+    scorer really is sharded over the new placement."""
+    mesh = _mesh(8)
+    n = 24
+    model = JitDemoModel(device="cpu")
+    recordings, _ = synthetic_sessions(n, windows_per_session=4, seed=9)
+    halves = [(r[: len(r) // 2], r[len(r) // 2:]) for r in recordings]
+
+    def run(resize_mesh):
+        server = FleetServer(
+            model, window=200, hop=200, smoothing="ema",
+            config=FleetConfig(max_sessions=n, target_batch=32),
+        )
+        for i in range(n):
+            server.add_session(i)
+        ev1, _ = drive_fleet(server, [h[0] for h in halves], seed=9)
+        if resize_mesh is not None:
+            server.resize(mesh=resize_mesh)
+        ev2, _ = drive_fleet(server, [h[1] for h in halves], seed=10)
+        return server, ev1 + ev2
+
+    s1, ev_flat = run(None)
+    s8, ev_resized = run(mesh)
+    assert isinstance(s8.scorer, ShardedScorer)
+    assert s8.scorer.devices == 8
+    assert s8.stats.resizes == 1
+    assert s1.stats.dropped_total == s8.stats.dropped_total == 0
+    _assert_label_equal_probs_close(_decisions(ev_flat), _decisions(ev_resized))
+    for s in (s1, s8):
+        acct = s.stats.accounting()
+        assert acct["balanced"] and acct["pending"] == 0
 
 
 def test_resize_from_dispatch_tap_defers_to_boundary():
@@ -1275,6 +1421,11 @@ def test_pipeline_smoke_on_one_device():
     out = fleet_pipeline_smoke(sessions=16, device="cpu", tunnel_rtt_ms=0.0)
     assert out["ok"], out
     assert out["devices"] == 1 and out["fused_dispatches"] > 0
+    # the hot path batch-sharded over 8 devices, as the JAX package's
+    # smoke shards it on its dry-run mesh
+    out = fleet_pipeline_smoke(sessions=16, device="cpu", tunnel_rtt_ms=0.0, mesh=_mesh(8))
+    assert out["ok"], out
+    assert out["devices"] == 8 and out["dispatch_backend"] == "sharded"
     transformer, _ = _narrow_transformer()
     out = fleet_pipeline_smoke(sessions=12, model=transformer, window=FLEET_WINDOW,
                                target_batch=4)

@@ -477,9 +477,39 @@ def test_kill_point_behind_the_device_plane(point, depth):
     assert out["windows_lost"] == 0
 
 
-def test_kill_point_with_a_mesh_names_its_item():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        run_kill_point("pre_dispatch", mesh=object())
+def test_kill_point_with_a_mesh_names_its_item(tmp_path):
+    """A kill point behind a serving mesh: a 4-entry batch-sharded mesh
+    and a 2×2 model-parallel one recover as one device does, and
+    ``restore_server(mesh=)`` rebuilds the scorer on the mesh it is
+    given."""
+    from har_tpu_torch.parallel.mesh import create_serving_mesh
+
+    for dp, tp in ((4, 1), (2, 2)):
+        mesh = create_serving_mesh(dp=dp, tp=tp, devices=["cpu"] * 4)
+        out = run_kill_point("pre_dispatch", sessions=4, seed=2, mesh=mesh)
+        assert out["ok"], out
+        assert out["windows_lost"] == 0
+    from har_tpu_torch.serve import (
+        FleetConfig,
+        FleetJournal,
+        FleetServer,
+        JitDemoModel,
+        JournalConfig,
+        restore_server,
+    )
+
+    model = JitDemoModel(window=100, device="cpu")
+    root = str(tmp_path / "wal")
+    server = FleetServer(model, window=100, hop=100, smoothing="none",
+                         config=FleetConfig(max_sessions=4, max_delay_ms=1e9),
+                         journal=FleetJournal(root, JournalConfig(flush_every=1)))
+    for i in range(4):
+        server.add_session(i)
+        server.push(i, np.zeros((100, 3), np.float32))
+    server.journal.kill()
+    restored = restore_server(root, model, mesh=mesh)
+    assert len(restored.flush()) == 4
+    assert restored.scorer.kind == "model_parallel" and restored.scorer.devices == 2
 
 
 @pytest.mark.parametrize("seed", range(6))

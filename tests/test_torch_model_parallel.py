@@ -1,0 +1,519 @@
+"""Model-parallel serving of the port on a 2D (batch × model) serving mesh.
+
+Ports ``tests/test_model_parallel.py``'s serving pins.  The port's meshes
+are single-controller ``ServingMesh``es that repeat the CPU (2×4, 2×2),
+as the JAX tests lay 2×4 over the 8-device dry-run mesh; ``har_tpu``'s
+runs here on that mesh, on the same weights:
+
+  1. serving equivalence — a ``ModelParallelScorer`` on 2×4 emits
+     label-equal decisions (probs to 1e-6) vs the port's single device at
+     every ticket-ring depth 1-4 under FakeClock + DispatchFaults, and vs
+     ``har_tpu``'s 2×4 scorer on the same ``JitDemoModel`` weights (probs
+     to 1e-5);
+  2. the pad policy pads per BATCH-shard count (3 due windows → 4 rows);
+  3. ``calibrate_device`` measures the placed program at the emitted
+     (dp × pow2) shapes;
+  4. the selection policy (host model → HostScorer, indivisible hidden
+     dims or heads → ShardedScorer), ``params_bytes`` per device strictly
+     below the total and equal to ``har_tpu``'s;
+  5. composition — the int8 tier (``INT8_RULES``) and the fused loop;
+  6. placement is a runtime resource — ``resize`` onto and off 2×4, the
+     kill matrix and the randomized kill property behind 2×2;
+  7. the transformer under ``TRANSFORMER_RULES`` at tp 2 and 4, and with
+     patches or packed windows on 2×2: logits within 1e-5 of the
+     unsharded module and of ``har_tpu``'s 2D scorer, with K2 run once a
+     layer on each device's heads (layers × dp × tp a dispatch);
+  8. a family with no tensor-parallel forward in the port refuses a
+     model axis; replicas on a second device are made when the scorer is
+     built.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import har_tpu.serve as jax_serve
+from har_tpu.parallel.mesh import create_mesh as jax_create_mesh
+from har_tpu_torch.parallel.mesh import create_serving_mesh
+from har_tpu_torch.serve import (
+    DispatchFaults,
+    FakeClock,
+    FleetConfig,
+    FleetServer,
+    JitDemoModel,
+    drive_fleet,
+    make_scorer,
+    model_parallel_smoke,
+    synthetic_sessions,
+)
+from har_tpu_torch.serve.dispatch import (
+    DeviceScorer,
+    HostScorer,
+    ModelParallelScorer,
+    ShardedScorer,
+)
+
+torch.set_num_threads(1)
+
+
+def _mesh(dp, tp):
+    return create_serving_mesh(dp=dp, tp=tp, devices=["cpu"] * (dp * tp))
+
+
+def _jax_mesh(dp, tp):
+    return jax_create_mesh(dp=dp, tp=tp, devices=jax.devices()[: dp * tp])
+
+
+def _decisions(events):
+    out = {}
+    for fe in events:
+        ev = fe.event
+        out.setdefault(fe.session_id, []).append(
+            (ev.t_index, ev.label, ev.raw_label, ev.drift,
+             ev.probability.tobytes())
+        )
+    return out
+
+
+def _assert_label_equal_probs_close(d1, d2, atol=1e-6):
+    assert d1.keys() == d2.keys()
+    for sid in d1:
+        a, b = d1[sid], d2[sid]
+        assert [x[:4] for x in a] == [y[:4] for y in b]  # labels/drift
+        for x, y in zip(a, b):
+            np.testing.assert_allclose(
+                np.frombuffer(x[4]), np.frombuffer(y[4]), atol=atol
+            )
+
+
+def _ring_run(serve, model, mesh, depth, n=12):
+    """The JAX pin's schedule: ragged pushes under FakeClock +
+    DispatchFaults, in either package."""
+    rng = np.random.default_rng(31)
+    recs = [rng.normal(size=(500, 3)).astype(np.float32) for _ in range(n)]
+    clock = serve.FakeClock()
+    server = serve.FleetServer(
+        model, window=100, hop=50, smoothing="ema",
+        config=serve.FleetConfig(
+            max_sessions=n, target_batch=16, max_delay_ms=0.0,
+            retries=1, pipeline_depth=depth,
+        ),
+        fault_hook=serve.DispatchFaults(
+            stall_every=3, stall_ms=1.0, fail_every=5, fake_clock=clock,
+        ),
+        clock=clock,
+        mesh=mesh,
+    )
+    for i in range(n):
+        server.add_session(i)
+    events = []
+    cursors = [0] * n
+    step_rng = np.random.default_rng(7)
+    while any(c < len(recs[i]) for i, c in enumerate(cursors)):
+        for i in range(n):
+            if cursors[i] >= len(recs[i]):
+                continue
+            step = int(step_rng.integers(20, 120))
+            server.push(i, recs[i][cursors[i]: cursors[i] + step])
+            cursors[i] += step
+        events.extend(server.poll(force=True))
+        clock.advance(0.01)
+    events.extend(server.flush())
+    return server, events
+
+
+# ------------------------------------------- serving equivalence pin
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3, 4])
+def test_model_parallel_matches_single_device_at_ring_depths(depth):
+    """THE model-parallel pin: a 2×4 (batch × model) mesh serves
+    label-equal decisions (probs to 1e-6) vs the single-device run, at
+    every ticket-ring depth, under FakeClock + DispatchFaults."""
+    import har_tpu_torch.serve as serve
+
+    model = JitDemoModel(window=100, device="cpu")
+    s1, ev1 = _ring_run(serve, model, None, 1)
+    s2, ev2 = _ring_run(serve, model, _mesh(2, 4), depth)
+    assert isinstance(s2.scorer, ModelParallelScorer)
+    assert s2.scorer.model_axis_shards == 4
+    assert s2.scorer.devices == 2  # batch shards only
+    _assert_label_equal_probs_close(_decisions(ev1), _decisions(ev2))
+    for s in (s1, s2):
+        acct = s.stats.accounting()
+        assert acct["balanced"] and acct["pending"] == 0
+    assert s1.stats.scored == s2.stats.scored
+    if depth >= 2:
+        assert max(s2.stats.inflight_depth) >= 2
+    assert s2.stats_snapshot()["model_axis_shards"] == 4
+    assert s1.stats_snapshot()["model_axis_shards"] == 1
+
+
+def test_model_parallel_matches_jax_model_parallel():
+    """The same 2×4 schedule in both packages on the same JitDemoModel
+    weights: equal labels, raw labels and drift, probabilities within
+    1e-5, the same batches and the same snapshot's mesh fields."""
+    import har_tpu_torch.serve as serve
+
+    sp, evp = _ring_run(serve, JitDemoModel(window=100, device="cpu"), _mesh(2, 4), 2)
+    sj, evj = _ring_run(jax_serve, jax_serve.JitDemoModel(window=100), _jax_mesh(2, 4), 2)
+    assert type(sj.scorer).__name__ == type(sp.scorer).__name__ == "ModelParallelScorer"
+    _assert_label_equal_probs_close(_decisions(evp), _decisions(evj), atol=1e-5)
+    assert sp.stats.batch_sizes == sj.stats.batch_sizes
+    assert sp.stats.device_windows == sj.stats.device_windows
+    for key in ("devices", "model_axis_shards"):
+        assert sp.stats_snapshot()[key] == sj.stats_snapshot()[key]
+
+
+def test_pad_policy_pads_per_batch_shard_count():
+    """3 due windows on a 2×4 mesh pad to dp × pow2 = 4 rows — NOT to
+    the 8-row full-device batch a 1D mesh would emit."""
+    model = JitDemoModel(device="cpu")
+    server = FleetServer(
+        model, window=200, hop=200, smoothing="none",
+        config=FleetConfig(max_sessions=4, target_batch=16),
+        mesh=_mesh(2, 4),
+    )
+    for i in range(3):
+        server.add_session(i)
+        server.push(i, np.zeros((200, 3), np.float32))
+    events = server.flush()
+    assert len(events) == 3
+    assert set(server.stats.batch_sizes) == {4}
+    assert len(server.stats.device_windows) == 8
+    assert all(v > 0 for v in server.stats.device_windows.values())
+
+
+def test_calibrate_device_measures_model_parallel_emitted_shapes():
+    """Under a 2D mesh, calibrate_device times the PLACED model-parallel
+    program at the dp × pow2 shapes the dispatcher actually emits, and
+    device_ms stamps from it."""
+    n = 20
+    model = JitDemoModel(device="cpu")
+    server = FleetServer(
+        model, window=200, hop=200, smoothing="none",
+        config=FleetConfig(max_sessions=n, target_batch=64),
+        mesh=_mesh(2, 4),
+    )
+    recordings, _ = synthetic_sessions(n, windows_per_session=1, seed=1)
+    for i in range(n):
+        server.add_session(i)
+    drive_fleet(server, recordings, seed=1)
+    # 20 windows → dp(2) × pow2(ceil(20/2)=10 → 16) = 32 rows
+    assert set(server.stats.batch_sizes) == {32}
+    cal = server.calibrate_device(iters=2)
+    assert 32 in cal and 2 in cal
+    assert all(b % 2 == 0 for b in cal)
+    for i in range(n):
+        server.push(i, recordings[i])
+    events = server.flush()
+    assert events and all(e.event.device_ms is not None for e in events)
+    assert events[0].event.device_ms == round(cal[32]["p50_ms"] / 20, 4)
+
+
+def test_scorer_selection_policy_2d():
+    """make_scorer routing: tp>1 → ModelParallelScorer; a host model
+    falls back to HostScorer; an indivisible hidden dim falls back to
+    the batch-only ShardedScorer (never crashes)."""
+    mesh = _mesh(2, 4)
+    assert isinstance(make_scorer(JitDemoModel(device="cpu"), mesh), ModelParallelScorer)
+    dp_only = _mesh(8, 1)
+    scorer = make_scorer(JitDemoModel(device="cpu"), dp_only)
+    assert isinstance(scorer, ShardedScorer) and not isinstance(scorer, ModelParallelScorer)
+    from tests.test_torch_fleet_dispatch import _StubModel
+
+    assert isinstance(make_scorer(_StubModel(), mesh), HostScorer)
+    # hidden=254 does not divide tp=4: the divisibility check refuses
+    # the placement and the policy degrades to batch-only sharding
+    scorer = make_scorer(JitDemoModel(hidden=254, device="cpu"), mesh)
+    assert isinstance(scorer, ShardedScorer)
+    assert not isinstance(scorer, ModelParallelScorer)
+    assert scorer.kind == "sharded" and scorer.model_axis_shards == 1
+
+
+def test_params_bytes_per_device_strictly_below_single_device():
+    mesh = _mesh(2, 4)
+    model = JitDemoModel(device="cpu")
+    sb = make_scorer(model, None).params_bytes()
+    pb = make_scorer(model, mesh).params_bytes()
+    assert sb["per_device"] == sb["total"]
+    assert pb["total"] == sb["total"]
+    assert pb["per_device"] < sb["per_device"]
+    assert pb["per_device"] < 0.6 * sb["total"]
+    # the same accounting as har_tpu's on the same shapes
+    jax_pb = jax_serve.make_scorer(jax_serve.JitDemoModel(), _jax_mesh(2, 4)).params_bytes()
+    assert pb == jax_pb
+
+
+def test_int8_tier_composes_with_model_parallel():
+    """The int8 tier's leaf list shards positionally through INT8_RULES:
+    same labels as the single-device int8 fleet (probs to 1e-6), with the
+    per-device footprint split."""
+    from har_tpu_torch.parallel.rules import INT8_RULES
+    from har_tpu_torch.quantize import quantize_serving
+
+    n = 12
+    q = quantize_serving(JitDemoModel(device="cpu"))
+    recordings, _ = synthetic_sessions(n, windows_per_session=2, seed=3)
+
+    def run(m):
+        server = FleetServer(
+            q, window=200, hop=200, smoothing="ema",
+            config=FleetConfig(max_sessions=n, target_batch=16),
+            mesh=m,
+        )
+        for i in range(n):
+            server.add_session(i)
+        events, _ = drive_fleet(server, recordings, seed=3)
+        return server, events
+
+    s1, ev1 = run(None)
+    s2, ev2 = run(_mesh(2, 4))
+    assert isinstance(s2.scorer, ModelParallelScorer)
+    assert s2.scorer.rules is INT8_RULES
+    pb = s2.scorer.params_bytes()
+    assert pb["per_device"] < pb["total"]
+    _assert_label_equal_probs_close(_decisions(ev1), _decisions(ev2))
+
+
+def test_fused_hot_loop_label_equal_on_2d_mesh():
+    """The fused program composes with model-parallel placement: label
+    equality with the unfused 2D-mesh run (the fused contract)."""
+    n = 12
+    model = JitDemoModel(device="cpu")
+    recordings, _ = synthetic_sessions(n, windows_per_session=3, seed=8)
+
+    def run(fused):
+        server = FleetServer(
+            model, window=200, hop=200, smoothing="vote",
+            config=FleetConfig(max_sessions=n, target_batch=16, fused=fused),
+            mesh=_mesh(2, 4),
+        )
+        for i in range(n):
+            server.add_session(i)
+        events, _ = drive_fleet(server, recordings, seed=8)
+        return server, events
+
+    s_plain, ev_plain = run(False)
+    s_fused, ev_fused = run(True)
+    assert isinstance(s_fused.scorer, ModelParallelScorer)
+    assert s_fused.stats_snapshot()["fused_dispatches"] > 0
+    d_plain, d_fused = _decisions(ev_plain), _decisions(ev_fused)
+    assert d_plain.keys() == d_fused.keys()
+    for sid in d_plain:
+        assert [x[:2] for x in d_plain[sid]] == [y[:2] for y in d_fused[sid]]
+
+
+def test_model_parallel_smoke_verdict_green():
+    out = model_parallel_smoke(sessions=16, device="cpu")
+    assert out["ok"], out
+    assert out["mesh"] == "2x4" and out["model_axis_shards"] == 4
+    assert out["params_bytes_per_device"] < out["params_bytes_single"]
+
+
+# -------------------------------------------------- elastic + chaos
+
+
+def test_resize_onto_and_off_2d_mesh_matches_never_resized():
+    """Mid-run resize ONTO the 2×4 mesh and later OFF it again: the
+    event stream stays label-equal (probs to 1e-6) to the never-resized
+    single-device run."""
+    n = 12
+    model = JitDemoModel(device="cpu")
+    recordings, _ = synthetic_sessions(n, windows_per_session=6, seed=9)
+    thirds = [
+        (r[: len(r) // 3], r[len(r) // 3: 2 * len(r) // 3], r[2 * len(r) // 3:])
+        for r in recordings
+    ]
+
+    def run(resize):
+        server = FleetServer(
+            model, window=200, hop=200, smoothing="ema",
+            config=FleetConfig(max_sessions=n, target_batch=16),
+        )
+        for i in range(n):
+            server.add_session(i)
+        ev, kinds = [], []
+        for k, seed in ((0, 9), (1, 10), (2, 11)):
+            if resize and k == 1:
+                server.resize(mesh=_mesh(2, 4))  # onto the 2D mesh
+            if resize and k == 2:
+                server.resize(mesh=None)  # and off again
+            got, _ = drive_fleet(server, [t[k] for t in thirds], seed=seed)
+            ev.extend(got)
+            kinds.append(server.scorer.kind)
+        return server, ev, kinds
+
+    s_flat, ev_flat, _ = run(False)
+    s_resized, ev_resized, kinds = run(True)
+    assert kinds == ["device", "model_parallel", "device"]
+    assert s_resized.stats.resizes == 2
+    assert isinstance(s_resized.scorer, DeviceScorer)
+    assert not isinstance(s_resized.scorer, ShardedScorer)
+    assert s_flat.stats.dropped_total == s_resized.stats.dropped_total == 0
+    _assert_label_equal_probs_close(_decisions(ev_flat), _decisions(ev_resized))
+    for s in (s_flat, s_resized):
+        acct = s.stats.accounting()
+        assert acct["balanced"] and acct["pending"] == 0
+
+
+def _kill_points():
+    from har_tpu_torch.serve.chaos import ENGINE_KILL_POINTS, KILL_POINTS
+
+    return KILL_POINTS + ENGINE_KILL_POINTS
+
+
+@pytest.mark.parametrize("point", _kill_points())
+def test_kill_matrix_green_with_model_parallel_scorer(point):
+    """Every engine kill point recovers behind the 2D mesh: restore
+    re-places the weights through the SAME rule table and the recovered
+    stream completes the reference run exactly."""
+    from har_tpu_torch.serve.chaos import run_kill_point
+
+    out = run_kill_point(point, sessions=4, seed=1, mesh=_mesh(2, 2))
+    assert out["ok"], out
+
+
+@pytest.mark.parametrize("seed", [11, 23])
+def test_randomized_kill_property_green_with_model_parallel(seed):
+    from har_tpu_torch.serve.chaos import run_random_kill
+
+    out = run_random_kill(seed, mesh=_mesh(2, 2))
+    assert out["ok"], out
+
+
+# ------------------------------------------- the transformer, TRANSFORMER_RULES
+
+
+def _transformer_pair(**options):
+    from tests.test_torch_serving import random_pair
+
+    port, jax_model, _ = random_pair(
+        "transformer", window=24, classes=6, seed=3,
+        kwargs=dict(embed_dim=32, num_heads=4, num_layers=2, **options),
+    )
+    return port, jax_model
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_transformer_model_parallel_logits(tp, monkeypatch):
+    """TRANSFORMER_RULES at tp 2 and 4 on a 2 × tp mesh: the scorer's
+    logits equal the unsharded module's and har_tpu's 2D scorer's within
+    1e-5 (float32), K2 runs once a layer on each device's heads, and the
+    per-device weights shrink."""
+    import har_tpu_torch.ops.flash_attention as flash
+    from har_tpu_torch.parallel.rules import TRANSFORMER_RULES
+
+    port, jax_model = _transformer_pair()
+    x = np.random.default_rng(5).normal(size=(6, 24, 3)).astype(np.float32)
+    single = make_scorer(port, None, window=24)
+    scorer = make_scorer(port, _mesh(2, tp), window=24)
+    assert isinstance(scorer, ModelParallelScorer)
+    assert scorer.rules is TRANSFORMER_RULES and scorer.model_axis_shards == tp
+    calls = []
+    real = flash.flash_attention_fwd
+    monkeypatch.setattr(flash, "flash_attention_fwd",
+                        lambda q, k, v, lse: calls.append(q.shape) or real(q, k, v, lse))
+    padded = scorer.pad(x)
+    got = scorer.launch(padded).numpy()
+    layers = len(port.inner.module.blocks)
+    assert len(calls) == layers * 2 * tp
+    assert {c[2] for c in calls} == {4 // tp}  # each device's heads
+    want = single.launch(single.pad(x)).numpy()
+    np.testing.assert_allclose(got[: len(x)], want[: len(x)], atol=1e-5)
+    jax_scorer = jax_serve.make_scorer(jax_model, _jax_mesh(2, tp), window=24)
+    assert type(jax_scorer).__name__ == "ModelParallelScorer"
+    jax_logits = np.asarray(jax_scorer.launch(jax_scorer.pad(x)))
+    np.testing.assert_allclose(got[: len(x)], jax_logits[: len(x)], atol=1e-5)
+    pb = scorer.params_bytes()
+    assert pb["per_device"] < pb["total"] == single.params_bytes()["total"]
+
+
+@pytest.mark.parametrize("option", [dict(patch_size=2), dict(window_pack=2)],
+                         ids=["patch_size", "window_pack"])
+def test_transformer_model_parallel_patched_and_packed(option, monkeypatch):
+    """A transformer that embeds patches of 2 steps, and one that packs 2
+    windows into a sequence (5 rows a shard: a padding window), on 2x2:
+    the placed copy runs the model's own forward, its logits within 1e-5
+    of the unsharded module's and of har_tpu's 2D scorer, K2 (the segment
+    route when packed) once a layer on each device's heads."""
+    import har_tpu_torch.ops.flash_attention as flash
+
+    port, jax_model = _transformer_pair(**option)
+    x = np.random.default_rng(7).normal(size=(10, 24, 3)).astype(np.float32)
+    single = make_scorer(port, None, window=24)
+    scorer = make_scorer(port, _mesh(2, 2), window=24)
+    assert isinstance(scorer, ModelParallelScorer)
+    calls = []
+    real = flash.flash_attention_fwd
+    monkeypatch.setattr(flash, "flash_attention_fwd",
+                        lambda q, k, v, lse: calls.append(q.shape) or real(q, k, v, lse))
+    padded = scorer.pad(x)
+    got = scorer.launch(padded).numpy()
+    assert len(calls) == 2 * 2 * 2 and {c[2] for c in calls} == {2}
+    want = single.launch(single.pad(x)).numpy()
+    np.testing.assert_allclose(got[: len(x)], want[: len(x)], atol=1e-5)
+    jax_scorer = jax_serve.make_scorer(jax_model, _jax_mesh(2, 2), window=24)
+    assert type(jax_scorer).__name__ == "ModelParallelScorer"
+    jax_logits = np.asarray(jax_scorer.launch(jax_scorer.pad(x)))
+    np.testing.assert_allclose(got[: len(x)], jax_logits[: len(x)], atol=1e-5)
+
+
+def test_families_without_a_tensor_parallel_forward_refuse_a_model_axis():
+    """CNN1D and a neural family's int8 tier have no tensor-parallel
+    forward in the port: a mesh with a model axis refuses them (never
+    served quietly on fewer devices), one with data axes only shards
+    their batch."""
+    from har_tpu_torch.serve.model_parallel import NoTensorParallelForward
+    from tests.test_torch_serving import random_pair
+
+    cnn, _, _ = random_pair("cnn1d", window=24, classes=6, seed=3)
+    with pytest.raises(NoTensorParallelForward, match="no tensor-parallel forward"):
+        make_scorer(cnn, _mesh(2, 2), window=24)
+    assert type(make_scorer(cnn, _mesh(4, 1), window=24)) is ShardedScorer
+    port, _ = _transformer_pair()
+    with pytest.raises(NoTensorParallelForward, match="int8 tier"):
+        make_scorer(port, _mesh(1, 2), tier="int8", window=24)
+    with pytest.raises(NoTensorParallelForward):
+        FleetServer(cnn, window=24, hop=24, mesh=_mesh(2, 2)).scorer
+
+
+def test_replicas_are_made_when_the_scorer_is_built(tmp_path):
+    """A data shard on a second device gets its replica when the scorer
+    is built, not at its first dispatch: a module is copied there, a
+    loaded artifact is loaded there again (``ExportedPredictor.to``), and
+    a program that can be neither refuses the mesh at once."""
+    import dataclasses
+
+    from har_tpu_torch.export import export_model, load_exported
+
+    two = create_serving_mesh(dp=2, tp=1, devices=["cpu", "meta"])
+    scorer = make_scorer(JitDemoModel(device="cpu"), two)
+    assert {p.device.type for p in scorer._replicas[torch.device("meta")].parameters()} == {"meta"}
+    port, _ = _transformer_pair()
+    art = load_exported(export_model(port, str(tmp_path / "art")), "cpu")
+    x = torch.from_numpy(np.random.default_rng(8).normal(size=(4, 24, 3)).astype(np.float32))
+    torch.testing.assert_close(art.to("cpu").device_call(x), art.device_call(x), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="cannot be copied to meta"):
+        make_scorer(dataclasses.replace(art, path=None), two, window=24)
+
+
+def test_transformer_heads_indivisible_fall_back_to_batch_sharding():
+    """H % tp != 0 refuses the placement: 4 heads on tp 8 serve
+    batch-sharded."""
+    port, _ = _transformer_pair()
+    scorer = make_scorer(port, _mesh(1, 8), window=24)
+    assert isinstance(scorer, DeviceScorer) and not isinstance(scorer, ShardedScorer)
+    scorer = make_scorer(port, _mesh(2, 8), window=24)
+    assert type(scorer) is ShardedScorer
+
+
+def test_transformer_fleet_model_parallel_equals_single_device():
+    """The narrow transformer served on 2×2 through the whole fleet:
+    label-equal to the single device, probabilities within 1e-6."""
+    port, _ = _transformer_pair()
+    out = model_parallel_smoke(sessions=8, dp=2, tp=2, device="cpu", model=port,
+                               window=24, target_batch=8)
+    assert out["ok"], out
+    assert out["model_axis_shards"] == 2 and out["batch_shards"] == 2

@@ -628,17 +628,56 @@ def test_elastic_smoke_verdict_green():
 
 
 def test_controller_mesh_ladder_names_item_14():
-    """A ladder past one device WITH ``mesh_for`` (the JAX package's mesh
-    rungs) waits for item 14; without ``mesh_for`` the JAX package's
-    ValueError stays."""
-    server = _server()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        CapacityController(
-            server, config=AutoscaleConfig(mesh_ladder=(1, 2)),
-            mesh_for=lambda d: None,
-        )
+    """The ladder's mesh rungs: past target_batch and pipeline depth, the
+    controller resizes onto the rung's mesh (``mesh_for``, a serving mesh
+    of 8 CPU entries here) and the server scores through the sharded
+    scorer; scale-down walks back off the mesh first.  Without
+    ``mesh_for`` the JAX package's ValueError stays."""
+    from har_tpu_torch.parallel.mesh import create_serving_mesh
+    from har_tpu_torch.serve import JitDemoModel
+
+    server = FleetServer(
+        JitDemoModel(window=100, device="cpu"), window=100, hop=50, smoothing="ema",
+        config=FleetConfig(max_sessions=64, target_batch=16, max_delay_ms=0.0),
+    )
+    built = []
+
+    def mesh_for(d):
+        built.append(d)
+        return create_serving_mesh(dp=d, tp=1, devices=["cpu"] * d)
+
+    controller = CapacityController(
+        server,
+        config=AutoscaleConfig(
+            min_target_batch=16, max_target_batch=32, min_depth=1, max_depth=2,
+            mesh_ladder=(1, 8), up_after=1, down_after=1, cooldown_s=0.0,
+        ),
+        mesh_for=mesh_for, clock=lambda: 0.0,
+    )
+    server.stats.queue_depth = 10_000
+    ups = [controller.step() for _ in range(4)]
+    assert [(a or {}).get("knob") for a in ups] == [
+        "target_batch", "pipeline_depth", "mesh", None,
+    ]
+    assert ups[2]["to"] == 8 and built == [8]
+    for i in range(4):
+        server.add_session(i)
+        server.push(i, np.random.default_rng(i).normal(size=(100, 3)).astype(np.float32))
+    assert len(server.flush()) == 4
+    assert server.scorer.kind == "sharded" and server.scorer.devices == 8
+    server.stats.queue_depth = 0
+    server.stats.utilization = 0.05
+    downs = [controller.step() for _ in range(4)]
+    assert [(a or {}).get("knob") for a in downs] == [
+        "mesh", "pipeline_depth", "target_batch", None,
+    ]
+    assert downs[0]["to"] == 1
+    server.push(0, np.zeros((100, 3), np.float32))
+    server.flush()
+    assert server.scorer.kind == "device"
+    assert server.stats.resizes == 6
     with pytest.raises(ValueError, match="mesh_for"):
-        CapacityController(server, config=AutoscaleConfig(mesh_ladder=(1, 2)))
+        CapacityController(_server(), config=AutoscaleConfig(mesh_ladder=(1, 2)))
 
 
 def test_disconnect_cohort_flush_respects_global_queue_bound():
