@@ -259,10 +259,26 @@ exits nonzero without the final ``ok`` line:
     ``moe_dense_reference`` and the stages in turn, outputs and
     gradients within 1e-5 (one rank: a single expert, so no routing, no
     router gradient and no exchange between ranks);
-34. with ``--profile`` only: one DT, one RF and one transformer fit, one
+34. cluster_main: the fleet cluster (``serve.cluster``, ``serve.net``).
+    The CLI transformer (phase 8's bf16 checkpoint) over a 3-worker
+    ``FleetCluster`` on the card, 1,000 sessions x 2 windows, target
+    batch 256, on a FakeClock: labels and raw labels equal to one card's
+    ``FleetServer`` on the same schedule (probabilities within 1e-3) and
+    to the same cluster on the CPU port (1e-2), accounting balanced with
+    nothing dropped, K2 exactly layers x the dispatches summed over the
+    workers; the same run with w1 killed once windows are scored (no
+    window lost or repeated, the migrated sessions exactly w1's partition
+    by the router, labels equal to the un-killed run's); both
+    control-plane kill points and ``cluster_failover_smoke`` (the analytic
+    demo model); ``elastic_smoke`` (the demo MLP's ladder with a mesh
+    rung on the card, then worker scaling); ``serve --workers 3
+    --kill-worker w1`` in-process and with ``--net`` (three
+    ``serve-worker`` processes on loopback), one failover each and the
+    same windows scored;
+35. with ``--profile`` only: one DT, one RF and one transformer fit, one
     default run, one parity run, one GBDT fit and a 2-epoch BiLSTM fit
     under torch.profiler, with K1's and K2's shares of the device time;
-35. the kernels line (K1's launches over every path that grows trees),
+36. the kernels line (K1's launches over every path that grows trees),
     a short ``summary`` line, then ``{"ok": true, "device": {...}}``.
 
 ``train --eda`` (host matplotlib, no kernel) is not driven here: the card's
@@ -271,6 +287,9 @@ machine has no matplotlib; the CPU tests hold it to har_tpu's files.
 ``--mesh-only`` runs phases 1, 2, 8 and 33 and stops there, without the
 last lines: the check of serving over a mesh, on as many cards as are
 visible (on a machine of four cards each mesh is laid over the four).
+
+``--cluster-only`` runs phases 1, 2, 8 and 34 and stops there, without
+the last lines: the check of the fleet cluster on the card.
 
 ``--flash-only`` runs phases 1, 2 and 4 and stops there, without the last
 two lines: the quick way to time K2, or to time another checkout's K2 by
@@ -4022,6 +4041,255 @@ def phase_mesh_serve_main() -> dict:
                 launches=dict(flash_attention=launches))
 
 
+CLUSTER_DIR = OUT / "cluster"
+CLUSTER_SESSIONS = 1000
+CLUSTER_WINDOWS = 2
+CLUSTER_WORKERS = 3
+CLUSTER_TARGET_BATCH = 256
+CLUSTER_VICTIM = "w1"
+# bf16 against one card's FleetServer and against the same cluster run
+# again: the partitioned batches differ in size from the single server's
+CLUSTER_PROB_ATOL_BF16 = 1e-3
+
+
+def cluster_run(model, tag: str, kill: str | None = None) -> dict:
+    """A FleetCluster of CLUSTER_WORKERS journaled workers over ``model``
+    on a FakeClock, CLUSTER_SESSIONS sessions x CLUSTER_WINDOWS windows
+    delivered hop by hop with a forced poll a round (``chaos._drive_cluster``,
+    the CLI's drive); with ``kill``, that worker is killed once the first
+    windows are scored.  Events by (session, t_index), the number of
+    events, whether every round's accounting balanced, the final
+    accounting and control-plane stats, the migrated sessions, and the
+    dispatches summed over the three workers' engines (a killed worker's
+    up to its kill; the drain of its restored partition not counted)."""
+    from har_tpu_torch.serve import FakeClock, FleetConfig, synthetic_sessions
+    from har_tpu_torch.serve.chaos import _drive_cluster
+    from har_tpu_torch.serve.cluster import ClusterConfig, FleetCluster
+
+    recordings, _ = synthetic_sessions(CLUSTER_SESSIONS, windows_per_session=CLUSTER_WINDOWS,
+                                       seed=2)
+    root = CLUSTER_DIR / tag
+    shutil.rmtree(root, ignore_errors=True)
+    clock = FakeClock()
+    cluster = FleetCluster(
+        model, str(root), workers=CLUSTER_WORKERS, window=200, hop=200, smoothing="ema",
+        fleet_config=FleetConfig(max_sessions=CLUSTER_SESSIONS,
+                                 target_batch=CLUSTER_TARGET_BATCH, max_delay_ms=0.0),
+        config=ClusterConfig(lease_s=0.5, probe_base_ms=20.0, probe_cap_ms=200.0),
+        clock=clock,
+    )
+    for i in range(CLUSTER_SESSIONS):
+        cluster.add_session(i)
+    servers = {wid: w.server for wid, w in cluster._workers.items()}
+    events: list = []
+    balanced: list = []
+
+    def on_round(c):
+        if kill is not None and kill in c._workers and c.accounting()["scored"] > 0:
+            c._workers[kill].kill()
+        balanced.append(c.accounting()["balanced"])
+
+    t0 = time.perf_counter()
+    _drive_cluster(cluster, recordings, [0] * CLUSTER_SESSIONS, 200 * CLUSTER_WINDOWS, 200,
+                   clock, events, on_round)
+    seconds = time.perf_counter() - t0
+    stats = cluster.cluster_stats()
+    out = dict(events={(fe.session_id, fe.event.t_index): fe.event for fe in events},
+               n_events=len(events), seconds=seconds, balanced_every_round=all(balanced),
+               accounting=stats["accounting"], failovers=stats["failovers"],
+               migrated=sorted(e["sid"] for e in cluster.migration_log),
+               per_worker_sessions=stats["per_worker_sessions"],
+               migration_ms=stats["migration_ms"], failover_ms=stats["failover_ms"],
+               dispatches=sum(s.stats.dispatches for s in servers.values()))
+    cluster.close()
+    return out
+
+
+def _compare_cluster_events(got: dict, want: dict) -> dict:
+    """Two event maps: the same (session, t_index) keys, raw and smoothed
+    labels equal, the largest probability difference."""
+    keys_equal = got.keys() == want.keys()
+    out = dict(keys_equal=keys_equal, missing=len(want.keys() - got.keys()))
+    if keys_equal:
+        out.update(
+            labels_equal=all(got[k].label == want[k].label for k in want),
+            raw_labels_equal=all(got[k].raw_label == want[k].raw_label for k in want),
+            max_prob_diff=max(float(np.abs(got[k].probability - want[k].probability).max())
+                              for k in want))
+    return out
+
+
+def cluster_agree(card_model, cpu_model, layers: int) -> tuple[dict, dict]:
+    """The 3-worker transformer cluster on the card against one card's
+    FleetServer on the same schedule (labels equal, probabilities within
+    CLUSTER_PROB_ATOL_BF16) and against the same cluster on the CPU port
+    (labels equal, within PREDICT_PROB_ATOL_BF16); accounting balanced
+    with nothing dropped; K2 exactly layers x the dispatches summed over
+    the workers."""
+    from har_tpu_torch.serve import FakeClock, FleetConfig, FleetServer, synthetic_sessions
+    from har_tpu_torch.serve.chaos import _deliver
+
+    with launch_counts() as launches:
+        card = cluster_run(card_model, "card")
+    recordings, _ = synthetic_sessions(CLUSTER_SESSIONS, windows_per_session=CLUSTER_WINDOWS,
+                                       seed=2)
+    clock = FakeClock()
+    single = FleetServer(card_model, window=200, hop=200, smoothing="ema",
+                         config=FleetConfig(max_sessions=CLUSTER_SESSIONS,
+                                            target_batch=CLUSTER_TARGET_BATCH,
+                                            max_delay_ms=0.0),
+                         clock=clock)
+    for i in range(CLUSTER_SESSIONS):
+        single.add_session(i)
+    single_events: list = []
+    _deliver(single, recordings, [0] * CLUSTER_SESSIONS, 200 * CLUSTER_WINDOWS, 200, clock,
+             single_events)
+    one = {(fe.session_id, fe.event.t_index): fe.event for fe in single_events}
+    cpu = cluster_run(cpu_model, "cpu")
+    acct = card["accounting"]
+    out = dict(
+        n_events=card["n_events"], seconds=card["seconds"], cpu_seconds=cpu["seconds"],
+        dispatches=card["dispatches"], single_dispatches=single.stats.dispatches,
+        per_worker_sessions=card["per_worker_sessions"], accounting=acct,
+        balanced_every_round=card["balanced_every_round"],
+        vs_single=_compare_cluster_events(card["events"], one),
+        vs_cpu=_compare_cluster_events(card["events"], cpu["events"]),
+        launches=launches,
+        expected_launches=dict(hist=0, hist_rows=0,
+                               flash_attention=layers * card["dispatches"]))
+    emit("cluster_agree", **out)
+    total = CLUSTER_SESSIONS * CLUSTER_WINDOWS
+    if not (card["n_events"] == len(card["events"]) == total
+            and acct["balanced"] and acct["pending"] == 0 and acct["dropped"] == 0
+            and acct["enqueued"] == acct["scored"] == total and out["balanced_every_round"]
+            and all(out[k]["keys_equal"] and out[k]["labels_equal"]
+                    and out[k]["raw_labels_equal"] for k in ("vs_single", "vs_cpu"))
+            and out["vs_single"]["max_prob_diff"] <= CLUSTER_PROB_ATOL_BF16
+            and out["vs_cpu"]["max_prob_diff"] <= PREDICT_PROB_ATOL_BF16
+            and launches == out["expected_launches"]):
+        raise AssertionError(f"the cluster against one card and the CPU: {out}")
+    return out, card
+
+
+def cluster_failover(card_model, reference: dict) -> dict:
+    """The same cluster run with CLUSTER_VICTIM killed once the first
+    windows are scored: no window lost or delivered twice, the migrated
+    sessions exactly the victim's partition by the router, labels equal
+    to the un-killed run's (probabilities within CLUSTER_PROB_ATOL_BF16:
+    the drained partition scores in other batches), one failover, the
+    accounting balanced after every round."""
+    from har_tpu_torch.serve.cluster import ClusterConfig, ConsistentHashRouter
+
+    with launch_counts() as launches:
+        run = cluster_run(card_model, "failover", kill=CLUSTER_VICTIM)
+    router = ConsistentHashRouter(ClusterConfig().replicas)
+    for i in range(CLUSTER_WORKERS):
+        router.add_worker(f"w{i}")
+    partition = sorted(s for s in range(CLUSTER_SESSIONS) if router.owner(s) == CLUSTER_VICTIM)
+    acct = run["accounting"]
+    out = dict(n_events=run["n_events"], seconds=run["seconds"], failovers=run["failovers"],
+               failover_ms=run["failover_ms"], migration_ms=run["migration_ms"],
+               migrated_sessions=len(run["migrated"]), partition_sessions=len(partition),
+               migrated_is_partition=run["migrated"] == partition,
+               windows_lost=len(reference["events"].keys() - run["events"].keys()),
+               delivered_twice=run["n_events"] - len(run["events"]),
+               vs_unkilled=_compare_cluster_events(run["events"], reference["events"]),
+               accounting=acct, balanced_every_round=run["balanced_every_round"],
+               per_worker_sessions=run["per_worker_sessions"], launches=launches)
+    emit("cluster_failover", **out)
+    cmp = out["vs_unkilled"]
+    if not (out["windows_lost"] == 0 and out["delivered_twice"] == 0 and out["failovers"] == 1
+            and out["migrated_is_partition"] and partition
+            and cmp["keys_equal"] and cmp["labels_equal"] and cmp["raw_labels_equal"]
+            and cmp["max_prob_diff"] <= CLUSTER_PROB_ATOL_BF16
+            and acct["balanced"] and acct["pending"] == 0 and acct["dropped"] == 0
+            and out["balanced_every_round"] and launches["flash_attention"] > 0):
+        raise AssertionError(f"the cluster's failover: {out}")
+    return out
+
+
+def cluster_kill_points() -> dict:
+    """Both control-plane kill points and ``cluster_failover_smoke`` with
+    the analytic demo model: every verdict green, no window lost."""
+    from har_tpu_torch.serve.chaos import CLUSTER_KILL_POINTS, run_cluster_kill_point
+    from har_tpu_torch.serve.cluster import cluster_failover_smoke
+
+    keys = ("ok", "why", "workers", "failovers", "migrated_sessions", "windows_lost",
+            "migration_ms")
+    out = {point: {k: r.get(k) for k in keys + ("failover_ms", "delivered")}
+           for point in CLUSTER_KILL_POINTS
+           for r in [run_cluster_kill_point(point)]}
+    smoke = cluster_failover_smoke()
+    out["cluster_failover_smoke"] = {k: smoke.get(k) for k in keys}
+    emit("cluster_kill_points", **out)
+    if not all(r["ok"] and r["windows_lost"] == 0 for r in out.values()):
+        raise AssertionError(f"the cluster's kill points: {out}")
+    return out
+
+
+def cluster_elastic() -> dict:
+    """``elastic_smoke``: the demo MLP's capacity ladder on the card, a
+    mesh rung over two entries of the visible cards (``cuda:0`` repeated
+    on one card), then a 2-worker cluster adding and retiring a worker
+    over churn; green, nothing lost."""
+    from har_tpu_torch.serve.traffic import elastic_smoke
+
+    t0 = time.perf_counter()
+    out = dict(elastic_smoke(seed=0, device="cuda"), seconds=time.perf_counter() - t0)
+    emit("cluster_elastic", **out)
+    if not (out["ok"] and out["windows_lost"] == 0 and out["mesh_devices"] >= 2):
+        raise AssertionError(f"elastic_smoke: {out}")
+    return out
+
+
+def cluster_cli() -> dict:
+    """``serve --workers 3 --kill-worker w1`` in-process and with ``--net``
+    (three ``serve-worker`` processes on loopback, w1 SIGKILLed): both
+    balanced with nothing dropped or pending and one failover, the same
+    number of windows scored."""
+    out = {}
+    for tag, extra in (("in_process", []), ("net", ["--net"])):
+        t0 = time.perf_counter()
+        r = run_cli_json(["serve", "--device", "cuda", "--workers", str(CLUSTER_WORKERS),
+                          "--kill-worker", CLUSTER_VICTIM, *extra])
+        out[tag] = dict({k: r.get(k) for k in (
+            "sessions", "workers", "transport", "n_events", "enqueued", "scored", "dropped",
+            "pending", "balanced", "windows_per_sec", "failovers", "failover_ms",
+            "migrated_sessions", "per_worker_sessions", "killed_worker", "rpc")},
+            seconds=time.perf_counter() - t0)
+    emit("cluster_cli", **out)
+    if not (all(r["balanced"] and r["pending"] == 0 and r["dropped"] == 0
+                and r["failovers"] == 1 and r["killed_worker"] == CLUSTER_VICTIM
+                and r["scored"] == r["enqueued"] == r["n_events"] > 0 for r in out.values())
+            and out["net"]["transport"] == "tcp"
+            and out["net"]["scored"] == out["in_process"]["scored"]):
+        raise AssertionError(f"serve --workers: {out}")
+    return out
+
+
+def phase_cluster_main() -> dict:
+    """The fleet cluster on the card: the CLI transformer (bf16, raw_main's
+    checkpoint) over a 3-worker FleetCluster against one card and the CPU
+    port, the same cluster through a worker's failover, both control-plane
+    kill points and the failover smoke, ``elastic_smoke``, and ``serve
+    --workers 3 [--net] --kill-worker w1``."""
+    t0 = time.perf_counter()
+    path = str(MODELS_DIR / "transformer")
+    cpu_model = checkpoint.load_model(path, "cpu")
+    layers = len(cpu_model.inner.module.blocks)
+    card_model = checkpoint.load_model(path, "cuda")
+    agree, reference = cluster_agree(card_model, cpu_model, layers)
+    failover = cluster_failover(card_model, reference)
+    kills = cluster_kill_points()
+    elastic = cluster_elastic()
+    cli_runs = cluster_cli()
+    launches = agree["launches"]["flash_attention"] + failover["launches"]["flash_attention"]
+    seconds = time.perf_counter() - t0
+    emit("cluster_main", seconds=seconds, nvidia_smi=nvidia_smi(), launches=launches)
+    return dict(seconds=seconds, agree=agree, failover=failover, kills=kills, elastic=elastic,
+                cli=cli_runs, launches=dict(flash_attention=launches))
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
                  checked: dict, shape: str, library: str = "library_ms",
                  **extra) -> dict:
@@ -4050,6 +4318,10 @@ def main(argv: list[str]) -> int:
     if "--mesh-only" in argv:
         phase_raw_main()
         phase_mesh_serve_main()
+        return 0
+    if "--cluster-only" in argv:
+        phase_raw_main()
+        phase_cluster_main()
         return 0
     hist = phase_hist()
     hist_rows = phase_hist_rows()
@@ -4087,6 +4359,7 @@ def main(argv: list[str]) -> int:
     raw_lane_main = phase_raw_lane_main()
     parallel_main = phase_parallel_main()
     mesh_serve_main = phase_mesh_serve_main()
+    cluster_main = phase_cluster_main()
     if "--profile" in argv:
         phase_profile()
     flash_launches = {
@@ -4098,7 +4371,8 @@ def main(argv: list[str]) -> int:
                            ("serving_main", serving_main), ("fleet_main", fleet_main),
                            ("adapt_main", adapt_main), ("traffic_main", traffic_main),
                            ("parallel_main", parallel_main),
-                           ("mesh_serve_main", mesh_serve_main))
+                           ("mesh_serve_main", mesh_serve_main),
+                           ("cluster_main", cluster_main))
     }
     hist_rows_launches = {
         name: path["launches"]["hist_rows"]
@@ -4254,6 +4528,18 @@ def main(argv: list[str]) -> int:
              artifact={k: mesh_serve_main["artifact"][k]
                        for k in ("kind", "devices", "max_abs_diff", "launches")},
              parallel=mesh_serve_main["parallel"]),
+         cluster_main=dict(
+             seconds=cluster_main["seconds"], launches=cluster_main["launches"],
+             agree={k: cluster_main["agree"][k] for k in (
+                 "dispatches", "vs_single", "vs_cpu", "seconds", "cpu_seconds")},
+             failover={k: cluster_main["failover"][k] for k in (
+                 "windows_lost", "migrated_sessions", "migrated_is_partition", "failover_ms",
+                 "vs_unkilled")},
+             kill_points_ok=all(r["ok"] for r in cluster_main["kills"].values()),
+             elastic={k: cluster_main["elastic"][k] for k in (
+                 "ok", "resizes", "mesh_devices", "worker_adds", "worker_retires")},
+             cli={tag: {k: r[k] for k in ("scored", "failovers", "windows_per_sec", "seconds")}
+                  for tag, r in cluster_main["cli"].items()}),
          ucihar_split_candidates_s=ucihar_main["split_candidates_s"],
          ucihar_parity_lane_result=ucihar_lane["lane"], raw_lane_result=raw_lane_main["lane"])
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -278,8 +278,7 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _serve_arguments(sub) -> None:
-    """``serve``: har_tpu's flags, plus ``--device``.  The flags of the
-    parts not ported yet are kept and refused (see ``_SERVE_WAITING``)."""
+    """``serve``: har_tpu's flags, plus ``--device``."""
     sv = sub.add_parser(
         "serve",
         help="fleet serving smoke: multiplex N concurrent synthetic "
@@ -340,15 +339,20 @@ def _serve_arguments(sub) -> None:
                          "device.  Mutually exclusive with --mesh; needs "
                          "B*M devices, as --mesh does")
     sv.add_argument("--workers", type=int, default=0,
-                    help="multi-worker fleet cluster; 0/1 = the "
-                         "single-process engine (a cluster is not "
-                         "ported yet: item 15)")
+                    help="multi-worker fleet cluster (har_tpu_torch."
+                         "serve.cluster): sessions partition across N "
+                         "journaled FleetServers behind a consistent-"
+                         "hash router; 0/1 = the single-process engine")
     sv.add_argument("--net", action="store_true",
-                    help="with --workers: the real transport (not "
-                         "ported yet: item 15)")
+                    help="with --workers: the real transport "
+                         "(har_tpu_torch.serve.net) — each worker is an "
+                         "OS subprocess (`serve-worker`) on a loopback "
+                         "TCP socket, real clocks, CRC-framed RPCs")
     sv.add_argument("--kill-worker", default=None,
-                    help="with --workers: kill this worker mid-drive "
-                         "(not ported yet: item 15)")
+                    help="with --workers: SIGKILL this worker (e.g. w1) "
+                         "once windows are flowing — the lease protocol "
+                         "detects it and journal hand-off migrates its "
+                         "sessions live")
     sv.add_argument("--trace", default=None,
                     choices=["diurnal", "bursty", "storm"],
                     help="elastic traffic mode (har_tpu_torch.serve."
@@ -553,14 +557,6 @@ def _stream(args) -> int:
     return 0
 
 
-# serve's flags of the parts not ported yet: (is it set, flag, item)
-_SERVE_WAITING = (
-    (lambda a: a.workers and a.workers > 1, "--workers", 15),
-    (lambda a: a.net, "--net", 15),
-    (lambda a: a.kill_worker is not None, "--kill-worker", 15),
-)
-
-
 def _serve(args) -> int:
     """``serve``: the single-process fleet of ``har_tpu``'s ``serve``,
     with its summary keys: the steady N-session load (with ``--adapt``,
@@ -569,11 +565,6 @@ def _serve(args) -> int:
 
     import numpy as np
 
-    for is_set, flag, item in _SERVE_WAITING:
-        if is_set(args):
-            raise NotImplementedError(
-                f"serve {flag} is not ported yet: ROADMAP.md Queue 1 item {item}"
-            )
     from har_tpu_torch.device import resolve_device
     from har_tpu_torch.serve import (
         AnalyticDemoModel,
@@ -666,6 +657,14 @@ def _serve(args) -> int:
         rec = recordings[i].copy()
         rec[len(rec) // 2:] += 25.0
         recordings[i] = rec
+    if args.net and not (args.workers and args.workers > 1):
+        raise SystemExit(
+            "--net is the multi-worker transport; pair it with "
+            "--workers N (N >= 2)"
+        )
+    if args.workers and args.workers > 1:
+        return _serve_cluster(args, model, window, channels, class_names,
+                              recordings, monitor_ref, journal_cfg)
 
     recovered_events = []
     if args.resume:
@@ -840,6 +839,269 @@ def _serve(args) -> int:
     return 0
 
 
+def _serve_cluster(args, model, window, channels, class_names, recordings,
+                   monitor_ref, journal_cfg) -> int:
+    """``serve --workers N [--net] [--kill-worker W]``: sessions
+    partition across N journaled FleetServers behind the consistent-hash
+    router — in-process on a FakeClock, or (``--net``) N ``serve-worker``
+    subprocesses on loopback sockets.  ``--kill-worker`` kills one once
+    windows are flowing; the lease protocol detects it and journal
+    hand-off migrates its partition.  ``har_tpu``'s refusals and summary
+    keys."""
+    import shutil
+    import tempfile
+    import time
+
+    if args.resume or args.adapt or args.mesh or args.mesh_shape or args.checkpoint:
+        raise SystemExit(
+            "--workers drives the analytic demo fleet; it does not combine "
+            "with --resume/--adapt/--mesh/--mesh-shape/--checkpoint (each "
+            "worker is an unmodified FleetServer — run those modes "
+            "single-process)"
+        )
+    if args.net:
+        return _serve_net_cluster(args, window, channels, recordings)
+    from har_tpu_torch.monitoring import DriftMonitor
+    from har_tpu_torch.serve import DispatchFaults, FakeClock, FleetConfig
+    from har_tpu_torch.serve.chaos import _drive_cluster
+    from har_tpu_torch.serve.cluster import ClusterConfig, FleetCluster
+
+    cluster_tmp = None
+    root = args.journal
+    if root is None:
+        cluster_tmp = root = tempfile.mkdtemp(prefix="har_cluster_")
+    clock = FakeClock()
+    # the single-server --inject-stall-* flags apply per worker here (each
+    # worker gets its own fault hook on the shared fake clock) — requested
+    # fault injection must never be silently dropped
+    fault_hook_for = None
+    if args.inject_stall_every:
+        fault_hook_for = lambda wid: DispatchFaults(  # noqa: E731
+            stall_every=args.inject_stall_every,
+            stall_ms=args.inject_stall_ms,
+            fake_clock=clock,
+        )
+    cluster = FleetCluster(
+        model,
+        root,
+        workers=args.workers,
+        fault_hook_for=fault_hook_for,
+        window=window,
+        hop=args.hop,
+        channels=channels,
+        smoothing=args.smoothing,
+        class_names=class_names,
+        fleet_config=FleetConfig.for_sessions(
+            args.sessions,
+            target_batch=args.target_batch,
+            max_delay_ms=args.max_delay_ms,
+            pipeline_depth=args.pipeline_depth,
+            fused=args.fused,
+            profile_host=args.profile_host,
+        ),
+        config=ClusterConfig(lease_s=0.5, probe_base_ms=20.0, probe_cap_ms=200.0),
+        journal_config=journal_cfg,
+        clock=clock,
+    )
+    try:
+        for i in range(args.sessions):
+            cluster.add_session(
+                i,
+                monitor=(
+                    DriftMonitor(*monitor_ref) if monitor_ref is not None else None
+                ),
+            )
+        if args.kill_worker is not None and args.kill_worker not in cluster.workers:
+            raise SystemExit(
+                f"--kill-worker {args.kill_worker!r}: cluster workers are "
+                f"{list(cluster.workers)}"
+            )
+        events = []
+        killed = {"done": False}
+
+        def on_round(c):
+            # SIGKILL the named worker once windows are flowing — the
+            # failure detector + journal hand-off then migrate its
+            # partition live
+            if (
+                args.kill_worker is not None
+                and not killed["done"]
+                and c.accounting()["scored"] > 0
+                and args.kill_worker in c._workers
+            ):
+                c._workers[args.kill_worker].kill()
+                killed["done"] = True
+
+        t0 = time.perf_counter()
+        _drive_cluster(
+            cluster, recordings, [0] * args.sessions,
+            max(map(len, recordings)), args.hop, clock, events, on_round,
+        )
+        duration = time.perf_counter() - t0
+        for w in cluster._workers.values():
+            _raise_device_faults(w.server)
+        stats = cluster.cluster_stats()
+        acct = stats["accounting"]
+        print(json.dumps({
+            "sessions": args.sessions,
+            "workers": stats["workers"],
+            "n_events": len(events),
+            "enqueued": acct["enqueued"],
+            "scored": acct["scored"],
+            "dropped": acct["dropped"],
+            "pending": acct["pending"],
+            "balanced": acct["balanced"],
+            "windows_per_sec": (
+                round(acct["scored"] / duration, 1) if duration else None
+            ),
+            "failovers": stats["failovers"],
+            "migrated_sessions": stats["migrated_sessions"],
+            "migration_ms": stats["migration_ms"],
+            "per_worker_sessions": stats["per_worker_sessions"],
+            "retired": stats["retired"],
+            "killed_worker": args.kill_worker if killed["done"] else None,
+            "cluster_root": root,
+        }))
+        cluster.close()
+    finally:
+        if cluster_tmp is not None:
+            shutil.rmtree(cluster_tmp, ignore_errors=True)
+    return 0
+
+
+def _serve_net_cluster(args, window, channels, recordings) -> int:
+    """``serve --workers N --net``: N ``serve-worker`` OS subprocesses on
+    loopback sockets behind a ``NetCluster``; ``--kill-worker`` is a real
+    SIGKILL of that process.  A worker that does not start ends the run
+    (``launch_workers`` raises); nothing falls back to the in-process
+    cluster."""
+    import shutil
+    import tempfile
+    import time
+
+    if args.inject_stall_every or args.monitor:
+        raise SystemExit(
+            "--net workers run in their own processes; --inject-stall-*/"
+            "--monitor are in-process harness hooks (run them without --net)"
+        )
+    if args.fused or args.tier != "f32":
+        raise SystemExit(
+            "--net workers serve their own named model pool (`serve-worker "
+            "--model demo`); --fused/--tier are per-worker serving knobs the "
+            "wire does not carry yet — run them without --net"
+        )
+    if args.pipeline_depth != 1 or args.profile_host:
+        # refuse, never silently ignore: launch_workers does not forward
+        # these per-worker knobs
+        raise SystemExit(
+            "--net does not carry --pipeline-depth/--profile-host to the "
+            "worker processes yet; run them without --net (or start workers "
+            "directly with `serve-worker`)"
+        )
+    from har_tpu_torch.serve.net.chaos import _drive_net_cluster, _net_cluster_config
+    from har_tpu_torch.serve.net.controller import NetCluster, launch_workers
+    from har_tpu_torch.serve.net.worker import model_pool
+
+    # the controller's failover restores score with THE SAME pool the
+    # workers serve (version -> model), so re-derived windows stay
+    # bit-identical to acked ones
+    pool = model_pool("demo")
+    cluster_tmp = None
+    root = args.journal
+    if root is None:
+        cluster_tmp = root = tempfile.mkdtemp(prefix="har_netcluster_")
+    procs = {}
+    try:
+        net_workers = launch_workers(
+            root,
+            args.workers,
+            window=window,
+            hop=args.hop,
+            channels=channels,
+            smoothing=args.smoothing,
+            max_sessions=max(args.sessions, 64),
+            target_batch=args.target_batch,
+            max_delay_ms=args.max_delay_ms,
+            flush_every=args.journal_flush_every,
+            snapshot_every=args.journal_snapshot_every,
+        )
+        procs.update({w.worker_id: w.process for w in net_workers})
+        cluster = NetCluster(
+            pool["A"],
+            root,
+            _workers=net_workers,
+            config=_net_cluster_config(),
+            loader=lambda ver: pool.get(ver, pool["A"]),
+        )
+        if args.kill_worker is not None and args.kill_worker not in cluster.workers:
+            raise SystemExit(
+                f"--kill-worker {args.kill_worker!r}: cluster workers are "
+                f"{list(cluster.workers)}"
+            )
+        for i in range(args.sessions):
+            cluster.add_session(i)
+        events = []
+        killed = {"done": False}
+
+        def on_round(c):
+            # a REAL SIGKILL of the named worker process once windows are
+            # flowing — detection, restore and migration then run on the
+            # protocol alone
+            if args.kill_worker is not None and not killed["done"]:
+                try:
+                    scored = c.accounting()["scored"]
+                except Exception:
+                    return
+                if scored > 0:
+                    procs[args.kill_worker].kill()
+                    killed["done"] = True
+
+        t0 = time.perf_counter()
+        _drive_net_cluster(
+            cluster, recordings, [0] * args.sessions,
+            max(map(len, recordings)), args.hop, events, on_round,
+        )
+        duration = time.perf_counter() - t0
+        stats = cluster.cluster_stats()
+        acct = stats["accounting"]
+        print(json.dumps({
+            "sessions": args.sessions,
+            "workers": stats["workers"],
+            "transport": "tcp",
+            "n_events": len(events),
+            "enqueued": acct["enqueued"],
+            "scored": acct["scored"],
+            "dropped": acct["dropped"],
+            "pending": acct["pending"],
+            "balanced": acct["balanced"],
+            "windows_per_sec": (
+                round(acct["scored"] / duration, 1) if duration else None
+            ),
+            "failovers": stats["failovers"],
+            "failover_ms": stats["failover_ms"],
+            "migrated_sessions": max(
+                stats["migrated_sessions"], stats["migrations"]
+            ),
+            "per_worker_sessions": stats["per_worker_sessions"],
+            "rpc": cluster.transport_stats(),
+            "killed_worker": args.kill_worker if killed["done"] else None,
+            "cluster_root": root,
+        }))
+        cluster.shutdown_workers()
+        cluster.close()
+    finally:
+        # a failed drive must not leak worker processes — and the journal
+        # root is deleted only once none of them can still write to it
+        # (kill is a no-op on an exited process)
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+        if cluster_tmp is not None:
+            shutil.rmtree(cluster_tmp, ignore_errors=True)
+    return 0
+
+
 def _serving_mesh(args, device):
     """The serving mesh ``--mesh N`` (N × 1) or ``--mesh-shape BxM`` names
     (``har_tpu``'s checks and messages; the hint is the port's own), or
@@ -909,6 +1171,8 @@ def _serve_trace(args, model, window, channels, fault_hook, journal_cfg,
         args.resume
         or args.adapt
         or args.kill_after_polls
+        or (args.workers and args.workers > 1)
+        or args.net
         or args.monitor
         or args.inject_drift
         or args.inject_drop
@@ -1162,6 +1426,14 @@ def _parity(args) -> int:
 
 
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:]) if argv is None else list(argv)
+    if argv[:1] == ["serve-worker"]:
+        # forwarded verbatim: the worker subprocess parses its own flags
+        # (har_tpu_torch.serve.net.worker) and must not pay for — or
+        # depend on — the rest of the CLI surface
+        from har_tpu_torch.serve.net.worker import main as _worker_main
+
+        return _worker_main(argv[1:])
     args = _parser().parse_args(argv)
     if args.command == "parity":
         return _parity(args)

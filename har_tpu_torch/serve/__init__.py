@@ -28,6 +28,7 @@ Public surface:
                                             the engine points drive the
                                             adaptation loop,
                                             har_tpu_torch.adapt)
+  CLUSTER_KILL_POINTS / run_cluster_kill_point — worker-axis chaos
   fleet_slo_smoke / fleet_pipeline_smoke / model_parallel_smoke
                                           — the serving checks
   har_tpu_torch.serve.traffic             — elastic traffic on one
@@ -35,19 +36,32 @@ Public surface:
                                             bursty/storm churn loadgen;
                                             CapacityController: online
                                             target_batch / depth / mesh
-                                            autoscaling)
+                                            autoscaling, worker
+                                            scaling, elastic_smoke)
+  har_tpu_torch.serve.cluster             — multi-worker control plane
+                                            (FleetCluster: router,
+                                            heartbeat failover, journal
+                                            hand-off migration)
+  har_tpu_torch.serve.net                 — the real transport
+                                            (NetCluster over
+                                            `serve-worker` subprocesses:
+                                            CRC-framed TCP RPCs with
+                                            deadlines/retries, NetWorker
+                                            proxies)
 
-Not ported yet (ROADMAP.md Queue 1): the cluster, wire transport, warm
-replicas, worker autoscaling and ``elastic_smoke`` (item 15); the bench
-cells and the recovery benchmark (item 16).
+Not ported yet (ROADMAP.md Queue 1): warm replicas, journal shipping,
+the ingest gateway, controller election and the wire chaos matrices
+(item 15); the bench cells and the recovery benchmark (item 16).
 """
 
 from har_tpu_torch.serve.arena import PendingArena, SessionArena
 from har_tpu_torch.serve.chaos import (
+    CLUSTER_KILL_POINTS,
     ENGINE_KILL_POINTS,
     KILL_POINTS,
     KillPlan,
     SimulatedCrash,
+    run_cluster_kill_point,
     run_kill_point,
     run_random_kill,
 )
@@ -110,6 +124,7 @@ __all__ = [
     "AdmissionError",
     "AnalyticDemoModel",
     "AutoscaleConfig",
+    "CLUSTER_KILL_POINTS",
     "CapacityController",
     "DeliveryFaults",
     "DispatchError",
@@ -152,6 +167,7 @@ __all__ = [
     "model_parallel_smoke",
     "recovery_smoke",
     "restore_server",
+    "run_cluster_kill_point",
     "run_kill_point",
     "run_random_kill",
     "synthetic_sessions",

@@ -53,11 +53,15 @@ The verdict of every point is the same three-part contract
      exactly (decision fields), because the harness's transport
      re-delivers un-journaled samples from the recovered watermark.
 
-Port of the engine half of ``har_tpu/serve/chaos.py``: ``run_kill_point``
-and ``run_engine_kill_point`` take ``device=`` to run behind the device
-dispatch plane, and ``mesh=`` behind a serving mesh.  ``ENGINE_KILL_POINTS`` drive the adaptation engine
-(har_tpu_torch.adapt); the cluster, ship, tail and gateway matrices
-wait for ROADMAP.md Queue 1 item 15.
+Port of ``har_tpu/serve/chaos.py``: ``run_kill_point`` and
+``run_engine_kill_point`` take ``device=`` to run behind the device
+dispatch plane, and ``mesh=`` behind a serving mesh.
+``ENGINE_KILL_POINTS`` drive the adaptation engine (har_tpu_torch.adapt);
+``run_cluster_kill_point`` kills one worker of a ``FleetCluster`` (or its
+controller, ``CLUSTER_KILL_POINTS``).  The ship, tail and gateway
+matrices (``run_tail_kill_point`` here, the ship and gateway runners in
+``serve/net/chaos.py``) wait for ROADMAP.md Queue 1 item 15 and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -87,6 +91,31 @@ KILL_POINTS = (
 # the adaptation controller's stage boundaries (registry promoted or
 # rolled back, fleet swap not yet applied): run_engine_kill_point
 ENGINE_KILL_POINTS = ("mid_promote", "mid_rollback")
+# the cluster control plane's migration stage boundaries
+# (har_tpu_torch.serve.cluster.controller): after a session's adopt is
+# durable on the target but before the source's eviction record
+# (mid_handoff — the dual-ownership window), and between per-session
+# hand-offs of a failover (mid_migration — the partially-migrated
+# partition).  Killed on the CLUSTER's chaos hook: the controller dies,
+# the surviving worker processes do not.
+CLUSTER_KILL_POINTS = ("mid_handoff", "mid_migration")
+# the JAX package's journal-ship, replication-tail and ingest-gateway
+# stage boundaries: their runners wait for ROADMAP.md Queue 1 item 15
+SHIP_KILL_POINTS = (
+    "mid_ship_send",
+    "mid_ship_recv",
+    "post_ship_pre_drain",
+)
+TAIL_KILL_POINTS = (
+    "mid_tail_recv",
+    "mid_tail_remanifest",
+    "post_tail_verify",
+)
+GATEWAY_KILL_POINTS = (
+    "mid_frame_recv",
+    "post_accept_pre_forward",
+    "mid_lease_handoff",
+)
 # occurrence of each point the matrix kills at by default — calibrated
 # so every kill lands mid-run (some windows acked, some pending, the
 # swap schedule still ahead or just behind; for the cluster points,
@@ -104,6 +133,8 @@ _DEFAULT_AT = {
     # the adaptation loop reaches each registry transition once a run
     "mid_promote": 1,
     "mid_rollback": 1,
+    "mid_handoff": 1,
+    "mid_migration": 2,
 }
 
 
@@ -647,3 +678,380 @@ def run_engine_kill_point(
         shutil.rmtree(reg_root, ignore_errors=True)
         if tmp is not None:
             shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_tail_kill_point(point: str, **kwargs) -> dict:
+    """The JAX package's replication-tail matrix (TAIL_KILL_POINTS): a
+    warm standby tail-follows a live worker and dies at a stage
+    boundary."""
+    raise NotImplementedError(
+        "run_tail_kill_point: the replication tail is not ported yet: "
+        "ROADMAP.md Queue 1 item 15"
+    )
+
+
+# ---------------------------------------------------------------------
+# worker-axis chaos: kill one worker of a running cluster
+# (har_tpu_torch.serve.cluster) and demand the same three-part contract
+# ACROSS the failover — plus the two control-plane kill points.
+
+
+def _build_cluster(root, clock, *, sessions, workers, window, hop,
+                   model, flush_every, snapshot_every, loader):
+    from har_tpu_torch.serve.cluster.controller import (
+        ClusterConfig,
+        FleetCluster,
+    )
+
+    return FleetCluster(
+        model,
+        root,
+        workers=workers,
+        window=window,
+        hop=hop,
+        channels=3,
+        smoothing="ema",
+        fleet_config=FleetConfig(
+            max_sessions=sessions, target_batch=32, max_delay_ms=0.0,
+            retries=1,
+        ),
+        # flush_every must exceed the per-poll ack volume: an ack that
+        # auto-flushes mid-poll would be durable-but-undelivered if the
+        # kill lands before the poll returns — a loss channel the
+        # single-server matrix calibrates around and the cluster
+        # harness excludes by construction
+        journal_config=JournalConfig(
+            flush_every=flush_every, snapshot_every=snapshot_every
+        ),
+        config=ClusterConfig(
+            lease_s=0.2, probe_retries=3, probe_base_ms=20.0,
+            probe_cap_ms=100.0,
+        ),
+        clock=clock,
+        loader=loader,
+        fault_hook_for=lambda wid: DispatchFaults(
+            stall_every=3, stall_ms=1.0, fake_clock=clock
+        ),
+    )
+
+
+
+
+def _drive_cluster(cluster, recordings, cursors, upto, hop, clock,
+                   events, on_round=None, max_rounds=20000):
+    """Hop-aligned round-robin delivery against a cluster, failover-
+    aware: a push to an unreachable worker keeps its cursor (the
+    transport re-delivers), every completed migration rewinds its
+    session's cursor to the adopted watermark, and the loop keeps
+    polling past the end of delivery until no session is stranded on a
+    dead worker — the failure detector needs polls and clock to run.
+    ``on_round(cluster)`` fires after every poll (kill scheduling and
+    the every-snapshot conservation log live there)."""
+    from har_tpu_torch.serve.cluster.membership import WorkerUnavailable
+
+    # entry rewind: a takeover/migration before this drive moved
+    # sessions; their durable watermark is where delivery resumes
+    for i in range(len(recordings)):
+        try:
+            cursors[i] = cluster.watermark(i)
+        except WorkerUnavailable:
+            pass  # mid-failover: the migration-log rewind below lands
+    seen_migrations = len(cluster.migration_log)
+    for _ in range(max_rounds):
+        active = False
+        for i, rec in enumerate(recordings):
+            stop = min(upto, len(rec))
+            if cursors[i] >= stop:
+                continue
+            active = True
+            take = hop - (cursors[i] % hop) or hop
+            chunk = rec[cursors[i] : min(cursors[i] + take, stop)]
+            try:
+                cluster.push(i, chunk)
+            except WorkerUnavailable:
+                continue  # cursor kept; re-delivered post-failover
+            cursors[i] += len(chunk)
+        events.extend(cluster.poll(force=True))
+        clock.advance(0.05)
+        if on_round is not None:
+            on_round(cluster)
+        while seen_migrations < len(cluster.migration_log):
+            sid = cluster.migration_log[seen_migrations]["sid"]
+            cursors[sid] = cluster.watermark(sid)
+            seen_migrations += 1
+        if not active:
+            stranded = any(
+                cluster._workers.get(cluster.worker_of(i)) is None
+                or not cluster._workers[cluster.worker_of(i)].alive
+                for i in range(len(recordings))
+            )
+            # the migration rewind above may have re-opened cursors:
+            # this phase must finish its own re-delivery BEFORE
+            # returning (the schedule's next step may be a model swap
+            # — delivering phase-1 windows after it would score them
+            # on the wrong model and break bit-identity)
+            rewound = any(
+                cursors[i] < min(upto, len(recordings[i]))
+                for i in range(len(recordings))
+            )
+            if not stranded and not rewound:
+                break
+    else:  # pragma: no cover - harness guard
+        raise RuntimeError("cluster drive did not converge")
+    events.extend(cluster.flush())
+    if on_round is not None:
+        on_round(cluster)
+
+
+def _cluster_schedule(cluster, recordings, cursors, *, hop, clock,
+                      models, swap_sample, events, on_round=None):
+    """The one delivery schedule reference and crashed cluster runs
+    share: deliver to ``swap_sample``, broadcast the hot swap (per-
+    worker idempotent — a resumed schedule re-issues it only where it
+    has not landed), deliver the rest.  Driven purely off cursor state,
+    so it resumes deterministically after a kill."""
+    _drive_cluster(
+        cluster, recordings, cursors, swap_sample, hop, clock, events,
+        on_round,
+    )
+    # per-worker elastic resize at the swap point — the cluster-side
+    # boundary mid_resize kills at.  Guarded per worker exactly like
+    # the idempotent swap broadcast: a resumed schedule re-issues it
+    # only where it has not landed.
+    for w in cluster._workers.values():
+        if w.alive and w.server.config.target_batch != 48:
+            w.server.resize(target_batch=48)
+    cluster.swap_model(models["B"], version="B")
+    _drive_cluster(
+        cluster, recordings, cursors, max(map(len, recordings)), hop,
+        clock, events, on_round,
+    )
+
+
+def run_cluster_kill_point(
+    point: str,
+    *,
+    at: int | None = None,
+    workers: int = 3,
+    sessions: int = 12,
+    seed: int = 0,
+    n_samples: int = 300,
+    window: int = 100,
+    hop: int = 50,
+    flush_every: int = 512,
+    snapshot_every: int = 40,
+    kill_round: int = 3,
+    standby: bool = False,
+) -> dict:
+    """Kill one worker of an N-worker cluster at a stage boundary (any
+    of the engine KILL_POINTS, fired inside the victim's own journal
+    hook) or kill the CONTROLLER inside the migration machinery
+    (CLUSTER_KILL_POINTS), then let failover / takeover finish the job
+    and demand the cross-worker contract:
+
+      1. zero double-scored — no (session, t_index) event delivered
+         twice across the kill, no matter which worker scored it;
+      2. migrated streams bit-identical — every session's combined
+         event stream equals the un-killed cluster run's, decision
+         fields exact;
+      3. global conservation — ``enqueued == scored + dropped +
+         pending + lost_in_crash`` summed over live workers + the
+         retired ledger, balanced in EVERY accounting snapshot and
+         drained to pending 0 at the end, with zero windows lost (the
+         transport re-delivers from the adopted watermarks).
+
+    Worker-axis kills leave the controller alive (failover path);
+    cluster-point kills model a controller loss mid-migration — the
+    worker processes survive and ``FleetCluster.takeover`` adopts
+    them, completing the orphaned failover idempotently.
+
+    ``standby=True`` (the JAX package's warm-standby run of the same
+    matrix) waits for ROADMAP.md Queue 1 item 15 and raises
+    NotImplementedError.
+    """
+    import shutil
+
+    if standby:
+        raise NotImplementedError(
+            "run_cluster_kill_point(standby=True): warm standbys are not "
+            "ported yet: ROADMAP.md Queue 1 item 15"
+        )
+    if point not in KILL_POINTS and point not in CLUSTER_KILL_POINTS:
+        raise ValueError(f"unknown cluster kill point {point!r}")
+    at = _DEFAULT_AT[point] if at is None else at
+    recordings = _recordings(sessions, n_samples, 3, seed)
+    models = {"A": AnalyticDemoModel(), "B": AnalyticDemoModel(tau=5.0)}
+
+    def loader(ver):
+        return models.get(ver, models["A"])
+
+    swap_sample = (n_samples // hop // 2) * hop
+    build_kwargs = dict(
+        sessions=sessions, workers=workers, window=window, hop=hop,
+        flush_every=flush_every, snapshot_every=snapshot_every,
+        loader=loader,
+    )
+
+    # ---- reference: the un-killed cluster run -----------------------
+    ref_root = tempfile.mkdtemp(prefix="har_cluster_ref_")
+    try:
+        ref_clock = FakeClock()
+        ref = _build_cluster(
+            ref_root, ref_clock, model=models["A"], **build_kwargs
+        )
+        for i in range(sessions):
+            ref.add_session(i)
+        ref_events: list = []
+        _cluster_schedule(
+            ref, recordings, [0] * sessions, hop=hop, clock=ref_clock,
+            models=models, swap_sample=swap_sample, events=ref_events,
+        )
+        ref.close()
+    finally:
+        shutil.rmtree(ref_root, ignore_errors=True)
+
+    # ---- crashed run ------------------------------------------------
+    root = tempfile.mkdtemp(prefix="har_cluster_chaos_")
+    try:
+        clock = FakeClock()
+        cluster = _build_cluster(
+            root, clock, model=models["A"], **build_kwargs
+        )
+        for i in range(sessions):
+            cluster.add_session(i)
+        victim = cluster.worker_of(0)
+        plan = KillPlan(point, at)
+        if point in CLUSTER_KILL_POINTS:
+            # controller kill mid-migration: the victim worker is
+            # SIGKILLed outright partway through delivery; the plan
+            # then fires inside the resulting failover's hand-offs
+            cluster.chaos = plan
+        else:
+            cluster._workers[victim].server.journal.chaos = plan
+        events: list = []
+        cursors = [0] * sessions
+        balance_log: list = []
+        rounds = {"n": 0}
+
+        def on_round(c):
+            rounds["n"] += 1
+            if (
+                point in CLUSTER_KILL_POINTS
+                and rounds["n"] == kill_round
+            ):
+                c._workers[victim].kill()
+            balance_log.append(c.accounting())
+
+        crashed = False
+        try:
+            _cluster_schedule(
+                cluster, recordings, cursors, hop=hop, clock=clock,
+                models=models, swap_sample=swap_sample, events=events,
+                on_round=on_round,
+            )
+        except SimulatedCrash:
+            crashed = True
+        if not crashed:
+            cluster.close()
+            return {
+                "ok": False, "point": point,
+                "why": f"kill point {point!r} never fired (at={at})",
+                "windows_lost": 0, "failover_ms": 0.0,
+            }
+
+        t0 = time.perf_counter()
+        if point in CLUSTER_KILL_POINTS:
+            # the controller died; the surviving worker PROCESSES did
+            # not — a new controller takes them over and completes the
+            # orphaned failover from the journals
+            from har_tpu_torch.serve.cluster.controller import FleetCluster
+
+            survivors = [
+                w for w in cluster._workers.values() if w.alive
+            ]
+            cluster = FleetCluster.takeover(
+                models["A"], root, survivors,
+                config=cluster.config, clock=clock, loader=loader,
+            )
+        else:
+            # the victim worker died at its stage boundary; model the
+            # SIGKILL (un-flushed journal suffix gone) and let the
+            # still-running controller's failure detector find it
+            cluster._workers[victim].kill()
+        _cluster_schedule(
+            cluster, recordings, cursors, hop=hop, clock=clock,
+            models=models, swap_sample=swap_sample, events=events,
+            on_round=lambda c: balance_log.append(c.accounting()),
+        )
+        failover_ms = (time.perf_counter() - t0) * 1e3
+        stats = cluster.cluster_stats()
+        verdict = _cluster_verdict(
+            point, ref_events, events, cluster, balance_log, stats,
+            failover_ms,
+        )
+        cluster.close()
+        return verdict
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _cluster_verdict(point, ref_events, events, cluster, balance_log,
+                     stats, failover_ms) -> dict:
+    why = None
+    keys = [_event_key(e) for e in events]
+    if len(keys) != len(set(keys)):
+        why = "an event was delivered twice across the worker kill"
+    by_sid: dict = {}
+    for e in events:
+        by_sid.setdefault(e.session_id, []).append(e)
+    ref_by_sid: dict = {}
+    for e in ref_events:
+        ref_by_sid.setdefault(e.session_id, []).append(e)
+    windows_lost = sum(len(v) for v in ref_by_sid.values()) - sum(
+        len(v) for v in by_sid.values()
+    )
+    if why is None and windows_lost != 0:
+        why = f"{windows_lost} window(s) lost vs the un-killed run"
+    if why is None:
+        for sid, want in ref_by_sid.items():
+            got = by_sid.get(sid, [])
+            if [_event_fields(e) for e in got] != [
+                _event_fields(e) for e in want
+            ]:
+                why = (
+                    f"session {sid!r} events diverge from the "
+                    "un-killed cluster run"
+                )
+                break
+    acct = cluster.accounting()
+    if why is None and not (acct["balanced"] and acct["pending"] == 0):
+        why = f"global conservation violated at the end: {acct}"
+    if why is None:
+        for i, snap in enumerate(balance_log):
+            if not snap["balanced"] or snap["pending"] < 0:
+                why = (
+                    f"global conservation violated at snapshot {i}: "
+                    f"{snap}"
+                )
+                break
+    if why is None and stats["failovers"] < 1:
+        why = "no failover was recorded"
+    # the controller's in-memory migration log dies with it in a
+    # takeover; the per-worker `migrations` counter is the durable
+    # evidence (adopt records replay it), so it is the one checked
+    migrated = max(stats["migrated_sessions"], stats["migrations"])
+    if why is None and migrated < 1:
+        why = "no session was migrated"
+    return {
+        "ok": why is None,
+        "point": point,
+        "why": why,
+        "workers": stats["workers"],
+        "failovers": stats["failovers"],
+        "migrated_sessions": migrated,
+        "windows_lost": max(windows_lost, 0),
+        "migration_ms": stats["migration_ms"],
+        "failover_ms": round(failover_ms, 3),
+        "delivered": len(events),
+        "accounting": acct,
+    }

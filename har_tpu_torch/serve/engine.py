@@ -51,7 +51,7 @@ single-controller ``parallel.mesh.ServingMesh`` (``ShardedScorer`` /
 ``ModelParallelScorer``), and ``resize(mesh=...)`` moves onto and off
 one at a dispatch boundary.  The session
 hand-off methods (``export_session`` / ``adopt_session`` /
-``handoff_session``) are kept for the cluster (item 15).
+``handoff_session``) serve the cluster (``serve.cluster``).
 """
 
 from __future__ import annotations

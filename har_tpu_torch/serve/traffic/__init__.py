@@ -3,7 +3,7 @@ capacity control.
 
 Port of ``har_tpu/serve/traffic`` (the JAX package's
 docs/elasticity.md describes it), for one ``FleetServer`` on one
-device or a serving mesh.  Public surface:
+device or a serving mesh, or a ``FleetCluster``.  Public surface:
   TraceSpec / TrafficTrace / TraceReport / drive_trace
       — seeded diurnal/bursty/storm arrival processes driving session
         connect/disconnect churn, overnight-cohort storms, slow-client
@@ -13,12 +13,13 @@ device or a serving mesh.  Public surface:
   AutoscaleConfig / CapacityController
       — the hysteresis/cooldown policy loop that resizes target_batch,
         pipeline_depth and the mesh rung online (FleetServer.resize,
-        zero-drop at a dispatch boundary).
+        zero-drop at a dispatch boundary) and drives the cluster's
+        add_worker / retire_worker from load.
+  elastic_smoke — the elastic-traffic check.
   DECLARED_SHEDS / undeclared_drops — the elastic run's loss verdict.
 
-Not ported yet (ROADMAP.md Queue 1): the cluster's worker scaling and
-``elastic_smoke`` (item 15); the ``elastic_traffic`` bench lane (item
-16).
+Not ported yet (ROADMAP.md Queue 1 item 16): the ``elastic_traffic``
+bench lane.
 """
 
 from har_tpu_torch.serve.traffic.autoscale import (

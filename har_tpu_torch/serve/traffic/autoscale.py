@@ -2,30 +2,38 @@
 that resizes the fleet online from the signals FleetStats already
 exports.
 
-It reads the queue backlog, the dispatch fill fraction, the dispatch
-p99 and the shed-rate delta from ``FleetStats``, applies HYSTERESIS
-(consecutive-evidence streaks, so one bursty poll never resizes) and a
-COOLDOWN (a resize must amortize), and walks a fixed capacity ladder:
+The engine's capacity knobs — ``target_batch``, ``pipeline_depth``, the
+dispatch mesh, the cluster's worker count — would otherwise stay frozen
+at startup.  This controller closes the loop: it reads the queue
+backlog, the dispatch
+fill fraction, the dispatch p99 and the shed-rate delta from
+``FleetStats``, applies HYSTERESIS (consecutive-evidence streaks, so
+one bursty poll never thrashes the mesh) and a COOLDOWN (a resize is a
+recompile ladder and a re-shard — they must amortize), and walks a
+fixed capacity ladder:
 
-    scale UP    target_batch x2 ... max -> pipeline_depth +1 ... max ->
-                next mesh rung (``mesh_ladder`` x ``mesh_for``)
+    scale UP    target_batch ×2 ... max → pipeline_depth +1 ... max →
+                next mesh rung (``mesh_ladder`` × ``mesh_for``) →
+                [cluster] add_worker(rebalance=True)
     scale DOWN  the exact reverse
 
-Every action lands through ``FleetServer.resize`` — the
+Every engine-level action lands through ``FleetServer.resize`` — the
 dispatch-boundary, zero-drop, journaled resize path, so autoscaling
 inherits the whole durability story (a ``mid_resize`` crash recovers
-and the controller re-issues).  The controller never blocks the hot
-path: ``step()`` is host-side arithmetic over counters, called from the
-serving loop's poll hook (``drive_trace(on_round=controller.on_round)``
-or ``drive_fleet(on_poll=...)``), and the one thing it does per
-decision is stage a resize the next dispatch boundary applies.
+and the controller re-issues).  Cluster-level actions reuse the
+cluster's drain → hand-off machinery verbatim: the controller drains the cluster
+(the drained events are returned to the drive loop — never swallowed),
+then ``add_worker(rebalance=True)`` / ``retire_worker``.
 
-Port of ``har_tpu/serve/traffic/autoscale.py`` in engine mode, one
-``FleetServer``, its mesh rungs included (``mesh_for`` builds a
-``parallel.mesh.ServingMesh`` for a rung).  The JAX package's controller
-also scales a cluster's workers: ``cluster=`` waits for ROADMAP.md
-Queue 1 item 15 and raises NotImplementedError at construction.  The
-JAX package's ValueErrors stay as they are.
+The controller never blocks the hot path: ``step()`` is host-side
+arithmetic over counters, called from the serving loop's poll hook
+(``drive_trace(on_round=controller.on_round)`` or ``drive_fleet
+(on_poll=...)``), and the one thing it does per decision is stage a
+resize the next dispatch boundary applies.
+
+Port of ``har_tpu/serve/traffic/autoscale.py`` (copied): ``mesh_for``
+builds a ``parallel.mesh.ServingMesh`` for a rung, and ``cluster=``
+scales a ``har_tpu_torch.serve.cluster.FleetCluster``'s workers.
 """
 
 from __future__ import annotations
@@ -100,9 +108,10 @@ class AutoscaleConfig:
 
 
 class CapacityController:
-    """The policy loop: resizes one FleetServer's ``target_batch`` /
-    ``pipeline_depth`` / mesh.  ``cluster=`` (worker scaling, item 15)
-    raises NotImplementedError.
+    """The policy loop.  ``server`` mode resizes one FleetServer's
+    ``target_batch`` / ``pipeline_depth`` / mesh; give it a ``cluster``
+    instead (a FleetCluster) and it scales the worker count, reading
+    the same signals aggregated across workers.
 
     ``mesh_for(devices) -> mesh | None`` builds the mesh for a ladder
     rung (``None`` for rung 1 — back to single-device); required only
@@ -124,20 +133,15 @@ class CapacityController:
                 "pass exactly one of server= (engine scaling) or "
                 "cluster= (worker scaling)"
             )
-        if cluster is not None:
-            raise NotImplementedError(
-                "CapacityController(cluster=...): worker scaling over a "
-                "fleet cluster is not ported yet: ROADMAP.md Queue 1 "
-                "item 15"
-            )
         self.server = server
+        self.cluster = cluster
         self.config = config or AutoscaleConfig()
+        self._mesh_for = mesh_for
         self._clock = clock or time.monotonic
         if max(self.config.mesh_ladder) > 1 and mesh_for is None:
             raise ValueError(
                 "mesh_ladder goes past one device; pass mesh_for="
             )
-        self._mesh_for = mesh_for
         self._mesh_rung = 0  # index into mesh_ladder
         self._up_streak = 0
         self._down_streak = 0
@@ -145,33 +149,51 @@ class CapacityController:
         # delta watermarks start at the server's CURRENT totals: a
         # controller attached to a recovered or long-running fleet must
         # not read its whole drop history as one fresh shed burst
-        self._last_dropped = server.stats.dropped_total
-        self._last_scored = server.stats.scored
+        self._last_dropped = (
+            0 if server is None else server.stats.dropped_total
+        )
+        self._last_scored = 0 if server is None else server.stats.scored
         self.actions: list[dict] = []
+        self.worker_adds = 0
+        self.worker_retires = 0
+        # events produced by the controller's own cluster drains — the
+        # drive loop folds these into the run's event stream (on_round
+        # returns them), so a pre-retire drain never swallows events
+        self._drained_events: list = []
 
     # ------------------------------------------------------- plumbing
 
     def on_round(self, target, round_index) -> list:
-        """The ``drive_trace(on_round=...)`` adapter: one policy step.
-        An engine step drains nothing, so no events come back (the JAX
-        package's cluster mode returns its pre-retire drain here)."""
+        """The ``drive_trace(on_round=...)`` adapter: one policy step,
+        returning any events the step's own drains produced."""
         self.step()
-        return []
+        return self.take_events()
+
+    def take_events(self) -> list:
+        out = self._drained_events
+        self._drained_events = []
+        return out
 
     def status(self) -> dict:
-        """The JAX package's status keys; the worker counts stay 0 in
-        engine mode."""
         return {
-            "mode": "engine",
+            "mode": "cluster" if self.cluster is not None else "engine",
             "actions": len(self.actions),
-            "worker_adds": 0,
-            "worker_retires": 0,
+            "worker_adds": self.worker_adds,
+            "worker_retires": self.worker_retires,
             "last_action": self.actions[-1] if self.actions else None,
         }
 
     # -------------------------------------------------------- signals
 
     def _signals(self) -> dict:
+        if self.cluster is not None:
+            servers = [w.server for w in self.cluster._workers.values()]
+            n_sessions = sum(len(s.sessions) for s in servers)
+            return {
+                "workers": len(servers),
+                "sessions": n_sessions,
+                "per_worker": n_sessions / max(1, len(servers)),
+            }
         stats = self.server.stats
         p99 = stats.dispatch.percentile(99)
         dropped = stats.dropped_total
@@ -201,17 +223,33 @@ class CapacityController:
         cfg = self.config
         now = self._clock() if now is None else now
         sig = self._signals()
-        scfg = self.server.config
-        up = bool(
-            sig["queue_depth"] >= cfg.queue_high * scfg.target_batch
-            or (sig["p99_ms"] is not None and sig["p99_ms"] > cfg.p99_high_ms)
-            or sig["shed_delta"] > 0
-        )
-        down = bool(
-            not up
-            and (sig["utilization"] <= cfg.util_low or sig["idle"])
-            and sig["queue_depth"] < scfg.target_batch
-        )
+        if self.cluster is not None:
+            up = bool(
+                cfg.sessions_per_worker_high
+                and sig["per_worker"] >= cfg.sessions_per_worker_high
+                and sig["workers"] < cfg.max_workers
+            )
+            down = bool(
+                not up
+                and cfg.sessions_per_worker_low
+                and sig["per_worker"] <= cfg.sessions_per_worker_low
+                and sig["workers"] > cfg.min_workers
+            )
+        else:
+            scfg = self.server.config
+            up = bool(
+                sig["queue_depth"] >= cfg.queue_high * scfg.target_batch
+                or (
+                    sig["p99_ms"] is not None
+                    and sig["p99_ms"] > cfg.p99_high_ms
+                )
+                or sig["shed_delta"] > 0
+            )
+            down = bool(
+                not up
+                and (sig["utilization"] <= cfg.util_low or sig["idle"])
+                and sig["queue_depth"] < scfg.target_batch
+            )
         self._up_streak = self._up_streak + 1 if up else 0
         self._down_streak = self._down_streak + 1 if down else 0
         if (
@@ -221,9 +259,9 @@ class CapacityController:
             return None
         action = None
         if self._up_streak >= cfg.up_after:
-            action = self._scale_engine(+1)
+            action = self._scale(+1)
         elif self._down_streak >= cfg.down_after:
-            action = self._scale_engine(-1)
+            action = self._scale(-1)
         if action is not None:
             action["signals"] = sig
             self._up_streak = 0
@@ -231,6 +269,11 @@ class CapacityController:
             self._last_action_t = now
             self.actions.append(action)
         return action
+
+    def _scale(self, direction: int) -> dict | None:
+        if self.cluster is not None:
+            return self._scale_cluster(direction)
+        return self._scale_engine(direction)
 
     def _scale_engine(self, direction: int) -> dict | None:
         """Walk the capacity ladder one rung: target_batch first (the
@@ -281,3 +324,33 @@ class CapacityController:
             self.server.resize(target_batch=tb)
             return {"action": "down", "knob": "target_batch", "to": tb}
         return None  # at the floor
+
+    def _scale_cluster(self, direction: int) -> dict | None:
+        """Worker-count rung: drain first (the hand-off machinery
+        refuses live windows BY DESIGN — draining here also means no
+        acked-but-undelivered event can sit in controller memory across
+        the mid_handoff crash window), keep the drained events for the
+        drive loop, then add or retire."""
+        cluster = self.cluster
+        if direction > 0:
+            self._drained_events.extend(cluster.flush())
+            wid = cluster.add_worker(rebalance=True)
+            self.worker_adds += 1
+            return {"action": "up", "knob": "workers", "added": wid}
+        # retire the least-loaded worker: its sessions move anyway, so
+        # move the fewest
+        loads = [
+            (len(w.server.sessions), wid)
+            for wid, w in cluster._workers.items()
+        ]
+        loads.sort()
+        victim = loads[0][1]
+        self._drained_events.extend(cluster.flush())
+        moved = cluster.retire_worker(victim)
+        self.worker_retires += 1
+        return {
+            "action": "down",
+            "knob": "workers",
+            "retired": victim,
+            "moved": moved,
+        }

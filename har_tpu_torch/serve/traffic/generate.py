@@ -31,10 +31,9 @@ slow uplinks.  This module models that load as a REPLAYABLE ARTIFACT:
                       delivery shape ``DeliveryFaults.delay_prob``
                       models, but seeded per session from the trace),
                       polls the engine, and advances the injected clock.
-                      Works against a ``FleetServer`` (anything that
-                      speaks add / disconnect / push / poll / flush;
-                      the JAX package's ``FleetCluster`` does, the
-                      port's cluster waits for ROADMAP.md item 15).
+                      Works against a ``FleetServer`` or a
+                      ``FleetCluster`` (both speak add / disconnect /
+                      push / poll / flush).
 
 Determinism stance (HL004-clean by construction): every draw comes from
 ``np.random.default_rng`` seeded off the spec, the drive loop reads only
@@ -254,7 +253,7 @@ def drive_trace(
     on_round=None,
     events: list | None = None,
 ) -> tuple[list, TraceReport]:
-    """Run one traffic trace against a FleetServer.
+    """Run one traffic trace against a FleetServer or FleetCluster.
 
     Per round: apply the schedule's connects, deliver ``rate × hop``
     samples for every active session (slow clients hold theirs and

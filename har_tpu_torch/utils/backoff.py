@@ -24,12 +24,17 @@ chaos run replays byte-identically.  ``reset()`` restarts BOTH the
 exponent and the jitter stream — after a success the next failure sees
 the exact schedule a fresh instance would.
 
-Port of ``har_tpu/utils/backoff.py`` (numpy, copied).
+Port of ``har_tpu/utils/backoff.py`` (numpy, copied).  One change: past
+the cap the exponent is no longer raised, so a sequence of thousands of
+failures keeps returning the cap where the JAX package's
+``factor**attempt`` overflows (``OverflowError`` after ~1,000 attempts
+at factor 2); every delay before that is the same.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import numpy as np
@@ -69,7 +74,12 @@ class Backoff:
         """Delay before the next attempt (milliseconds), advancing the
         schedule: base * factor^attempt + seeded jitter, capped."""
         p = self.policy
-        raw = min(p.cap_ms, p.base_ms * p.factor**self.attempt)
+        if self.attempt * math.log(p.factor) > math.log(p.cap_ms / p.base_ms):
+            # past the cap: the power itself would overflow a float after
+            # ~1,000 attempts (a dead worker's strikes count without bound)
+            raw = p.cap_ms
+        else:
+            raw = min(p.cap_ms, p.base_ms * p.factor**self.attempt)
         self.attempt += 1
         delay = raw + raw * p.jitter * float(self._rng.random())
         return min(p.cap_ms, delay)

@@ -6,9 +6,8 @@ a narrow transformer checkpoint (1 layer, embed 16, float32) served
 plain, pipelined and fused, at the int8 tier, and through a journal with
 a hard kill and a resume that loses and repeats nothing; the serving
 mesh flags (``--mesh``, ``--mesh-shape``, their messages, and the
-``--autoscale`` mesh rung); and every flag of a part not ported yet
-raises NotImplementedError naming its ROADMAP item before a session is
-built.  The drift loop (``--adapt``, its
+``--autoscale`` mesh rung); the fleet cluster (``--workers``, ``--net``,
+``--kill-worker``) and ``--trace``'s refusal of it.  The drift loop (``--adapt``, its
 journaled kill and ``--resume --adapt --registry``) and the churn fleet
 (``--trace`` with ``--autoscale``) run on the analytic model and the
 transformer, with har_tpu's summary keys.
@@ -211,29 +210,31 @@ def test_cli_serve_transformer_journal_kill_and_resume(tmp_path, capsys,
 
 
 @pytest.mark.parametrize("flags, item", [
-    # ids kept: --adapt, --trace, --autoscale, --mesh and --mesh-shape were
-    # refused here until their parts were ported; the ids of ported parts
-    # (item None) now run the flag, the others still name their item
+    # ids kept: every flag here was refused until its part was ported.
+    # item None runs the flag on one server, "cluster" runs a fleet
+    # cluster, "exit" is har_tpu's SystemExit for --trace with a cluster
     pytest.param(["--adapt", "--mesh", "2", "--inject-drift", "0.5",
                   "--windows-per-session", "6", "--max-delay-ms", "0"], None,
                  id="--adapt-13"),
     pytest.param(["--mesh", "8", "--pipeline-depth", "2", "--fused",
                   "--smoothing", "vote"], None, id="--mesh-14"),
     pytest.param(["--mesh-shape", "2x4", "--tier", "int8"], None, id="--mesh-shape-14"),
-    (["--workers", "2"], 15),
-    (["--net"], 15),
-    (["--kill-worker", "w0"], 15),
-    pytest.param(["--trace", "diurnal", "--workers", "2"], 15, id="--trace-15"),
-    pytest.param(["--trace", "storm", "--autoscale", "--net"], 15,
+    pytest.param(["--workers", "2"], "cluster", id="--workers-15"),
+    pytest.param(["--workers", "2", "--net"], "cluster", id="--net-15"),
+    pytest.param(["--workers", "3", "--kill-worker", "w1"], "cluster",
+                 id="--kill-worker-15"),
+    pytest.param(["--trace", "diurnal", "--workers", "2"], "exit", id="--trace-15"),
+    pytest.param(["--trace", "storm", "--autoscale", "--net"], "exit",
                  id="--autoscale-15"),
 ], ids=lambda v: v[0] if isinstance(v, list) else str(v))
 def test_cli_serve_waiting_flags_name_their_item(flags, item, monkeypatch, capsys):
-    """Each flag of a part not ported yet is refused before any session
-    is built (the recordings generator is never reached), also beside a
-    flag of a part that is ported.  The serving mesh is ported: ``--mesh
-    8`` shards the demo MLP's batches over the CPU repeated 8 times,
-    ``--mesh-shape 2x4`` places its int8 tier model-parallel, and
-    ``--adapt`` runs its loop over a mesh."""
+    """Each of these flags runs: ``--mesh 8`` shards the demo MLP's
+    batches over the CPU repeated 8 times, ``--mesh-shape 2x4`` places
+    its int8 tier model-parallel, ``--adapt`` runs its loop over a mesh,
+    ``--workers`` serves a fleet cluster (in-process, or ``--net`` over
+    two ``serve-worker`` processes) and ``--kill-worker w1`` fails
+    ``w1``'s partition over.  ``--trace`` refuses a cluster with
+    har_tpu's SystemExit before any session is built."""
     if item is None:
         out = _summary(capsys, ["serve", "--device", "cpu", "--sessions", "8", *flags])
         assert out["dropped"] == 0 and out["scored"] == out["enqueued"] > 0
@@ -243,13 +244,31 @@ def test_cli_serve_waiting_flags_name_their_item(flags, item, monkeypatch, capsy
             assert (stats["devices"], stats["model_axis_shards"], stats["dispatch_backend"]) == (
                 (8, 1, "sharded") if "--mesh" in flags else (2, 4, "model_parallel"))
         return
+    if item == "cluster":
+        argv = ["serve", "--device", "cpu", "--sessions", "8", *flags]
+        if "--net" in flags:
+            # worker subprocesses: niced, one file's at a time
+            from tests.test_torch_net import _run_cli_niced
+
+            out = _run_cli_niced(argv)
+        else:
+            out = _summary(capsys, argv)
+        assert out["balanced"] and out["pending"] == 0 and out["dropped"] == 0
+        assert out["scored"] == out["enqueued"] == out["n_events"] == 16
+        assert out.get("transport") == ("tcp" if "--net" in flags else None)
+        if "--kill-worker" in flags:
+            assert out["killed_worker"] == "w1" and out["retired"] == ["w1"]
+            assert out["failovers"] == 1 and out["workers"] == 2
+        else:
+            assert out["failovers"] == 0 and out["workers"] == 2
+        return
     import har_tpu_torch.serve.loadgen as loadgen
 
     def never(*a, **k):
         raise AssertionError("sessions were built before the refusal")
 
     monkeypatch.setattr(loadgen, "synthetic_sessions", never)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    with pytest.raises(SystemExit, match="--trace drives its own churn"):
         cli.main(["serve", "--device", "cpu", "--sessions", "4", *flags])
 
 
@@ -448,17 +467,18 @@ def test_cli_serve_trace_autoscale_transformer(capsys, transformer_checkpoint, t
 
 
 def test_cli_serve_trace_refusals(capsys):
-    """``--trace`` refuses the steady-load modes (har_tpu's SystemExit)
-    and ``--workers`` names item 15; ``--autoscale --mesh N`` runs, its
-    ladder ending on the mesh rung (N devices, the CPU repeated)."""
+    """``--trace`` refuses the steady-load modes and a cluster
+    (har_tpu's SystemExit); ``--autoscale --mesh N`` runs, its ladder
+    ending on the mesh rung (N devices, the CPU repeated)."""
     base = ["serve", "--device", "cpu", "--sessions", "8", "--trace", "diurnal"]
     for flags in (["--adapt"], ["--resume"], ["--kill-after-polls", "2"],
                   ["--monitor"], ["--inject-drift", "0.5"], ["--inject-drop", "0.1"],
                   ["--inject-delay", "0.1"], ["--calibrate-device"]):
         with pytest.raises(SystemExit, match="--trace drives its own churn"):
             cli.main(base + flags)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        cli.main(base + ["--workers", "2"])
+    for flags in (["--workers", "2"], ["--net"]):
+        with pytest.raises(SystemExit, match="--trace drives its own churn"):
+            cli.main(base + flags)
     out = _summary(capsys, ["serve", "--device", "cpu", "--sessions", "64", "--trace",
                             "diurnal", "--trace-rounds", "24", "--autoscale", "--mesh", "2",
                             "--target-batch", "16", "--fused", "--smoothing", "vote"])

@@ -57,6 +57,11 @@ def test_port_has_files():
         "har_tpu_torch/quantize.py",
         "har_tpu_torch/export.py",
         "har_tpu_torch/ops/calibration.py",
+        "har_tpu_torch/serve/cluster/controller.py",
+        "har_tpu_torch/serve/net/wire.py",
+        "har_tpu_torch/serve/net/rpc.py",
+        "har_tpu_torch/serve/net/worker.py",
+        "har_tpu_torch/serve/net/controller.py",
     ):
         assert required in names
 

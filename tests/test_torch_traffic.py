@@ -1,10 +1,9 @@
 """Elastic traffic engine (har_tpu_torch.serve.traffic).
 
 The JAX package's tests/test_traffic.py on the port, with the imports
-renamed and ``--device cpu`` for the CLI.  Its cluster cases become
-pins on the item-15 refusal (the port has no fleet cluster yet), and
-one pin more holds the item-14 refusal of a mesh ladder.  It pins the
-contracts the elastic subsystem ships on:
+renamed and ``--device cpu`` for the CLI (its cluster cases on the
+port's ``FleetCluster``), and one case more walks the mesh ladder.  It
+pins the contracts the elastic subsystem ships on:
 
   1. a trace is a REPLAYABLE ARTIFACT — ``TrafficTrace.from_spec(
      trace.spec())`` (through a JSON round-trip) rebuilds the identical
@@ -480,30 +479,80 @@ def test_controller_shed_delta_is_up_evidence():
 
 
 def test_controller_scales_cluster_workers(tmp_path):
-    """Cluster mode (worker scaling over a fleet cluster) waits for
-    ROADMAP.md Queue 1 item 15: ``cluster=`` is refused at construction,
-    before anything is read from it."""
-    with pytest.raises(NotImplementedError, match="item 15"):
-        CapacityController(
-            cluster=object(),
-            config=AutoscaleConfig(
-                sessions_per_worker_high=6, sessions_per_worker_low=2,
-                min_workers=2, max_workers=3,
-                up_after=1, down_after=1, cooldown_s=0.0,
-            ),
-            clock=FakeClock(),
-        )
+    """Cluster mode: per-worker session pressure drives add_worker /
+    retire_worker through the cluster's drain → hand-off machinery,
+    with the drained events handed back (never swallowed) and global
+    conservation intact."""
+    from har_tpu_torch.serve.cluster import FleetCluster
+
+    clock = FakeClock()
+    cluster = FleetCluster(
+        _StubModel(), str(tmp_path), workers=2, window=100, hop=50,
+        smoothing="ema",
+        fleet_config=FleetConfig(
+            max_sessions=64, target_batch=8, max_delay_ms=0.0,
+        ),
+        clock=clock,
+    )
+    controller = CapacityController(
+        cluster=cluster,
+        config=AutoscaleConfig(
+            sessions_per_worker_high=6, sessions_per_worker_low=2,
+            min_workers=2, max_workers=3,
+            up_after=1, down_after=1, cooldown_s=0.0,
+        ),
+        clock=clock,
+    )
+    for i in range(12):  # 6 per worker: at the high-water mark
+        cluster.add_session(i)
+        cluster.push(i, np.random.default_rng(i).normal(
+            size=(100, 3)).astype(np.float32))
+    cluster.poll(force=True)
+    action = controller.step()
+    assert action == {
+        "action": "up", "knob": "workers",
+        "added": action["added"], "signals": action["signals"],
+    }
+    assert len(cluster.workers) == 3
+    assert controller.worker_adds == 1
+    acct = cluster.accounting()
+    assert acct["balanced"]
+
+    # shrink the fleet below the low-water mark: the retire rung fires
+    for i in range(10):
+        cluster.disconnect_session(i)
+    action = controller.step()
+    assert action is not None and action["action"] == "down"
+    assert action["knob"] == "workers"
+    assert len(cluster.workers) == 2
+    assert controller.worker_retires == 1
+    acct = cluster.accounting()
+    assert acct["balanced"] and acct["pending"] == 0
+    # the pre-retire drain's events were kept for the drive loop
+    assert isinstance(controller.take_events(), list)
+    cluster.close()
 
 
 def test_cluster_disconnect_session_routes_and_unplaces(tmp_path):
-    """A churn trace over a fleet cluster (``serve --trace --workers``)
-    waits for item 15: the CLI refuses it before any session is
-    built."""
-    from har_tpu_torch.cli import main
+    from har_tpu_torch.serve.cluster import FleetCluster
 
-    with pytest.raises(NotImplementedError, match="item 15"):
-        main(["serve", "--device", "cpu", "--sessions", "8",
-              "--trace", "diurnal", "--workers", "2"])
+    cluster = FleetCluster(
+        _StubModel(), str(tmp_path), workers=2, window=100, hop=50,
+        smoothing="ema",
+        fleet_config=FleetConfig(
+            max_sessions=64, target_batch=8, max_delay_ms=0.0,
+        ),
+        clock=FakeClock(),
+    )
+    cluster.add_session("s0")
+    cluster.push("s0", np.random.default_rng(0).normal(
+        size=(120, 3)).astype(np.float32))
+    events = cluster.disconnect_session("s0")
+    assert [e.event.t_index for e in events] == [100, 120]
+    assert "s0" not in cluster.sessions
+    acct = cluster.accounting()
+    assert acct["balanced"] and acct["pending"] == 0
+    cluster.close()
 
 
 # ----------------------------------------- autoscaled elastic drives
@@ -594,35 +643,35 @@ def test_cli_serve_trace_autoscale_end_to_end(capsys):
 
 
 def test_cli_serve_trace_rejects_incompatible_modes():
-    """``--trace`` refuses the steady-load modes with the JAX package's
-    SystemExit; ``--workers`` (which the JAX package refuses the same
-    way) is not ported and names its item first."""
+    """``--trace`` refuses the steady-load modes and a fleet cluster
+    with the JAX package's SystemExit."""
     from har_tpu_torch.cli import main
 
-    for flag in (["--adapt"], ["--monitor"], ["--inject-drift", "0.5"]):
+    for flag in (["--adapt"], ["--monitor"], ["--inject-drift", "0.5"],
+                 ["--workers", "2"]):
         with pytest.raises(SystemExit):
             main(["serve", "--device", "cpu", "--sessions", "8",
                   "--trace", "diurnal", *flag])
-    with pytest.raises(NotImplementedError, match="item 15"):
-        main(
-            [
-                "serve", "--device", "cpu", "--sessions", "8",
-                "--trace", "diurnal", "--workers", "2",
-            ]
-        )
 
 
 def test_elastic_smoke_verdict_green():
-    """The JAX package's elastic gate reaches for the 8-device mesh and
-    a fleet cluster's worker add and retire: it waits for item 15, and
-    its bench lane for item 16."""
+    """The elastic check, run in-process: 10x swing + storm + online
+    resizes (a mesh rung on the CPU repeated twice) + cluster worker
+    add/retire, zero windows lost, conservation balanced in every
+    snapshot.  Its bench lane waits for item 16."""
     from har_tpu_torch.serve.traffic.smoke import (
         elastic_smoke,
         elastic_traffic_benchmark,
     )
 
-    with pytest.raises(NotImplementedError, match="item 15"):
-        elastic_smoke()
+    out = elastic_smoke(device="cpu")
+    assert out["ok"] is True
+    assert out["windows_lost"] == 0
+    assert out["resizes"] >= 2
+    assert out["scale_ups"] >= 1 and out["scale_downs"] >= 1
+    assert out["mesh_devices"] >= 2
+    assert out["worker_adds"] >= 1 and out["worker_retires"] >= 1
+    assert out["balanced_every_round"] is True
     with pytest.raises(NotImplementedError, match="item 16"):
         elastic_traffic_benchmark(smoke=True)
 
