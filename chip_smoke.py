@@ -275,10 +275,32 @@ exits nonzero without the final ``ok`` line:
     --kill-worker w1`` in-process and with ``--net`` (three
     ``serve-worker`` processes on loopback), one failover each and the
     same windows scored;
-35. with ``--profile`` only: one DT, one RF and one transformer fit, one
+35. ha_main: the rest of the fleet cluster (warm standbys, journal
+    shipping, election, the ingest gateway pair).  ``ha_standby``: phase
+    34's transformer cluster with every worker tailed by a
+    ``StandbyAgent`` over ``LocalShipSource`` (registered with ``prefer``,
+    the next worker) and w1 killed once windows are scored: no window
+    lost or repeated, the migrated sessions exactly w1's partition, one
+    standby fetch, labels and raw labels equal to phase 34's un-killed
+    and cold-failover runs (probabilities within 1e-3), K2 exactly
+    layers x the dispatches summed over the workers and the restored
+    partition's drain, ``failover_ms`` and ``failover_path_bytes``
+    printed.  Then, over ``serve-worker``, ``serve-agent`` and
+    ``serve-gateway`` processes started through ``python -m
+    har_tpu_torch.cli`` (the analytic demo pool; no launch): ``ha_ship``, ``run_net_kill_point`` at the three ship
+    points, one engine point and one controller point (every worker's
+    journal in a private host directory, a ship agent each),
+    ``journal_ship_smoke``, ``wire_failover_smoke`` and
+    ``replication_smoke``; ``ha_gateway``, ``wire_ingest_smoke``,
+    ``gateway_ha_smoke`` and the gateway kill points plus ``drain``
+    (these a few cells at a time); then ``ha_partition``, the four
+    partition cases one at a time at the JAX package's RPC deadlines
+    (no failover on a link fault, one owner a session after the split
+    brain).  Every cell ok with no window lost;
+36. with ``--profile`` only: one DT, one RF and one transformer fit, one
     default run, one parity run, one GBDT fit and a 2-epoch BiLSTM fit
     under torch.profiler, with K1's and K2's shares of the device time;
-36. the kernels line (K1's launches over every path that grows trees),
+37. the kernels line (K1's launches over every path that grows trees),
     a short ``summary`` line, then ``{"ok": true, "device": {...}}``.
 
 ``train --eda`` (host matplotlib, no kernel) is not driven here: the card's
@@ -288,8 +310,8 @@ machine has no matplotlib; the CPU tests hold it to har_tpu's files.
 last lines: the check of serving over a mesh, on as many cards as are
 visible (on a machine of four cards each mesh is laid over the four).
 
-``--cluster-only`` runs phases 1, 2, 8 and 34 and stops there, without
-the last lines: the check of the fleet cluster on the card.
+``--cluster-only`` runs phases 1, 2, 8, 34 and 35 and stops there,
+without the last lines: the check of the fleet cluster on the card.
 
 ``--flash-only`` runs phases 1, 2 and 4 and stops there, without the last
 two lines: the quick way to time K2, or to time another checkout's K2 by
@@ -4052,7 +4074,7 @@ CLUSTER_VICTIM = "w1"
 CLUSTER_PROB_ATOL_BF16 = 1e-3
 
 
-def cluster_run(model, tag: str, kill: str | None = None) -> dict:
+def cluster_run(model, tag: str, kill: str | None = None, standby: bool = False) -> dict:
     """A FleetCluster of CLUSTER_WORKERS journaled workers over ``model``
     on a FakeClock, CLUSTER_SESSIONS sessions x CLUSTER_WINDOWS windows
     delivered hop by hop with a forced poll a round (``chaos._drive_cluster``,
@@ -4061,8 +4083,12 @@ def cluster_run(model, tag: str, kill: str | None = None) -> dict:
     events, whether every round's accounting balanced, the final
     accounting and control-plane stats, the migrated sessions, and the
     dispatches summed over the three workers' engines (a killed worker's
-    up to its kill; the drain of its restored partition not counted)."""
-    from har_tpu_torch.serve import FakeClock, FleetConfig, synthetic_sessions
+    up to its kill; the drain of its restored partition not counted).
+    With ``standby``, each worker is tailed by a ``StandbyAgent`` over
+    ``LocalShipSource`` registered with ``prefer`` the next worker; the
+    run then also reports the dispatches of the restored partition's
+    drain and of the standbys' replicas, and the standby counters."""
+    from har_tpu_torch.serve import FakeClock, FleetConfig, FleetServer, synthetic_sessions
     from har_tpu_torch.serve.chaos import _drive_cluster
     from har_tpu_torch.serve.cluster import ClusterConfig, FleetCluster
 
@@ -4081,6 +4107,26 @@ def cluster_run(model, tag: str, kill: str | None = None) -> dict:
     for i in range(CLUSTER_SESSIONS):
         cluster.add_session(i)
     servers = {wid: w.server for wid, w in cluster._workers.items()}
+    standbys = []
+    if standby:
+        from har_tpu_torch.serve.net.tail import LocalShipSource
+        from har_tpu_torch.serve.replica import StandbyAgent
+
+        wids = sorted(cluster._workers)
+        for k, wid in enumerate(wids):
+            sb = StandbyAgent(str(root / "_replica"), {wid: LocalShipSource(str(root))},
+                              loader=lambda ver: model, clock=clock)
+            cluster.register_standby(sb, name=f"sb_{wid}", prefer=wids[(k + 1) % len(wids)])
+            standbys.append(sb)
+    # with standby, the failover's restored engines, for their drains'
+    # dispatches (the cluster keeps no handle on them once drained)
+    restored: list = []
+    real_restore = FleetServer.restore.__func__
+
+    def tapped_restore(cls, *args, **kwargs):
+        restored.append(real_restore(cls, *args, **kwargs))
+        return restored[-1]
+
     events: list = []
     balanced: list = []
 
@@ -4090,8 +4136,14 @@ def cluster_run(model, tag: str, kill: str | None = None) -> dict:
         balanced.append(c.accounting()["balanced"])
 
     t0 = time.perf_counter()
-    _drive_cluster(cluster, recordings, [0] * CLUSTER_SESSIONS, 200 * CLUSTER_WINDOWS, 200,
-                   clock, events, on_round)
+    original = vars(FleetServer)["restore"]
+    if standby:
+        FleetServer.restore = classmethod(tapped_restore)
+    try:
+        _drive_cluster(cluster, recordings, [0] * CLUSTER_SESSIONS, 200 * CLUSTER_WINDOWS,
+                       200, clock, events, on_round)
+    finally:
+        FleetServer.restore = original
     seconds = time.perf_counter() - t0
     stats = cluster.cluster_stats()
     out = dict(events={(fe.session_id, fe.event.t_index): fe.event for fe in events},
@@ -4100,7 +4152,13 @@ def cluster_run(model, tag: str, kill: str | None = None) -> dict:
                migrated=sorted(e["sid"] for e in cluster.migration_log),
                per_worker_sessions=stats["per_worker_sessions"],
                migration_ms=stats["migration_ms"], failover_ms=stats["failover_ms"],
-               dispatches=sum(s.stats.dispatches for s in servers.values()))
+               dispatches=sum(s.stats.dispatches for s in servers.values()),
+               restored_dispatches=sum(s.stats.dispatches for s in restored),
+               replica_dispatches=sum(r.server.stats.dispatches for sb in standbys
+                                      for r in sb.replicas.values() if r.server is not None),
+               standbys=stats["standbys"], standby_fetches=stats["standby_fetches"],
+               failover_path_bytes=stats["failover_path_bytes"],
+               replicated_bytes=sum(sb.stats.shipped_bytes for sb in standbys))
     cluster.close()
     return out
 
@@ -4171,7 +4229,7 @@ def cluster_agree(card_model, cpu_model, layers: int) -> tuple[dict, dict]:
     return out, card
 
 
-def cluster_failover(card_model, reference: dict) -> dict:
+def cluster_failover(card_model, reference: dict) -> tuple[dict, dict]:
     """The same cluster run with CLUSTER_VICTIM killed once the first
     windows are scored: no window lost or delivered twice, the migrated
     sessions exactly the victim's partition by the router, labels equal
@@ -4205,7 +4263,7 @@ def cluster_failover(card_model, reference: dict) -> dict:
             and acct["balanced"] and acct["pending"] == 0 and acct["dropped"] == 0
             and out["balanced_every_round"] and launches["flash_attention"] > 0):
         raise AssertionError(f"the cluster's failover: {out}")
-    return out
+    return out, run
 
 
 def cluster_kill_points() -> dict:
@@ -4279,7 +4337,7 @@ def phase_cluster_main() -> dict:
     layers = len(cpu_model.inner.module.blocks)
     card_model = checkpoint.load_model(path, "cuda")
     agree, reference = cluster_agree(card_model, cpu_model, layers)
-    failover = cluster_failover(card_model, reference)
+    failover, failover_run = cluster_failover(card_model, reference)
     kills = cluster_kill_points()
     elastic = cluster_elastic()
     cli_runs = cluster_cli()
@@ -4287,7 +4345,170 @@ def phase_cluster_main() -> dict:
     seconds = time.perf_counter() - t0
     emit("cluster_main", seconds=seconds, nvidia_smi=nvidia_smi(), launches=launches)
     return dict(seconds=seconds, agree=agree, failover=failover, kills=kills, elastic=elastic,
-                cli=cli_runs, launches=dict(flash_attention=launches))
+                cli=cli_runs, launches=dict(flash_attention=launches),
+                runs=dict(unkilled=reference, failover=failover_run))
+
+
+HA_CELLS_AT_ONCE = 4  # wire cells run side by side, each its own processes
+HA_ENGINE_POINT = "mid_dispatch"
+HA_CLUSTER_POINT = "mid_handoff"
+
+
+def ha_standby(card_model, layers: int, runs: dict) -> dict:
+    """The CLI transformer's 3-worker cluster with a warm standby tailing
+    each worker (``cluster_run(standby=True)``) and w1 killed once
+    windows are scored: nothing lost or repeated, the migrated sessions
+    exactly w1's partition, one standby fetch (a silent cold path fails
+    here), labels and raw labels equal to cluster_main's un-killed and
+    cold-failover runs with probabilities within CLUSTER_PROB_ATOL_BF16,
+    and K2 exactly layers x the dispatches of the workers, the restored
+    partition's drain and the replicas (which score nothing); its
+    ``failover_ms`` beside the cold failover's of the same call."""
+    from har_tpu_torch.serve.cluster import ClusterConfig, ConsistentHashRouter
+
+    with launch_counts() as launches:
+        run = cluster_run(card_model, "standby", kill=CLUSTER_VICTIM, standby=True)
+    router = ConsistentHashRouter(ClusterConfig().replicas)
+    for i in range(CLUSTER_WORKERS):
+        router.add_worker(f"w{i}")
+    partition = sorted(s for s in range(CLUSTER_SESSIONS) if router.owner(s) == CLUSTER_VICTIM)
+    acct = run["accounting"]
+    dispatches = run["dispatches"] + run["restored_dispatches"] + run["replica_dispatches"]
+    out = dict(
+        n_events=run["n_events"], seconds=run["seconds"], failovers=run["failovers"],
+        failover_ms=run["failover_ms"], cold_failover_ms=runs["failover"]["failover_ms"],
+        failover_path_bytes=run["failover_path_bytes"], replicated_bytes=run["replicated_bytes"],
+        standbys=run["standbys"], standby_fetches=run["standby_fetches"],
+        migration_ms=run["migration_ms"], migrated_sessions=len(run["migrated"]),
+        partition_sessions=len(partition), migrated_is_partition=run["migrated"] == partition,
+        windows_lost=len(runs["unkilled"]["events"].keys() - run["events"].keys()),
+        delivered_twice=run["n_events"] - len(run["events"]),
+        vs_unkilled=_compare_cluster_events(run["events"], runs["unkilled"]["events"]),
+        vs_cold=_compare_cluster_events(run["events"], runs["failover"]["events"]),
+        accounting=acct, balanced_every_round=run["balanced_every_round"],
+        per_worker_sessions=run["per_worker_sessions"], dispatches=run["dispatches"],
+        restored_dispatches=run["restored_dispatches"],
+        replica_dispatches=run["replica_dispatches"], launches=launches,
+        expected_launches=dict(hist=0, hist_rows=0, flash_attention=layers * dispatches))
+    emit("ha_standby", **out)
+    if not (out["windows_lost"] == 0 and out["delivered_twice"] == 0 and out["failovers"] == 1
+            and out["migrated_is_partition"] and partition and out["standby_fetches"] == 1
+            and out["standbys"] == CLUSTER_WORKERS
+            and all(out[k]["keys_equal"] and out[k]["labels_equal"]
+                    and out[k]["raw_labels_equal"]
+                    and out[k]["max_prob_diff"] <= CLUSTER_PROB_ATOL_BF16
+                    for k in ("vs_unkilled", "vs_cold"))
+            and acct["balanced"] and acct["pending"] == 0 and acct["dropped"] == 0
+            and out["balanced_every_round"] and launches == out["expected_launches"]):
+        raise AssertionError(f"the cluster's warm-standby failover: {out}")
+    return out
+
+
+def ha_wire_cells() -> dict:
+    """Every wire cell of ``ha_ship``, ``ha_partition`` and ``ha_gateway``,
+    each with its own worker, agent and gateway processes: those of
+    ``ha_ship`` and ``ha_gateway`` HA_CELLS_AT_ONCE at a time on threads
+    of this process, then the partition cases one at a time, as their
+    short RPC deadlines (the JAX package's) want a quiet host:
+    {(group, name): verdict}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from har_tpu_torch.serve.chaos import GATEWAY_KILL_POINTS, NET_PARTITION_CASES, SHIP_KILL_POINTS
+    from har_tpu_torch.serve.net.chaos import (
+        run_gateway_kill_point,
+        run_net_kill_point,
+        run_net_partition,
+    )
+    from har_tpu_torch.serve.net.smoke import (
+        gateway_ha_smoke,
+        journal_ship_smoke,
+        replication_smoke,
+        wire_failover_smoke,
+        wire_ingest_smoke,
+    )
+
+    cells = {("ha_ship", p): (lambda p=p: run_net_kill_point(p))
+             for p in SHIP_KILL_POINTS + (HA_ENGINE_POINT, HA_CLUSTER_POINT)}
+    cells.update({("ha_ship", "journal_ship_smoke"): journal_ship_smoke,
+                  ("ha_ship", "wire_failover_smoke"): wire_failover_smoke,
+                  ("ha_ship", "replication_smoke"): replication_smoke})
+    cells.update({("ha_gateway", p): (lambda p=p: run_gateway_kill_point(p))
+                  for p in GATEWAY_KILL_POINTS + ("drain",)})
+    cells.update({("ha_gateway", "wire_ingest_smoke"): wire_ingest_smoke,
+                  ("ha_gateway", "gateway_ha_smoke"): gateway_ha_smoke})
+
+    def one(fn):
+        t0 = time.perf_counter()
+        try:
+            return dict(fn(), seconds=time.perf_counter() - t0)
+        except Exception as exc:  # noqa: BLE001 - the verdict below fails on it
+            return dict(ok=False, why=f"raised {type(exc).__name__}: {exc}",
+                        seconds=time.perf_counter() - t0)
+
+    with ThreadPoolExecutor(HA_CELLS_AT_ONCE) as pool:
+        futures = {key: pool.submit(one, fn) for key, fn in cells.items()}
+        out = {key: f.result() for key, f in futures.items()}
+    for case in NET_PARTITION_CASES:
+        out["ha_partition", case] = one(lambda c=case: run_net_partition(c))
+    return out
+
+
+_HA_KEYS = ("ok", "why", "windows_lost", "failovers", "migrated_sessions", "failover_ms",
+            "shipped_bytes", "ship_chunks", "ship_resumes", "chunks", "resumes", "ship_ms",
+            "standbys", "standby_fetches", "failover_path_bytes", "lag_records_at_kill",
+            "dual_owners", "resolved_owner", "delivered", "reconnects", "moved_receipts",
+            "stale_acks_rejected", "resumed_sessions", "lease_gen", "standby_lease_wins",
+            "gateway_exit", "tenant_sheds", "frames", "ack_coalesce_ratio", "seconds")
+
+
+def ha_verdicts(cells: dict) -> dict:
+    """The wire cells grouped and checked: every one ok with no window
+    lost; the ship points resumed where they must; no failover on a link
+    fault and one owner a session after the split brain; the gateway
+    points' hard exit and the drain's clean one."""
+    groups: dict = {}
+    for (group, name), r in cells.items():
+        groups.setdefault(group, {})[name] = {k: r[k] for k in _HA_KEYS if k in r}
+    for group, rs in groups.items():
+        emit(group, **rs)
+    bad = {f"{g}/{n}": r.get("why") for g, rs in groups.items() for n, r in rs.items()
+           if not (r["ok"] and r.get("windows_lost", 0) == 0)}
+    ship, part, gw = groups["ha_ship"], groups["ha_partition"], groups["ha_gateway"]
+    for p in ("mid_ship_send", "mid_ship_recv"):
+        if ship[p].get("ship_resumes", 0) < 1:
+            bad[f"ha_ship/{p}"] = "no transfer resumed"
+    for c in ("slow_link", "dropped_probe", "duplicate"):
+        if part[c].get("failovers") != 0:
+            bad[f"ha_partition/{c}"] = f"{part[c].get('failovers')} failovers"
+    if len(part["split_brain"].get("dual_owners") or []) != 2:
+        bad["ha_partition/split_brain"] = "the split never happened"
+    for p, r in gw.items():
+        want = 0 if p == "drain" else 137
+        if "gateway_exit" in r and r["gateway_exit"] != want:
+            bad[f"ha_gateway/{p}"] = f"gateway exit {r['gateway_exit']}"
+    if bad:
+        raise AssertionError(f"the wire cells: {bad}")
+    return groups
+
+
+def phase_ha_main(runs: dict) -> dict:
+    """The rest of the fleet cluster on the card: ``ha_standby`` (the
+    warm-standby failover of the CLI transformer's cluster, against
+    cluster_main's runs ``runs``), then the wire cells of ``ha_ship``,
+    ``ha_partition`` and ``ha_gateway``."""
+    t0 = time.perf_counter()
+    path = str(MODELS_DIR / "transformer")
+    card_model = checkpoint.load_model(path, "cuda")
+    layers = len(card_model.inner.module.blocks)
+    standby = ha_standby(card_model, layers, runs)
+    t_cells = time.perf_counter()
+    cells = ha_verdicts(ha_wire_cells())
+    seconds = time.perf_counter() - t0
+    launches = standby["launches"]["flash_attention"]
+    emit("ha_main", seconds=seconds, wire_cells_seconds=time.perf_counter() - t_cells,
+         nvidia_smi=nvidia_smi(), launches=launches)
+    return dict(seconds=seconds, standby=standby, cells=cells,
+                launches=dict(flash_attention=launches))
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
@@ -4321,7 +4542,7 @@ def main(argv: list[str]) -> int:
         return 0
     if "--cluster-only" in argv:
         phase_raw_main()
-        phase_cluster_main()
+        phase_ha_main(phase_cluster_main()["runs"])
         return 0
     hist = phase_hist()
     hist_rows = phase_hist_rows()
@@ -4360,6 +4581,7 @@ def main(argv: list[str]) -> int:
     parallel_main = phase_parallel_main()
     mesh_serve_main = phase_mesh_serve_main()
     cluster_main = phase_cluster_main()
+    ha_main = phase_ha_main(cluster_main["runs"])
     if "--profile" in argv:
         phase_profile()
     flash_launches = {
@@ -4372,7 +4594,7 @@ def main(argv: list[str]) -> int:
                            ("adapt_main", adapt_main), ("traffic_main", traffic_main),
                            ("parallel_main", parallel_main),
                            ("mesh_serve_main", mesh_serve_main),
-                           ("cluster_main", cluster_main))
+                           ("cluster_main", cluster_main), ("ha_main", ha_main))
     }
     hist_rows_launches = {
         name: path["launches"]["hist_rows"]
@@ -4540,6 +4762,12 @@ def main(argv: list[str]) -> int:
                  "ok", "resizes", "mesh_devices", "worker_adds", "worker_retires")},
              cli={tag: {k: r[k] for k in ("scored", "failovers", "windows_per_sec", "seconds")}
                   for tag, r in cluster_main["cli"].items()}),
+         ha_main=dict(
+             seconds=ha_main["seconds"], launches=ha_main["launches"],
+             standby={k: ha_main["standby"][k] for k in (
+                 "failover_ms", "cold_failover_ms", "failover_path_bytes",
+                 "standby_fetches", "windows_lost", "migrated_is_partition")},
+             cells_ok={g: sorted(rs) for g, rs in ha_main["cells"].items()}),
          ucihar_split_candidates_s=ucihar_main["split_candidates_s"],
          ucihar_parity_lane_result=ucihar_lane["lane"], raw_lane_result=raw_lane_main["lane"])
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -274,6 +274,37 @@ def _parser() -> argparse.ArgumentParser:
                          "WISDM_ar_v1.1_raw.txt (HAR_TPU_WISDM_RAW / "
                          "./data, or --data-path), train the CNN, report "
                          "held-out accuracy against the 0.97 target")
+
+    # the fleet's process entry points: main() forwards each before this
+    # parser runs (the real parsers live in har_tpu_torch.serve.net), so
+    # these stubs only list them in the help
+    sub.add_parser(
+        "serve-worker",
+        add_help=False,
+        help="one FleetServer worker process on a loopback TCP socket "
+             "(har_tpu_torch.serve.net.worker), the subprocess behind "
+             "`serve --workers N --net`; `serve-worker --help` for flags",
+    )
+    sub.add_parser(
+        "serve-gateway",
+        add_help=False,
+        help="the fleet's ingest front door "
+             "(har_tpu_torch.serve.net.gateway): one process clients "
+             "speak the wire protocol to, batched push frames with "
+             "header-only edge admission, multiplexed onto running "
+             "`serve-worker` processes; two with one --ha-root form an "
+             "elected pair; `serve-gateway --help` for flags",
+    )
+    sub.add_parser(
+        "serve-agent",
+        add_help=False,
+        help="one journal-ship agent per worker host "
+             "(har_tpu_torch.serve.net.ship): serves that host's "
+             "journal directories to an adopting controller as chunked, "
+             "digest-manifested, resumable transfers; with `--follow "
+             "WID=HOST:PORT` a warm standby that tails live workers; "
+             "`serve-agent --help` for flags",
+    )
     return p
 
 
@@ -1434,6 +1465,17 @@ def main(argv=None) -> int:
         from har_tpu_torch.serve.net.worker import main as _worker_main
 
         return _worker_main(argv[1:])
+    if argv[:1] == ["serve-gateway"]:
+        # the same forwarding contract: the gateway fronts workers, parses
+        # its own flags and starts without the CLI surface
+        from har_tpu_torch.serve.net.gateway import main as _gateway_main
+
+        return _gateway_main(argv[1:])
+    if argv[:1] == ["serve-agent"]:
+        # the same again: the ship agent is a byte server, no model
+        from har_tpu_torch.serve.net.ship import main as _agent_main
+
+        return _agent_main(argv[1:])
     args = _parser().parse_args(argv)
     if args.command == "parity":
         return _parity(args)

@@ -29,6 +29,11 @@ Public surface:
                                             adaptation loop,
                                             har_tpu_torch.adapt)
   CLUSTER_KILL_POINTS / run_cluster_kill_point — worker-axis chaos
+  SHIP_KILL_POINTS                        — journal-ship transfer chaos
+  TAIL_KILL_POINTS / run_tail_kill_point  — replication-tail chaos
+  NET_PARTITION_CASES                     — partition-tolerance matrix
+                                            (runners in serve/net/chaos)
+  WarmReplica / StandbyAgent / StandbyHost — warm standbys (replica.py)
   fleet_slo_smoke / fleet_pipeline_smoke / model_parallel_smoke
                                           — the serving checks
   har_tpu_torch.serve.traffic             — elastic traffic on one
@@ -47,11 +52,15 @@ Public surface:
                                             `serve-worker` subprocesses:
                                             CRC-framed TCP RPCs with
                                             deadlines/retries, NetWorker
-                                            proxies)
+                                            proxies, journal-ship
+                                            agents, replicated
+                                            controller election, the
+                                            ingest gateway pair, the
+                                            wire chaos + partition
+                                            matrices)
 
-Not ported yet (ROADMAP.md Queue 1): warm replicas, journal shipping,
-the ingest gateway, controller election and the wire chaos matrices
-(item 15); the bench cells and the recovery benchmark (item 16).
+Not ported yet (ROADMAP.md Queue 1 item 16): the bench cells and the
+recovery benchmark.
 """
 
 from har_tpu_torch.serve.arena import PendingArena, SessionArena
@@ -59,11 +68,15 @@ from har_tpu_torch.serve.chaos import (
     CLUSTER_KILL_POINTS,
     ENGINE_KILL_POINTS,
     KILL_POINTS,
+    NET_PARTITION_CASES,
+    SHIP_KILL_POINTS,
+    TAIL_KILL_POINTS,
     KillPlan,
     SimulatedCrash,
     run_cluster_kill_point,
     run_kill_point,
     run_random_kill,
+    run_tail_kill_point,
 )
 from har_tpu_torch.serve.dispatch import (
     DispatchTicket,
@@ -103,6 +116,7 @@ from har_tpu_torch.serve.recover import (
     recovery_smoke,
     restore_server,
 )
+from har_tpu_torch.serve.replica import StandbyAgent, StandbyHost, WarmReplica
 from har_tpu_torch.serve.slo import (
     events_equal,
     fleet_pipeline_smoke,
@@ -146,15 +160,21 @@ __all__ = [
     "KILL_POINTS",
     "KillPlan",
     "LoadReport",
+    "NET_PARTITION_CASES",
     "PendingArena",
     "RecoveryError",
+    "SHIP_KILL_POINTS",
     "SessionArena",
     "SimulatedCrash",
     "StageHistogram",
     "StagingArena",
+    "StandbyAgent",
+    "StandbyHost",
+    "TAIL_KILL_POINTS",
     "TraceReport",
     "TraceSpec",
     "TrafficTrace",
+    "WarmReplica",
     "drive_fleet",
     "drive_trace",
     "elastic_smoke",
@@ -170,5 +190,6 @@ __all__ = [
     "run_cluster_kill_point",
     "run_kill_point",
     "run_random_kill",
+    "run_tail_kill_point",
     "synthetic_sessions",
 ]

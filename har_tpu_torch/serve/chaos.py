@@ -58,10 +58,9 @@ Port of ``har_tpu/serve/chaos.py``: ``run_kill_point`` and
 dispatch plane, and ``mesh=`` behind a serving mesh.
 ``ENGINE_KILL_POINTS`` drive the adaptation engine (har_tpu_torch.adapt);
 ``run_cluster_kill_point`` kills one worker of a ``FleetCluster`` (or its
-controller, ``CLUSTER_KILL_POINTS``).  The ship, tail and gateway
-matrices (``run_tail_kill_point`` here, the ship and gateway runners in
-``serve/net/chaos.py``) wait for ROADMAP.md Queue 1 item 15 and raise
-NotImplementedError.
+controller, ``CLUSTER_KILL_POINTS``), with or without a warm standby;
+``run_tail_kill_point`` kills the replication tail (``TAIL_KILL_POINTS``).
+The ship and gateway matrices run over the wire (``serve/net/chaos.py``).
 """
 
 from __future__ import annotations
@@ -99,23 +98,70 @@ ENGINE_KILL_POINTS = ("mid_promote", "mid_rollback")
 # partition).  Killed on the CLUSTER's chaos hook: the controller dies,
 # the surviving worker processes do not.
 CLUSTER_KILL_POINTS = ("mid_handoff", "mid_migration")
-# the JAX package's journal-ship, replication-tail and ingest-gateway
-# stage boundaries: their runners wait for ROADMAP.md Queue 1 item 15
+# the journal-shipping transfer's stage boundaries (shared-nothing
+# failover, har_tpu_torch.serve.net.ship): the SENDING host's agent dies
+# mid-transfer (mid_ship_send — a real os._exit inside the agent
+# process; the restarted agent must serve the resume from the last
+# durable chunk), the RECEIVING controller dies between chunks
+# (mid_ship_recv — the takeover controller resumes the staged
+# transfer), and the controller dies after the verified ship lands but
+# before the restored engine drains (post_ship_pre_drain — the
+# takeover finds a complete staged copy and finishes).  Run in the
+# wire matrix (net/chaos.py) with every worker journal in a private,
+# non-shared directory.
 SHIP_KILL_POINTS = (
     "mid_ship_send",
     "mid_ship_recv",
     "post_ship_pre_drain",
 )
+# the continuous-replication tail's stage boundaries
+# (har_tpu_torch.serve.net.tail, run by run_tail_kill_point with a warm
+# standby attached to a live journaled worker): the STANDBY dies
+# between chunk pulls mid-tail (mid_tail_recv — its replacement resumes
+# from the durable ship.log without re-pulling one already-durable
+# byte), the standby dies at the re-manifest boundary while the source
+# worker snapshots/rotates under the tail (mid_tail_remanifest — the
+# resumed tail adopts the new file set cleanly), and the failover
+# finalizer dies after every whole-file digest verifies but before
+# ship_done lands (post_tail_verify — the retried finalize re-verifies
+# already-local bytes and pulls zero, over a tail the worker's death
+# left PARTIAL: failover drains the missing suffix, not the journal).
 TAIL_KILL_POINTS = (
     "mid_tail_recv",
     "mid_tail_remanifest",
     "post_tail_verify",
 )
+# the ingest gateway pair's stage boundaries (har_tpu_torch.serve.net.gateway,
+# run by run_gateway_kill_point with two elected gateways in front of
+# live workers): the ACTIVE gateway dies while a push frame's header is
+# being judged (mid_frame_recv — the client's frame is unacked and
+# ambiguous; the re-send to the new leader dedups by watermark), it
+# dies after admission said yes but before the chunks reach the workers
+# (post_accept_pre_forward — admitted-but-undelivered, the worst
+# ambiguity window), and it dies inside a graceful drain after marking
+# itself draining but before the early lease release lands
+# (mid_lease_handoff — the peer must still win by waiting out the
+# un-released lease).  Every cell demands windows_lost == 0 and a
+# scored event stream bit-identical to the un-killed run.
 GATEWAY_KILL_POINTS = (
     "mid_frame_recv",
     "post_accept_pre_forward",
     "mid_lease_handoff",
 )
+# the failure modes only a REAL link has (har_tpu_torch.serve.net.chaos —
+# run over subprocess workers on loopback TCP): a slow link and a
+# blackholed probe must NOT be failovers, a duplicated delivery must
+# not double-score, and a split brain resolves by the `handoffs`
+# generation.  Declared here beside the kill points so the full chaos
+# surface reads from one module; the runners live in net/chaos.py
+# (they need the transport, which imports this module).
+NET_PARTITION_CASES = (
+    "slow_link",
+    "dropped_probe",
+    "duplicate",
+    "split_brain",
+)
+
 # occurrence of each point the matrix kills at by default — calibrated
 # so every kill lands mid-run (some windows acked, some pending, the
 # swap schedule still ahead or just behind; for the cluster points,
@@ -135,6 +181,24 @@ _DEFAULT_AT = {
     "mid_rollback": 1,
     "mid_handoff": 1,
     "mid_migration": 2,
+    # ship-axis occurrences: the chunk counts are calibrated against
+    # the matrix's small ship_chunk_bytes so both kills land genuinely
+    # MID-transfer (durable progress exists, the transfer is unfinished)
+    "mid_ship_send": 3,
+    "mid_ship_recv": 3,
+    "post_ship_pre_drain": 1,
+    # tail-axis occurrences: the second chunk pull of a cycle (durable
+    # progress exists, the pass is unfinished), the first re-manifest
+    # boundary, and the first finalize verify window
+    "mid_tail_recv": 2,
+    "mid_tail_remanifest": 1,
+    "post_tail_verify": 1,
+    # gateway-axis occurrences: a mid-run frame receipt (rounds already
+    # delivered, more coming), the second admitted-but-unforwarded
+    # window, and the first drain hand-off
+    "mid_frame_recv": 3,
+    "post_accept_pre_forward": 2,
+    "mid_lease_handoff": 1,
 }
 
 
@@ -680,14 +744,272 @@ def run_engine_kill_point(
             shutil.rmtree(tmp, ignore_errors=True)
 
 
-def run_tail_kill_point(point: str, **kwargs) -> dict:
-    """The JAX package's replication-tail matrix (TAIL_KILL_POINTS): a
-    warm standby tail-follows a live worker and dies at a stage
-    boundary."""
-    raise NotImplementedError(
-        "run_tail_kill_point: the replication tail is not ported yet: "
-        "ROADMAP.md Queue 1 item 15"
+# ---------------------------------------------------------------------
+# replication-axis chaos: a warm standby tail-follows a live journaled
+# worker; the standby dies mid-tail / at the re-manifest boundary, or
+# the finalize verifier dies over a partial tail — then the worker is
+# killed and recovery runs from the STANDBY's staging directory.
+
+
+def run_tail_kill_point(
+    point: str,
+    *,
+    at: int | None = None,
+    sessions: int = 6,
+    seed: int = 0,
+    n_samples: int = 600,
+    window: int = 100,
+    hop: int = 50,
+    flush_every: int = 8,
+    chunk_bytes: int = 1024,
+) -> dict:
+    """Kill the continuous-replication tail at one of its stage
+    boundaries (TAIL_KILL_POINTS), resume it, kill the SOURCE worker,
+    fail over from the standby's staging directory, and demand the
+    same three-part contract as every other cell — plus the
+    replication-specific evidence:
+
+    - ``mid_tail_recv``: the replacement standby resumes from the
+      durable ship.log; total bytes pulled across BOTH standby
+      incarnations equals the source manifest exactly (zero re-pulled
+      bytes), and the caught-up failover transfers zero.
+    - ``mid_tail_remanifest``: the source rotates/snapshots under the
+      tail; the resumed tail adopts the new file set (a durable
+      ``ship_remanifest`` record lands, the warm replica re-founds on
+      the new snapshot) and the caught-up failover transfers zero.
+    - ``post_tail_verify``: the tail is deliberately left PARTIAL
+      (cycles stop early), the first finalize pulls the missing
+      suffix then dies after verification but before ``ship.done``;
+      the retried finalize re-verifies already-local bytes and pulls
+      zero.
+
+    The source worker runs the ordinary journaled schedule; its death
+    is ``journal.kill()`` after phase A (pending windows exist, the
+    swap still ahead) — the tail axis is about the STANDBY dying, not
+    the worker, so the worker's own kill points stay in KILL_POINTS.
+    """
+    import shutil
+
+    from har_tpu_torch.serve.journal import read_segment_from
+    from har_tpu_torch.serve.net.ship import journal_manifest
+    from har_tpu_torch.serve.net.tail import LocalShipSource
+    from har_tpu_torch.serve.replica import StandbyAgent
+
+    if point not in TAIL_KILL_POINTS:
+        raise ValueError(f"unknown tail kill point {point!r}")
+    at = _DEFAULT_AT[point] if at is None else at
+    # mid_tail_remanifest needs the source to rotate under the tail;
+    # the other two pin append-only byte accounting, which wants a
+    # stable file set (no prunes) — attach-time snapshot only
+    snapshot_every = 40 if point == "mid_tail_remanifest" else 0
+    recordings = _recordings(sessions, n_samples, 3, seed)
+    models = {"A": AnalyticDemoModel(), "B": AnalyticDemoModel(tau=5.0)}
+    loader = lambda ver: models[ver]  # noqa: E731
+    swap_sample = (n_samples // hop // 2) * hop
+    config = FleetConfig(
+        max_sessions=sessions, target_batch=32, max_delay_ms=0.0,
+        retries=1,
     )
+
+    def build(clock, journal):
+        server = FleetServer(
+            models["A"], window=window, hop=hop, channels=3,
+            smoothing="ema", config=config,
+            fault_hook=DispatchFaults(
+                stall_every=3, stall_ms=1.0, fake_clock=clock
+            ),
+            clock=clock, model_version="A", journal=journal,
+        )
+        for i in range(sessions):
+            server.add_session(i)
+        return server
+
+    # ---- reference: the uninterrupted run --------------------------------
+    ref_clock = FakeClock()
+    ref_server = build(ref_clock, None)
+    ref_events: list = []
+    _run_schedule(
+        ref_server, recordings, [0] * sessions, hop=hop, clock=ref_clock,
+        models=models, swap_sample=swap_sample, events=ref_events,
+    )
+
+    td = tempfile.mkdtemp(prefix="har_chaos_tail_")
+    try:
+        src_root = f"{td}/src"
+        src_home = f"{src_root}/w0"
+        sb_root = f"{td}/sb"
+        journal = FleetJournal(
+            src_home,
+            JournalConfig(
+                flush_every=flush_every, snapshot_every=snapshot_every
+            ),
+        )
+        clock = FakeClock()
+        server = build(clock, journal)
+        plan = KillPlan(point, at)
+        standbys = [
+            StandbyAgent(
+                sb_root, {"w0": LocalShipSource(src_root)}, loader=loader,
+                chunk_bytes=chunk_bytes, chaos=plan, clock=clock,
+            )
+        ]
+
+        def cycle_once():
+            """One standby cycle; a SimulatedCrash is the standby
+            process dying — a REPLACEMENT agent (fresh memory, no
+            chaos) resumes over the same staging root from the
+            durable ship.log."""
+            try:
+                standbys[-1].cycle()
+            except SimulatedCrash:
+                standbys.append(
+                    StandbyAgent(
+                        sb_root, {"w0": LocalShipSource(src_root)},
+                        loader=loader, chunk_bytes=chunk_bytes,
+                        clock=clock,
+                    )
+                )
+
+        rounds = {"n": 0}
+
+        def on_round():
+            rounds["n"] += 1
+            if point == "post_tail_verify" and rounds["n"] > 3:
+                return  # stop tailing early: the tail stays PARTIAL
+            cycle_once()
+
+        # ---- phase A: live worker under tail, then SIGKILL it ------------
+        pre_events: list = []
+        cursors = [0] * sessions
+        _deliver(
+            server, recordings, cursors, swap_sample, hop, clock,
+            pre_events, on_round=on_round,
+        )
+        journal.kill()
+
+        # ---- catch-up: the journal is static now; drain the tail ---------
+        if point != "post_tail_verify":
+            for _ in range(3):
+                cycle_once()
+            if not plan.fired:
+                shutil.rmtree(td, ignore_errors=True)
+                return {
+                    "ok": False, "point": point,
+                    "why": f"kill point {point!r} never fired (at={at})",
+                    "windows_lost": 0, "recovery_ms": 0.0,
+                }
+
+        # ---- failover: finalize from the standby's bytes -----------------
+        sb = standbys[-1]
+        pre_shipped = sb.stats.shipped_bytes
+        t0 = time.perf_counter()
+        finalize_crashed = False
+        first_bytes = 0
+        try:
+            fin = sb.finalize("w0")
+        except SimulatedCrash:
+            finalize_crashed = True
+            first_bytes = sb.stats.shipped_bytes - pre_shipped
+            fin = sb.finalize("w0")  # retried over already-local bytes
+        failover_path_bytes = first_bytes + fin["bytes"]
+
+        why = None
+        if point == "post_tail_verify":
+            if not finalize_crashed:
+                why = f"kill point {point!r} never fired (at={at})"
+            elif first_bytes <= 0:
+                why = (
+                    "the partial tail's finalize pulled no missing "
+                    "suffix — the cell did not exercise the drain"
+                )
+            elif fin["bytes"] != 0:
+                why = (
+                    "retried finalize re-pulled "
+                    f"{fin['bytes']} byte(s); the verify must be "
+                    "idempotent over already-local bytes"
+                )
+        else:
+            if fin["bytes"] != 0:
+                why = (
+                    f"caught-up failover transferred {fin['bytes']} "
+                    "byte(s); a fully-tailed standby must transfer zero"
+                )
+        if why is None and point == "mid_tail_recv":
+            # zero re-pulled bytes: every standby incarnation's pulls,
+            # summed, equal the final source manifest exactly (valid
+            # because snapshot_every=0 means no file was ever pruned)
+            total = sum(
+                e["size"] for e in journal_manifest(src_home)
+            )
+            pulled = sum(s.stats.shipped_bytes for s in standbys)
+            if pulled != total:
+                why = (
+                    f"pulled {pulled} byte(s) across standby "
+                    f"incarnations for a {total}-byte manifest — the "
+                    "resume re-pulled already-durable bytes"
+                )
+        remanifests = 0
+        if why is None and point == "mid_tail_remanifest":
+            ship_log = f"{sb.dest('w0')}/ship.log"
+            records, _ = read_segment_from(ship_log, 0)
+            remanifests = sum(
+                1 for meta, _p in records
+                if meta.get("t") == "ship_remanifest"
+            )
+            replica = sb.replicas.get("w0")
+            if remanifests < 1:
+                why = (
+                    "no durable ship_remanifest record: the tail never "
+                    "crossed the rotation boundary"
+                )
+            elif replica is None or replica.rebuilds < 1:
+                why = (
+                    "the warm replica never re-founded on the rotated "
+                    "snapshot"
+                )
+        if why is not None:
+            shutil.rmtree(td, ignore_errors=True)
+            return {
+                "ok": False, "point": point, "why": why,
+                "windows_lost": 0, "recovery_ms": 0.0,
+                "failover_path_bytes": failover_path_bytes,
+            }
+
+        # ---- recovery from the STANDBY's staging directory ---------------
+        clock2 = FakeClock(clock.t)
+        restored = FleetServer.restore(
+            sb.dest("w0"),
+            loader,
+            clock=clock2,
+            fault_hook=DispatchFaults(
+                stall_every=3, stall_ms=1.0, fake_clock=clock2
+            ),
+        )
+        recovery_ms = (time.perf_counter() - t0) * 1e3
+
+        post_events: list = []
+        post_events.extend(restored.poll(force=True))
+        resume_cursors = [restored.watermark(i) for i in range(sessions)]
+        _run_schedule(
+            restored, recordings, resume_cursors, hop=hop,
+            clock=clock2, models=models, swap_sample=swap_sample,
+            events=post_events,
+        )
+
+        out = _verdict(
+            point, ref_events, pre_events, post_events, restored,
+            recovery_ms,
+        )
+        out.update(
+            failover_path_bytes=failover_path_bytes,
+            standby_incarnations=len(standbys),
+            finalize_resumes=fin["resumes"],
+            remanifests=remanifests,
+            tail_cycles=sum(s.cycles for s in standbys),
+        )
+        return out
+    finally:
+        shutil.rmtree(td, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------
@@ -865,17 +1187,18 @@ def run_cluster_kill_point(
     worker processes survive and ``FleetCluster.takeover`` adopts
     them, completing the orphaned failover idempotently.
 
-    ``standby=True`` (the JAX package's warm-standby run of the same
-    matrix) waits for ROADMAP.md Queue 1 item 15 and raises
-    NotImplementedError.
+    ``standby=True`` runs the SAME matrix with a warm standby
+    registered on the crashed cluster (the reference run never has
+    one — a standby must not change one delivered byte): the standby
+    tail-follows every worker from the controller's poll loop, and the
+    verdict additionally demands that the failover sourced the
+    partition from the standby (``standby_fetches >= 1``) over a
+    zero-byte failover path (``failover_path_bytes == 0`` — the tail
+    was caught up, so finalize moved nothing).
     """
+    import os
     import shutil
 
-    if standby:
-        raise NotImplementedError(
-            "run_cluster_kill_point(standby=True): warm standbys are not "
-            "ported yet: ROADMAP.md Queue 1 item 15"
-        )
     if point not in KILL_POINTS and point not in CLUSTER_KILL_POINTS:
         raise ValueError(f"unknown cluster kill point {point!r}")
     at = _DEFAULT_AT[point] if at is None else at
@@ -919,6 +1242,20 @@ def run_cluster_kill_point(
         )
         for i in range(sessions):
             cluster.add_session(i)
+        if standby:
+            from har_tpu_torch.serve.net.tail import LocalShipSource
+            from har_tpu_torch.serve.replica import StandbyAgent
+
+            cluster.register_standby(
+                StandbyAgent(
+                    os.path.join(root, "_replica"),
+                    {
+                        wid: LocalShipSource(root)
+                        for wid in cluster._workers
+                    },
+                    loader=loader,
+                )
+            )
         victim = cluster.worker_of(0)
         plan = KillPlan(point, at)
         if point in CLUSTER_KILL_POINTS:
@@ -951,6 +1288,11 @@ def run_cluster_kill_point(
             )
         except SimulatedCrash:
             crashed = True
+        # standby accounting up to the crash instant: a CLUSTER-point
+        # kill lands mid-handoff, AFTER the fetch — the counters live
+        # on the controller object the takeover replaces
+        pre_fpb = cluster.failover_path_bytes
+        pre_sf = cluster.standby_fetches
         if not crashed:
             cluster.close()
             return {
@@ -989,6 +1331,30 @@ def run_cluster_kill_point(
             point, ref_events, events, cluster, balance_log, stats,
             failover_ms,
         )
+        if standby:
+            # sum across the controller generations: an engine-point
+            # kill accrues after the crash on the same object
+            # (pre-crash counters are zero), a CLUSTER-point kill
+            # accrues before it (the takeover controller starts clean)
+            total_sf = pre_sf + cluster.standby_fetches
+            total_fpb = pre_fpb + cluster.failover_path_bytes
+            verdict.update(
+                standby_fetches=total_sf,
+                failover_path_bytes=total_fpb,
+            )
+            if verdict["ok"] and total_sf < 1:
+                verdict.update(
+                    ok=False,
+                    why="failover never sourced from the warm standby",
+                )
+            elif verdict["ok"] and total_fpb != 0:
+                verdict.update(
+                    ok=False,
+                    why=(
+                        f"warm failover moved {total_fpb} byte(s); a "
+                        "caught-up standby must transfer zero"
+                    ),
+                )
         cluster.close()
         return verdict
     finally:

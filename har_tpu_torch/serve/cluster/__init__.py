@@ -10,10 +10,11 @@ Public surface:
                                                aggregation primitives
   cluster_failover_smoke                     — the failover check
 
-Port of ``har_tpu/serve/cluster`` over a shared disk (the JAX package's
-docs/multihost.md describes the lease protocol, the hand-off sequence
-and the cross-worker conservation law).  Warm standbys wait for
-ROADMAP.md Queue 1 item 15.
+Port of ``har_tpu/serve/cluster`` (the JAX package's docs/multihost.md
+describes the lease protocol, the hand-off sequence and the
+cross-worker conservation law).  Failover reads a shared disk here, or
+ships the journal over the wire (``har_tpu_torch.serve.net``), and
+consults a warm standby first (``FleetCluster.register_standby``).
 """
 
 from har_tpu_torch.serve.cluster.controller import (

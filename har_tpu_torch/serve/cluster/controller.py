@@ -57,12 +57,10 @@ caller already makes, probes are backoff-paced, hand-offs retry a
 bounded number of times — and none of it ever blocks a healthy
 worker's dispatch hot path.
 
-Port of ``har_tpu/serve/cluster/controller.py`` over the shared disk.
-Warm standbys (``register_standby``) and the journal-shipping fetch of
-a shared-nothing deployment wait for ROADMAP.md Queue 1 item 15:
-``register_standby`` raises NotImplementedError, and ``cluster_stats``
-reports ``standbys``, ``standby_fetches`` and ``failover_path_bytes`` as
-0, as the JAX package's does without a standby.
+Port of ``har_tpu/serve/cluster/controller.py`` (copied): the
+shared-disk failover, the fetch queue that parks a failover whose
+partition cannot be fetched yet (``PartitionUnavailable``), and the
+warm standbys (``register_standby``, ``har_tpu_torch.serve.replica``).
 """
 
 from __future__ import annotations
@@ -93,6 +91,15 @@ RETIRED_MARKER = "retired.json"
 class ClusterError(RuntimeError):
     """Cluster-level invariant violated (no live target for a hand-off,
     unknown session, duplicate worker id)."""
+
+
+class PartitionUnavailable(ClusterError):
+    """A dead worker's journal could not be FETCHED right now (the
+    shared-nothing deployment's ship agent is unreachable,
+    har_tpu_torch.serve.net.ship).  Not a failure: the failover PARKS on the
+    fetch queue and retries at a later poll — survivors keep serving,
+    the dead partition's disk state is untouched, and nothing is lost,
+    only delayed."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,6 +192,11 @@ class FleetCluster:
         # crash at the mid_migration/mid_handoff stage boundaries can
         # never strand an acked-but-undelivered event
         self._handoff_queue: list = []
+        # failovers whose partition FETCH failed (shared-nothing ship
+        # agent unreachable): (dead_wid, worker) pairs retried at each
+        # poll — a dead worker whose host agent is also down parks here
+        # while the survivors keep serving
+        self._fetch_queue: list = []
         # hand-off retry pacing: the same Backoff policy family as the
         # dispatch retry loop (har_tpu_torch.utils.backoff), seeded — the
         # control plane is deterministic under the chaos harness
@@ -198,6 +210,23 @@ class FleetCluster:
         # chaos hook (serve.chaos): raises a simulated crash at the two
         # migration stage boundaries the kill matrix exercises
         self.chaos: Callable[[str], None] | None = None
+        # warm standbys (har_tpu_torch.serve.replica.StandbyAgent): cycled at
+        # the top of every poll so their tails stay caught up; a
+        # failover consults them FIRST — a standby that holds the dead
+        # worker's tail finalizes it (verify already-local bytes, pull
+        # only the missing suffix) and the cold ship/shared-disk path
+        # becomes the fallback.  name -> (standby, prefer_wid)
+        self._standbys: dict = {}
+        # bytes moved ON the failover path (finalize_tail pulls) — 0
+        # for a caught-up tail, vs NetCluster.ship_ms/shipped_bytes
+        # which count the steady-state tail + cold ships
+        self.failover_path_bytes = 0
+        self.standby_fetches = 0
+        # dead_wid -> original journal dir for failovers restored from
+        # a standby tail: the retired marker lands in the REPLICA dir
+        # (the restore source), so commit propagates it back to the
+        # original home a takeover/resume scan reads
+        self._standby_origin: dict = {}
         if _workers is not None:
             for w in _workers:
                 self._adopt_worker(w)
@@ -405,10 +434,34 @@ class FleetCluster:
         events = self._pending_events
         self._pending_events = []
         try:
+            # warm standbys tail first: the cycle that runs in the same
+            # poll that declares a death sees the (now static) journal
+            # in full, which is what makes the failover-path transfer
+            # deterministically zero for a registered standby
+            for standby, _prefer in self._standbys.values():
+                standby.cycle()
             while self._handoff_queue:
                 dead_wid, restored = self._handoff_queue[0]
                 self._complete_failover(dead_wid, restored)
                 self._handoff_queue.pop(0)
+            if self._fetch_queue:
+                # parked shared-nothing failovers: retry the partition
+                # fetch (the dead host's ship agent may be back); a
+                # still-unreachable agent re-parks without blocking the
+                # survivors' polls below.  Entries are popped one at a
+                # time so a crash mid-retry loses at most the IN-FLIGHT
+                # entry (the controller-crash model; takeover re-derives
+                # it from the agents) — never the not-yet-retried rest.
+                retry, self._fetch_queue = self._fetch_queue, []
+                try:
+                    while retry:
+                        dead_wid, worker = retry.pop(0)
+                        events.extend(
+                            self._continue_failover(dead_wid, worker)
+                        )
+                except BaseException:
+                    self._fetch_queue.extend(retry)
+                    raise
             for wid in self._membership.expired():
                 events.extend(self._begin_failover(wid))
             for wid in list(self._workers):
@@ -481,8 +534,9 @@ class FleetCluster:
         """Phase 1 of a declared death: fence the worker (refuse any
         late responses — the in-process stand-in for lease-based
         fencing), remove it from the ring, FETCH its partition
-        (``_fetch_partition`` — the dead directory itself on the shared
-        disk), restore and DRAIN it — the recovered pending
+        (``_fetch_partition`` — the dead directory itself on a shared
+        disk, a digest-verified shipped copy in the shared-nothing
+        deployment), restore and DRAIN it — the recovered pending
         windows score through the restored engine (the restore path; acks
         land durably in the restored journal, so a re-drain after a
         second crash re-emits nothing).  Returns the drained events;
@@ -495,12 +549,21 @@ class FleetCluster:
 
     def _continue_failover(self, dead_wid, worker) -> list:
         """Fetch + restore + drain one declared-dead partition.  A
-        fetch that reports the partition already consumed (retired
-        marker) ends the failover with nothing to do."""
+        fetch refusal (``PartitionUnavailable``) parks the pair on the
+        fetch queue for the next poll; a fetch that reports the
+        partition already consumed (retired marker on either side)
+        ends the failover with nothing to do."""
         t0 = time.perf_counter()
-        src = self._fetch_partition(worker)
+        try:
+            src = self._fetch_partition(worker)
+        except PartitionUnavailable:
+            self._fetch_queue.append((dead_wid, worker))
+            return []
         if src is None:
             return []  # already consumed by an earlier controller
+        # the verified partition is local and whole; the crash window
+        # between the landed ship and the drain is its own kill point
+        self._chaos("post_ship_pre_drain")
         restored = FleetServer.restore(
             src, self._loader, clock=self._clock
         )
@@ -512,24 +575,66 @@ class FleetCluster:
     def _fetch_partition(self, worker) -> str | None:
         """Locate (or materialize) the dead worker's journal locally
         and return the directory to restore from; None when the
-        partition was already consumed (retired).  The shared disk is
-        read in place; the JAX package's shared-nothing transport ships
-        the journal here instead (ROADMAP.md Queue 1 item 15)."""
+        partition was already consumed (retired).  The shared-disk
+        default reads the directory in place; the shared-nothing
+        transport (``har_tpu_torch.serve.net.NetCluster``) overrides this
+        with the journal-shipping RPC — raising
+        ``PartitionUnavailable`` when the ship agent is unreachable."""
         marker = os.path.join(worker.journal_dir, RETIRED_MARKER)
         if os.path.exists(marker):
             return None
+        dest = self._standby_partition(worker.worker_id)
+        if dest is not None:
+            self._standby_origin[worker.worker_id] = worker.journal_dir
+            return dest
         return worker.journal_dir
 
     # ------------------------------------------------- warm standbys
 
     def register_standby(self, standby, *, name: str = "sb0",
                          prefer=None) -> None:
-        """The JAX package's warm standby (``serve.replica``), whose
-        tails the controller drives and consults first at failover."""
-        raise NotImplementedError(
-            "FleetCluster.register_standby: warm standbys are not ported "
-            "yet: ROADMAP.md Queue 1 item 15"
-        )
+        """Attach a ``StandbyAgent`` whose tails this controller drives
+        from its poll loop and consults first at failover.  ``prefer``
+        names the worker co-located with the standby's replicas:
+        failover hand-offs of a partition this standby holds are
+        steered there ahead of the ring owner (warm placement — the
+        adopter next to the already-local bytes)."""
+        self._standbys[name] = (standby, prefer)
+
+    def _standby_partition(self, dead_wid) -> str | None:
+        """The warm path of a partition fetch: a standby holding the
+        dead worker's tail finalizes it — whole-file sha256 on
+        already-local bytes plus the missing suffix (zero bytes when
+        the tail was caught up).  Any ship failure here falls back to
+        the cold path (``None``): a broken standby must never make a
+        failover WORSE than the cold ship at failover."""
+        from har_tpu_torch.serve.net.ship import ShipError
+
+        for name, (standby, _prefer) in self._standbys.items():
+            if not standby.holds(dead_wid):
+                continue
+            try:
+                fin = standby.finalize(dead_wid)
+            except ShipError:
+                continue
+            self.standby_fetches += 1
+            self.failover_path_bytes += int(fin.get("bytes", 0))
+            return standby.dest(dead_wid)
+        return None
+
+    def _warm_adopter(self, dead_wid):
+        """The worker failover hand-offs should prefer for sessions of
+        ``dead_wid`` — the one registered next to a standby that holds
+        its replica; None when no standby claims it."""
+        for standby, prefer in self._standbys.values():
+            if prefer is not None and standby.holds(dead_wid):
+                return prefer
+        return None
+
+    @property
+    def pending_failovers(self) -> int:
+        """Failovers parked on an unreachable partition fetch."""
+        return len(self._fetch_queue)
 
     def _complete_failover(self, dead_wid, restored) -> None:
         """Phase 2: hand every drained session to the survivors, then
@@ -544,8 +649,11 @@ class FleetCluster:
         # the hand-off (export_session/evict_session) — one evict body,
         # not a parallel wrapper that could drift from it
         source = ClusterWorker(dead_wid, restored, restored.journal.root)
+        prefer = self._warm_adopter(dead_wid)
         for sid in restored.sessions:
-            target_wid = self._hand_off(source, sid, dead_wid)
+            target_wid = self._hand_off(
+                source, sid, dead_wid, prefer=prefer
+            )
             if target_wid not in receivers:
                 receivers.append(target_wid)
             self._chaos("mid_migration")
@@ -565,9 +673,27 @@ class FleetCluster:
             os.path.join(restored.journal.root, RETIRED_MARKER),
             json.dumps(self._ledger[-1]),
         )
+        # shared-nothing hook: the transport controller also marks the
+        # SOURCE copy retired on its home host (best-effort — the local
+        # marker above is the commit point for this controller lineage)
+        self._commit_retired(dead_wid, self._ledger[-1])
         restored.journal.close()
 
-    def _hand_off(self, source, sid, source_wid, target_wid=None):
+    def _commit_retired(self, dead_wid, entry: dict) -> None:
+        """Transport hook: propagate a consumed partition's retired
+        marker back to its source home.  In-process this only matters
+        for a standby-sourced failover (the marker above landed in the
+        REPLICA dir; a resume/takeover scan reads the original home);
+        the wire transport overrides this with the agent's retire
+        RPC."""
+        origin = self._standby_origin.pop(dead_wid, None)
+        if origin is not None and os.path.isdir(origin):
+            atomic_write(
+                os.path.join(origin, RETIRED_MARKER), json.dumps(entry)
+            )
+
+    def _hand_off(self, source, sid, source_wid, target_wid=None,
+                  prefer=None):
         """Move one drained session from ``source`` to its ring owner
         (or the explicit ``target_wid`` of a planned move):
         adopt-first (durable on the target), chaos point in the
@@ -585,6 +711,14 @@ class FleetCluster:
             candidates = [primary] + [
                 wid for wid in self._workers if wid != primary
             ]
+            if prefer is not None and prefer in self._workers:
+                # warm placement: the adopter co-located with the
+                # standby's replica of the source partition goes ahead
+                # of the ring owner (the prior-durable-adopt pre-scan
+                # below still wins over any preference)
+                candidates = [prefer] + [
+                    wid for wid in candidates if wid != prefer
+                ]
         t0 = time.perf_counter()
         # ownership pre-scan over ALL live workers (the source of a
         # planned move excepted — it owns the session until its
@@ -952,11 +1086,9 @@ class FleetCluster:
             "sessions": len(self._placement),
             "failovers": self.failovers,
             "failover_ms": round(self.failover_ms, 3),
-            # no warm standby serves a failover here (item 15): the
-            # JAX package's keys, at their standby-less values
-            "failover_path_bytes": 0,
-            "standbys": 0,
-            "standby_fetches": 0,
+            "failover_path_bytes": self.failover_path_bytes,
+            "standbys": len(self._standbys),
+            "standby_fetches": self.standby_fetches,
             "migrated_sessions": len(self.migration_log),
             "worker_failovers": reduce_sum(
                 [p["worker_failovers"] for p in per_worker]
@@ -987,3 +1119,5 @@ class FleetCluster:
                 restored.journal.close()
         for w in self._workers.values():
             w.close()
+        for standby, _prefer in self._standbys.values():
+            standby.close()

@@ -19,19 +19,22 @@ talk to a worker it has declared dead (the in-process stand-in fenced
 the same way).  Killing the actual process is the harness's job — or
 reality's.
 
-Port of ``har_tpu/serve/net/client.py``: ``NetWorker`` is copied;
-``HAGatewayClient`` (the client of the JAX package's gateway pair)
-waits for ROADMAP.md Queue 1 item 15 and raises NotImplementedError.
+Port of ``har_tpu/serve/net/client.py`` (copied): ``NetWorker`` and
+``HAGatewayClient``, the lossless-reconnect client of an elected
+ingest-gateway pair (``har_tpu_torch.serve.net.gateway``).
 """
 
 from __future__ import annotations
 
 import os
+import time
 from typing import Hashable
 
 from har_tpu_torch.serve.cluster.membership import WorkerTimeout, WorkerUnavailable
 from har_tpu_torch.serve.engine import AdmissionError
 from har_tpu_torch.serve.net import wire
+from har_tpu_torch.serve.net.gateway import GatewayClient
+from har_tpu_torch.utils.backoff import Backoff, BackoffPolicy
 from har_tpu_torch.serve.net.rpc import (
     RpcClient,
     RpcConnectionRefused,
@@ -293,11 +296,180 @@ class NetWorker:
         self._client.close()
 
 
-class HAGatewayClient:
-    """The JAX package's client of an elected ingest-gateway pair."""
+class HAGatewayClient(GatewayClient):
+    """Front-door client for an ELECTED gateway pair — the lossless
+    reconnect half of edge HA.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "HAGatewayClient: the ingest gateway is not ported yet: "
-            "ROADMAP.md Queue 1 item 15"
+    Wraps every RPC (``_call``) in a redial-and-resume loop:
+
+      - a dead connection (``RpcConnectionRefused`` — the gateway
+        process is gone — or a deadline past the base client's own
+        retry budget) re-resolves the leader by rotating through the
+        configured addresses UNDER the shared ``utils/backoff.Backoff``
+        policy (capped exponential, seeded jitter): the whole client
+        population re-dials at a decaying, de-synchronized rate instead
+        of stampeding the survivor at the lease flip.  A successful
+        frame ``reset()``s the schedule — the next episode starts at
+        the base delay;
+      - a ``{"moved": leader_addr}`` receipt (the standby's declared
+        refusal) redials the quoted address IMMEDIATELY — the receipt
+        is a resolution, not a failure;
+      - every leader response carries the fenced lease generation
+        (``gen``); a response whose generation is BELOW the largest
+        this client has seen is a deposed leader's late ack — rejected
+        (``stale_acks_rejected``) and the call re-delivered to the real
+        leader, where the gateway's dedup-by-watermark trims the replay
+        idempotently (never double-counted);
+      - the retried call re-sends the SAME frame (same buffered chunks,
+        same per-chunk stream offsets), so the resumed delivery starts
+        exactly where the workers' ``watermark(sid)`` says it should:
+        rows below it are trimmed at the edge, rows above it land once
+        — bit-identical to an unbroken run.
+
+    Failover observability rides the client: ``reconnects``,
+    ``moved_receipts``, ``redial_delays_ms`` (the pinnable backoff
+    schedule), ``last_failover_ms`` (first disconnect to first
+    successful call) and ``resumed`` (sessions whose delivery resumed
+    after at least one reconnect).
+    """
+
+    def __init__(
+        self,
+        addrs,
+        *,
+        tenant: str | None = None,
+        deadline_s: float = 10.0,
+        retries: int = 2,
+        reconnect: BackoffPolicy | None = None,
+        seed: int = 0,
+        sleep=None,
+        max_attempts: int = 240,
+    ):
+        parsed = []
+        for a in addrs:
+            if isinstance(a, str):
+                host, _, port = a.rpartition(":")
+                parsed.append((host, int(port)))
+            else:
+                parsed.append((a[0], int(a[1])))
+        if not parsed:
+            raise ValueError("need at least one gateway address")
+        self.addrs = parsed
+        self._addr_i = 0
+        self._reconnect = Backoff(
+            reconnect
+            or BackoffPolicy(base_ms=10.0, cap_ms=500.0, factor=2.0,
+                             jitter=0.25),
+            seed=seed,
         )
+        self._sleep_fn = sleep if sleep is not None else time.sleep
+        self._max_attempts = int(max_attempts)
+        self.gen = 0
+        self.reconnects = 0
+        self.moved_receipts = 0
+        self.stale_acks_rejected = 0
+        self.failover_episodes = 0
+        self.redial_delays_ms: list = []
+        self.resumed: set = set()
+        self.last_failover_ms: float | None = None
+        self._episode_t0: float | None = None
+        self._episodes_settled = 0
+        host, port = parsed[0]
+        super().__init__(
+            host, port, tenant=tenant, deadline_s=deadline_s,
+            retries=retries,
+        )
+
+    # ------------------------------------------------------- transport
+
+    def _disconnected(self) -> None:
+        """One failed dial/call: start (or continue) a failover
+        episode, wait out the next backoff delay, rotate to the next
+        configured address and re-dial."""
+        self.reconnects += 1
+        if self._episode_t0 is None:
+            self._episode_t0 = time.monotonic()
+        delay_ms = self._reconnect.next_ms()
+        self.redial_delays_ms.append(delay_ms)
+        self._sleep_fn(delay_ms / 1e3)
+        self._addr_i = (self._addr_i + 1) % len(self.addrs)
+        host, port = self.addrs[self._addr_i]
+        self._dial(host, port)
+
+    def _retarget(self, addr) -> None:
+        """Follow a ``{"moved": leader_addr}`` receipt.  A receipt with
+        no address (election still in flight) degrades to the rotate-
+        under-backoff path."""
+        if self._episode_t0 is None:
+            self._episode_t0 = time.monotonic()
+        if not addr:
+            self._disconnected()
+            return
+        host, _, port = str(addr).rpartition(":")
+        for i, (h, p) in enumerate(self.addrs):
+            if h == host and p == int(port):
+                self._addr_i = i
+                break
+        self._dial(host, int(port))
+
+    def _call(self, method: str, meta: dict | None = None,
+              payload: bytes = b""):
+        attempts = 0
+        while True:
+            try:
+                resp, p = self._client.call(method, meta, payload)
+            except (RpcConnectionRefused, RpcDeadlineExceeded):
+                attempts += 1
+                if attempts > self._max_attempts:
+                    raise
+                self._disconnected()
+                continue
+            if isinstance(resp, dict) and "moved" in resp:
+                self.moved_receipts += 1
+                attempts += 1
+                if attempts > self._max_attempts:
+                    raise RpcConnectionRefused(
+                        "no gateway leader after "
+                        f"{self._max_attempts} attempts"
+                    )
+                self._retarget(resp.get("moved"))
+                continue
+            g = resp.get("gen") if isinstance(resp, dict) else None
+            if g is not None:
+                g = int(g)
+                if g < self.gen:
+                    # a deposed leader's late ack: its mandate is
+                    # fenced out — reject the receipt and re-deliver
+                    # to the real leader (edge dedup-by-watermark
+                    # makes the replay idempotent)
+                    self.stale_acks_rejected += 1
+                    attempts += 1
+                    if attempts > self._max_attempts:
+                        raise RpcConnectionRefused(
+                            "only stale gateway generations answered"
+                        )
+                    self._disconnected()
+                    continue
+                self.gen = g
+            # a successful frame ends the episode: backoff restarts at
+            # the base delay (no thundering herd carried forward)
+            self._reconnect.reset()
+            if self._episode_t0 is not None:
+                self.last_failover_ms = (
+                    time.monotonic() - self._episode_t0
+                ) * 1e3
+                self._episode_t0 = None
+                self.failover_episodes += 1
+            return resp, p
+
+    # ------------------------------------------------- resume tracking
+
+    def _flush_pending(self) -> None:
+        sids = [sid for sid, _, _ in self._pending]
+        super()._flush_pending()
+        if self.failover_episodes > self._episodes_settled:
+            # this frame is the first to land after a failover episode
+            # (socket loss OR a moved-receipt retarget): its sessions
+            # RESUMED across the lease flip
+            self.resumed.update(sids)
+            self._episodes_settled = self.failover_episodes

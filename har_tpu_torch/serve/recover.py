@@ -136,7 +136,7 @@ def _consume_drop(server, sess, ti, reason):
 def apply_record(server, meta, payload) -> None:
     """Apply ONE journal record to a replaying server — the record
     dispatch shared by crash recovery (``restore_server``'s suffix
-    replay) and continuous replication (``har_tpu.serve.replica``'s
+    replay) and continuous replication (``har_tpu_torch.serve.replica``'s
     warm standby, which feeds tailed records through this exact body
     as they arrive).  The caller owns the ``server._replaying`` guard;
     this function only interprets records.  Unknown record types are

@@ -20,6 +20,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 
 
 def _yield_the_cores() -> None:
@@ -131,6 +132,127 @@ def _run(started, timeout) -> list[dict]:
 def run_ranks(names, world: int, workdir, timeout: float = 240, args=None) -> list[dict]:
     """{scenario: result} of every rank of one group, rank order."""
     return run_groups([(names, world, args)], workdir, timeout)[0]
+
+
+# ------------------------------------------------------------ wire cells
+
+# the environment and priority of the wire tests' worker, agent and
+# gateway processes: one thread each, the lowest weight (not SCHED_IDLE:
+# an RPC server must keep answering on a busy machine)
+CHILD_ENV = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
+CHILD_NICE = 19
+
+
+@contextlib.contextmanager
+def child_hygiene():
+    """Within it, the processes the launchers of ``serve/net`` start run
+    with ``CHILD_ENV`` at ``nice CHILD_NICE``: they inherit this
+    process's environment (``controller._child_env``) and start under
+    ``controller._nice()``."""
+    import pytest
+
+    from har_tpu_torch.serve.net import controller
+
+    with pytest.MonkeyPatch.context() as mp:
+        for key, value in CHILD_ENV.items():
+            mp.setenv(key, value)
+        mp.setattr(controller, "_nice", lambda: ["nice", "-n", str(CHILD_NICE)])
+        yield
+
+
+_cell = threading.local()
+
+
+def current_cell():
+    """The name of the cell ``run_cells`` runs on this thread (None off
+    its threads): a spy on a runner files what it sees under it."""
+    return getattr(_cell, "name", None)
+
+
+def run_cells(cells: dict, max_workers: int = 3) -> dict:
+    """Run the zero-argument callables ``cells`` (each one chaos cell or
+    smoke that starts its own processes), at most ``max_workers`` at a
+    time on threads of this process, under the lock the rank groups
+    take and ``child_hygiene``; ``{name: ("ok", result) | ("error",
+    exception)}``, so one failing cell leaves the others' verdicts
+    readable."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(name, fn):
+        _cell.name = name
+        try:
+            return ("ok", fn())
+        except Exception as exc:  # noqa: BLE001 - reported by its test
+            return ("error", exc)
+        finally:
+            _cell.name = None
+
+    with _one_at_a_time(), child_hygiene(), ThreadPoolExecutor(max_workers) as pool:
+        futures = {name: pool.submit(one, name, fn) for name, fn in cells.items()}
+        return {name: f.result() for name, f in futures.items()}
+
+
+def cell(results: dict, name: str):
+    """One cell's result; a cell that raised raises here, in its test."""
+    status, value = results[name]
+    if status == "error":
+        raise value
+    return value
+
+
+def event_fields(events) -> dict:
+    """``{session: [(t_index, label, raw_label, drift, probability
+    bytes), ...]}`` in delivery order, for events of either package."""
+    out: dict = {}
+    for fe in events:
+        ev = fe.event
+        out.setdefault(fe.session_id, []).append(
+            (ev.t_index, ev.label, ev.raw_label, ev.drift, ev.probability.tobytes()))
+    return out
+
+
+def jax_reference(*, sessions: int, n_samples: int, workers: int, window: int = 100,
+                  hop: int = 50, seed: int = 0, swap: bool = False) -> list:
+    """The JAX package's un-killed in-process cluster run of a wire
+    cell's schedule on the same recordings, its events in delivery
+    order: with ``swap`` the wire kill matrix's (the hot swap to
+    ``tau=5`` half way), else the hop rounds of the partition, takeover
+    and gateway cells."""
+    import shutil
+
+    from har_tpu.serve import chaos
+    from har_tpu.serve.faults import FakeClock
+    from har_tpu.serve.loadgen import AnalyticDemoModel
+
+    models = {"A": AnalyticDemoModel(), "B": AnalyticDemoModel(tau=5.0)}
+    recordings = chaos._recordings(sessions, n_samples, 3, seed)
+    root = tempfile.mkdtemp(prefix="har_jaxref_")
+    try:
+        clock = FakeClock()
+        ref = chaos._build_cluster(
+            root, clock, sessions=sessions, workers=workers, window=window, hop=hop,
+            model=models["A"], flush_every=512, snapshot_every=40,
+            loader=lambda ver: models.get(ver, models["A"]))
+        for w in ref._workers.values():
+            w.server._fault_hook = None  # the wire workers inject no stalls
+        for i in range(sessions):
+            ref.add_session(i)
+        events: list = []
+        if swap:
+            chaos._cluster_schedule(ref, recordings, [0] * sessions, hop=hop, clock=clock,
+                                    models=models, swap_sample=(n_samples // hop // 2) * hop,
+                                    events=events)
+        else:
+            for r in range(n_samples // hop):
+                for i in range(sessions):
+                    ref.push(i, recordings[i][r * hop:(r + 1) * hop])
+                events.extend(ref.poll(force=True))
+                clock.advance(0.01)
+            events.extend(ref.flush())
+        ref.close()
+        return events
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # ---------------------------------------------------------------- helpers

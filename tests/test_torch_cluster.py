@@ -896,23 +896,43 @@ def test_cluster_failover_smoke_equals_jax():
 
 
 def test_unported_parts_name_item_15(tmp_path):
-    """What still waits for ROADMAP.md Queue 1 item 15 raises and says
-    so: warm standbys, the standby run of the kill matrix and the
-    replication-tail kill points; the failover bench lane names item
-    16."""
+    """What once waited for ROADMAP.md Queue 1 item 15 keeps its
+    contract: a registered warm standby shows in ``cluster_stats`` and
+    serves the failover at zero failover-path bytes, the standby run of
+    the kill matrix and the replication-tail kill points pass; the
+    failover bench lane still names item 16."""
     from har_tpu_torch.serve.chaos import TAIL_KILL_POINTS, run_tail_kill_point
+    from har_tpu_torch.serve.net.tail import LocalShipSource
+    from har_tpu_torch.serve.replica import StandbyAgent
 
-    cluster = _mk_cluster(tmp_path, FakeClock(), 2)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        cluster.register_standby(object())
+    clock = FakeClock()
+    cluster = _mk_cluster(tmp_path / "fleet", clock, 6)
+    victim = cluster.worker_of(0)
+    cluster.register_standby(
+        StandbyAgent(str(tmp_path / "replica"),
+                     {victim: LocalShipSource(str(tmp_path / "fleet"))},
+                     loader=lambda ver: AnalyticDemoModel()))
+    assert cluster.cluster_stats()["standbys"] == 1
+    rng = np.random.default_rng(0)
+    for i in range(6):
+        cluster.push(i, rng.normal(size=(200, 3)).astype(np.float32))
+    cluster.poll(force=True)
+    cluster._workers[victim].kill()
+    for _ in range(40):
+        clock.advance(0.1)
+        cluster.poll(force=True)
+        if cluster.failovers:
+            break
     stats = cluster.cluster_stats()
-    assert (stats["standbys"], stats["standby_fetches"], stats["failover_path_bytes"]) == (0, 0, 0)
+    assert (stats["failovers"], stats["standby_fetches"], stats["failover_path_bytes"]) == (1, 1, 0)
+    assert stats["accounting"]["balanced"]
     cluster.close()
-    with pytest.raises(NotImplementedError, match="item 15"):
-        run_cluster_kill_point("mid_handoff", standby=True)
+    out = run_cluster_kill_point("mid_handoff", standby=True)
+    assert out["ok"], out["why"]
+    assert out["standby_fetches"] >= 1 and out["failover_path_bytes"] == 0
     for point in TAIL_KILL_POINTS:
-        with pytest.raises(NotImplementedError, match="item 15"):
-            run_tail_kill_point(point)
+        out = run_tail_kill_point(point)
+        assert out["ok"] and out["windows_lost"] == 0, (point, out["why"])
     from har_tpu_torch.serve.cluster.smoke import failover_benchmark
 
     with pytest.raises(NotImplementedError, match="item 16"):

@@ -18,7 +18,9 @@ Then:
   - a mixed cluster: a port ``NetCluster`` over one ``har_tpu``
     ``WorkerHost`` and one port ``WorkerHost``, each on a loopback
     thread, whose events equal a single server's;
-  - what still waits for ROADMAP.md Queue 1 item 15 raises and says so.
+  - what once waited for ROADMAP.md Queue 1 item 15 keeps its contract
+    (ship agents, ``NetCluster(agents=)``, ``HAGatewayClient``, the wire
+    runners); the wire bench lanes still name item 16.
 
 Worker subprocesses start at ``nice 19`` with one thread each (a low
 weight, not ``SCHED_IDLE``: an RPC server must keep answering on a busy
@@ -58,15 +60,13 @@ from har_tpu_torch.serve.net.rpc import (
     RpcServer,
 )
 from har_tpu_torch.serve.stats import FleetStats
-from tests._torch_ranks import REPO, _one_at_a_time
+from tests._torch_ranks import CHILD_ENV, REPO, _one_at_a_time, child_hygiene
 
 torch.set_num_threads(1)
 
 MODEL = AnalyticDemoModel()
 # deadlines no loaded machine can blow: only LinkFaults makes a call late
 CALM_DEADLINE_S = 30.0
-# the children's environment: one thread each, the repository importable
-CHILD_ENV = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
 
 
 def _decision_fields(fe):
@@ -414,11 +414,11 @@ def wire_run(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("wire_cluster"))
     recs = _recordings()
     out: dict = {}
-    with _one_at_a_time():
+    with _one_at_a_time(), child_hygiene():
         workers = launch_workers(
             root, 3, window=WINDOW, hop=HOP, max_delay_ms=0.0,
             deadline_s=CALM_DEADLINE_S, probe_deadline_s=CALM_DEADLINE_S,
-            ready_timeout_s=600.0, env=CHILD_ENV, nice=19,
+            ready_timeout_s=600.0,
         )
         procs = {w.worker_id: w.process for w in workers}
         try:
@@ -650,38 +650,123 @@ def test_launch_names_a_worker_that_never_gets_ready(tmp_path):
     running."""
     from har_tpu_torch.serve.cluster import ClusterError
 
-    with pytest.raises(ClusterError, match=r"worker 'w0' never printed its ready line"):
-        launch_workers(str(tmp_path), 1, model="nope", env=CHILD_ENV, nice=19)
+    with child_hygiene(), pytest.raises(ClusterError,
+                                        match=r"worker 'w0' never printed its ready line"):
+        launch_workers(str(tmp_path), 1, model="nope")
     log = (tmp_path / "w0" / "worker.stderr.log").read_text()
     assert "invalid choice" in log
 
 
-# ------------------------------------------------------------ waiting
+# ------------------------------------------------ once waiting (item 15)
 
 
 def test_unported_parts_name_item_15(tmp_path):
-    from har_tpu_torch.serve.net import launch_agents
-    from har_tpu_torch.serve.net.chaos import (
+    """What once waited for ROADMAP.md Queue 1 item 15 now keeps its
+    contract: ``launch_agents`` starts a ``serve-agent`` that ships a
+    journal; ``NetCluster(agents=)`` binds each agent to its transport
+    counters; ``HAGatewayClient`` drives a gateway; the wire runners
+    pass a ship point, a partition case and a gateway point (their full
+    matrices live in tests/test_torch_{net_chaos,ship,gateway}.py).  The
+    wire bench lanes still name item 16."""
+    from har_tpu_torch.serve.chaos import (
+        GATEWAY_KILL_POINTS,
+        SHIP_KILL_POINTS,
         NET_PARTITION_CASES,
+    )
+    from har_tpu_torch.serve.journal import FleetJournal, JournalConfig
+    from har_tpu_torch.serve.net import launch_agents
+    from har_tpu_torch.serve.net import smoke
+    from har_tpu_torch.serve.net.chaos import (
         run_gateway_kill_point,
         run_net_kill_point,
         run_net_partition,
     )
     from har_tpu_torch.serve.net.client import HAGatewayClient
-    from har_tpu_torch.serve.chaos import GATEWAY_KILL_POINTS, SHIP_KILL_POINTS
+    from har_tpu_torch.serve.net.gateway import IngestGateway
+    from har_tpu_torch.serve.net.ship import fetch_journal, journal_manifest
+    from tests._torch_ranks import cell, run_cells
 
-    with pytest.raises(NotImplementedError, match="item 15"):
-        NetCluster(MODEL, str(tmp_path), _workers=[], agents={"w0": object()})
-    with pytest.raises(NotImplementedError, match="item 15"):
-        launch_agents({"w0": str(tmp_path)})
-    with pytest.raises(NotImplementedError, match="item 15"):
-        HAGatewayClient([("127.0.0.1", 1)])
-    for point in SHIP_KILL_POINTS:
-        with pytest.raises(NotImplementedError, match="item 15"):
-            run_net_kill_point(point)
-    for case in NET_PARTITION_CASES:
-        with pytest.raises(NotImplementedError, match="item 15"):
-            run_net_partition(case)
-    for point in GATEWAY_KILL_POINTS:
-        with pytest.raises(NotImplementedError, match="item 15"):
-            run_gateway_kill_point(point)
+    jdir = tmp_path / "host" / "w0"
+    server = FleetServer(MODEL, window=WINDOW, hop=HOP, channels=3, smoothing="ema",
+                         config=FleetConfig(max_sessions=4, max_delay_ms=0.0),
+                         journal=FleetJournal(str(jdir), JournalConfig(flush_every=4)))
+    for i in range(2):
+        server.add_session(i)
+        server.push(i, np.ones((WINDOW, 3), np.float32))
+    server.poll(force=True)
+    server.journal.kill()
+    from har_tpu_torch.serve.net.worker import WorkerHost, model_pool
+
+    pool = model_pool("demo")
+    live = _HostThread(WorkerHost(
+        "w1", FleetServer(pool["A"], window=WINDOW, hop=HOP, channels=3, smoothing="ema",
+                          config=FleetConfig(max_sessions=4, max_delay_ms=0.0),
+                          model_version="A", journal=str(tmp_path / "w1")),
+        journal_dir=str(tmp_path / "w1"), models=pool))
+    with _one_at_a_time(), child_hygiene():
+        handle = launch_agents({"w0": str(tmp_path / "host")})["w0"]
+        try:
+            client = handle.client()
+            worker = NetWorker("w1", live.host.rpc.host, live.host.rpc.port,
+                               str(tmp_path / "w1"), deadline_s=CALM_DEADLINE_S,
+                               probe_deadline_s=CALM_DEADLINE_S)
+            cluster = NetCluster(MODEL, str(tmp_path / "ctl"), _workers=[worker],
+                                 agents={"w0": client}, loader=lambda v: MODEL)
+            assert client._client.stats is cluster.net_stats
+            out = fetch_journal(client, "w0", str(tmp_path / "staged"), chunk_bytes=1024,
+                                stats=cluster.net_stats)
+            assert out["bytes"] == sum(e["size"] for e in journal_manifest(str(jdir)))
+            assert cluster.transport_stats()["shipped_bytes"] == out["bytes"]
+            client.shutdown()
+            cluster.close()
+            assert handle.process.wait(timeout=60) == 0
+        finally:
+            live.stop()
+            if handle.process.poll() is None:
+                handle.process.kill()
+
+    fleet = FleetCluster(MODEL, str(tmp_path / "fleet"), workers=2, window=WINDOW, hop=HOP,
+                         smoothing="ema",
+                         fleet_config=FleetConfig(max_sessions=8, max_delay_ms=0.0))
+    gw = IngestGateway(fleet)
+    stop = threading.Event()
+
+    def serve():
+        while not stop.is_set():
+            gw.rpc.step(0.02)
+
+    pump = threading.Thread(target=serve, daemon=True)
+    pump.start()
+    try:
+        ha = HAGatewayClient([f"{gw.rpc.host}:{gw.rpc.port}"], deadline_s=CALM_DEADLINE_S)
+        for i in range(3):
+            ha.add_session(i)
+        events = []
+        for _ in range(2):
+            for i in range(3):
+                ha.push(i, np.ones((HOP, 3), np.float32))
+            events.extend(ha.poll(force=True))
+        events.extend(ha.flush())
+        assert len(events) == 3  # one window a session: 2 hops = 1 window
+        assert ha.accounting()["balanced"] and ha.reconnects == 0
+        ha.close()
+    finally:
+        stop.set()
+        pump.join(timeout=5)
+        gw.close()
+        fleet.close()
+
+    results = run_cells({
+        "ship": lambda: run_net_kill_point(SHIP_KILL_POINTS[1]),
+        "partition": lambda: run_net_partition(NET_PARTITION_CASES[2]),
+        "gateway": lambda: run_gateway_kill_point(GATEWAY_KILL_POINTS[0]),
+    })
+    for name in ("ship", "partition", "gateway"):
+        verdict = cell(results, name)
+        assert verdict["ok"], (name, verdict["why"])
+        assert verdict.get("windows_lost", 0) == 0
+
+    for bench in ("journal_ship_benchmark", "wire_failover_benchmark",
+                  "wire_ingest_benchmark", "gateway_ha_benchmark"):
+        with pytest.raises(NotImplementedError, match="item 16"):
+            getattr(smoke, bench)([24])
