@@ -285,22 +285,34 @@ exits nonzero without the final ``ok`` line:
     and cold-failover runs (probabilities within 1e-3), K2 exactly
     layers x the dispatches summed over the workers and the restored
     partition's drain, ``failover_ms`` and ``failover_path_bytes``
-    printed.  Then, over ``serve-worker``, ``serve-agent`` and
-    ``serve-gateway`` processes started through ``python -m
-    har_tpu_torch.cli`` (the analytic demo pool; no launch): ``ha_ship``, ``run_net_kill_point`` at the three ship
-    points, one engine point and one controller point (every worker's
-    journal in a private host directory, a ship agent each),
-    ``journal_ship_smoke``, ``wire_failover_smoke`` and
-    ``replication_smoke``; ``ha_gateway``, ``wire_ingest_smoke``,
-    ``gateway_ha_smoke`` and the gateway kill points plus ``drain``
-    (these a few cells at a time); then ``ha_partition``, the four
-    partition cases one at a time at the JAX package's RPC deadlines
-    (no failover on a link fault, one owner a session after the split
-    brain).  Every cell ok with no window lost;
-36. with ``--profile`` only: one DT, one RF and one transformer fit, one
+    printed.  Then ``ha_ship``'s ``journal_ship_smoke`` over
+    ``serve-worker`` and ``serve-agent`` processes started through
+    ``python -m har_tpu_torch.cli`` (the analytic demo pool; no launch;
+    every worker's journal in a private host directory): ok, no window
+    lost.  The other wire cells (they launch nothing on the card; the
+    CPU tests run them all) run with ``--cluster-only``: ``run_net_kill_point``
+    at the three ship points, one engine point and one controller point,
+    ``wire_failover_smoke`` and ``replication_smoke``; ``ha_gateway``,
+    ``wire_ingest_smoke``, ``gateway_ha_smoke`` and the gateway kill
+    points plus ``drain`` (these a few cells at a time); then
+    ``ha_partition``, the four partition cases one at a time at the JAX
+    package's RPC deadlines (no failover on a link fault, one owner a
+    session after the split brain).  Every cell ok with no window lost;
+36. bench_main: the port's ``bench`` (``har_tpu_torch.bench.main``, as
+    ``cli bench --device cuda`` runs it) in smoke mode with a budget no
+    lane reaches: its last line's keys, every one of its 17 lanes with
+    stats and its verdicts true (no window dropped, each contract_ok,
+    the swap contract, the elastic run beating the static ones), every
+    grid cell one card can hold run, and the cells that need more cards
+    (the pipeline grid's 3x8 mesh cell, the model-parallel grid's 8x1,
+    2x4 and wide 2x4) refused by the mesh for want of them; K1 exactly
+    two fits of each tree lane (GBDT rounds x depth, parity's DT depth,
+    the RF lane's chunks x depth), K2 exactly layers x steps of the
+    transformer and saturation lanes' fits, from the line's own stats;
+37. with ``--profile`` only: one DT, one RF and one transformer fit, one
     default run, one parity run, one GBDT fit and a 2-epoch BiLSTM fit
     under torch.profiler, with K1's and K2's shares of the device time;
-37. the kernels line (K1's launches over every path that grows trees),
+38. the kernels line (K1's launches over every path that grows trees),
     a short ``summary`` line, then ``{"ok": true, "device": {...}}``.
 
 ``train --eda`` (host matplotlib, no kernel) is not driven here: the card's
@@ -310,8 +322,15 @@ machine has no matplotlib; the CPU tests hold it to har_tpu's files.
 last lines: the check of serving over a mesh, on as many cards as are
 visible (on a machine of four cards each mesh is laid over the four).
 
-``--cluster-only`` runs phases 1, 2, 8, 34 and 35 and stops there,
-without the last lines: the check of the fleet cluster on the card.
+``--cluster-only`` runs phases 1, 2, 8, 34 and 35 (every wire cell) and
+stops there, without the last lines: the check of the fleet cluster on
+the card.
+
+``--bench-only`` runs phases 1 and 2, then the port's bench once at full
+size with its default budget, or ``HAR_TPU_BENCH_BUDGET_S`` (phase 36's
+checks, a lane the deadline skips allowed) and stops there, without the last lines: the bench's
+numbers on the card.  Its whole line is in
+har_tpu_torch/_build/chip_smoke/bench/bench_latest.json.
 
 ``--flash-only`` runs phases 1, 2 and 4 and stops there, without the last
 two lines: the quick way to time K2, or to time another checkout's K2 by
@@ -332,6 +351,7 @@ import hashlib
 import io
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -4352,6 +4372,10 @@ def phase_cluster_main() -> dict:
 HA_CELLS_AT_ONCE = 4  # wire cells run side by side, each its own processes
 HA_ENGINE_POINT = "mid_dispatch"
 HA_CLUSTER_POINT = "mid_handoff"
+# the wire cells of the whole run: one ship cell, the sign that worker and
+# agent processes start on the card's machine; the rest launch nothing on
+# the card, the CPU tests run them all, and --cluster-only runs them here
+HA_DEFAULT_CELLS = (("ha_ship", "journal_ship_smoke"),)
 
 
 def ha_standby(card_model, layers: int, runs: dict) -> dict:
@@ -4404,12 +4428,13 @@ def ha_standby(card_model, layers: int, runs: dict) -> dict:
     return out
 
 
-def ha_wire_cells() -> dict:
-    """Every wire cell of ``ha_ship``, ``ha_partition`` and ``ha_gateway``,
-    each with its own worker, agent and gateway processes: those of
-    ``ha_ship`` and ``ha_gateway`` HA_CELLS_AT_ONCE at a time on threads
-    of this process, then the partition cases one at a time, as their
-    short RPC deadlines (the JAX package's) want a quiet host:
+def ha_wire_cells(cells) -> dict:
+    """The wire cells of ``ha_ship``, ``ha_partition`` and ``ha_gateway``
+    named by ``cells`` ((group, name) keys; None: every one), each with
+    its own worker, agent and gateway processes: those of ``ha_ship``
+    and ``ha_gateway`` HA_CELLS_AT_ONCE at a time on threads of this
+    process, then the partition cases one at a time, as their short RPC
+    deadlines (the JAX package's) want a quiet host:
     {(group, name): verdict}."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -4427,15 +4452,20 @@ def ha_wire_cells() -> dict:
         wire_ingest_smoke,
     )
 
-    cells = {("ha_ship", p): (lambda p=p: run_net_kill_point(p))
-             for p in SHIP_KILL_POINTS + (HA_ENGINE_POINT, HA_CLUSTER_POINT)}
-    cells.update({("ha_ship", "journal_ship_smoke"): journal_ship_smoke,
-                  ("ha_ship", "wire_failover_smoke"): wire_failover_smoke,
-                  ("ha_ship", "replication_smoke"): replication_smoke})
-    cells.update({("ha_gateway", p): (lambda p=p: run_gateway_kill_point(p))
-                  for p in GATEWAY_KILL_POINTS + ("drain",)})
-    cells.update({("ha_gateway", "wire_ingest_smoke"): wire_ingest_smoke,
-                  ("ha_gateway", "gateway_ha_smoke"): gateway_ha_smoke})
+    side_by_side = {("ha_ship", p): (lambda p=p: run_net_kill_point(p))
+                    for p in SHIP_KILL_POINTS + (HA_ENGINE_POINT, HA_CLUSTER_POINT)}
+    side_by_side.update({("ha_ship", "journal_ship_smoke"): journal_ship_smoke,
+                         ("ha_ship", "wire_failover_smoke"): wire_failover_smoke,
+                         ("ha_ship", "replication_smoke"): replication_smoke})
+    side_by_side.update({("ha_gateway", p): (lambda p=p: run_gateway_kill_point(p))
+                         for p in GATEWAY_KILL_POINTS + ("drain",)})
+    side_by_side.update({("ha_gateway", "wire_ingest_smoke"): wire_ingest_smoke,
+                         ("ha_gateway", "gateway_ha_smoke"): gateway_ha_smoke})
+    in_turn = {("ha_partition", c): (lambda c=c: run_net_partition(c))
+               for c in NET_PARTITION_CASES}
+    if cells is not None:
+        side_by_side = {k: fn for k, fn in side_by_side.items() if k in cells}
+        in_turn = {k: fn for k, fn in in_turn.items() if k in cells}
 
     def one(fn):
         t0 = time.perf_counter()
@@ -4446,10 +4476,10 @@ def ha_wire_cells() -> dict:
                         seconds=time.perf_counter() - t0)
 
     with ThreadPoolExecutor(HA_CELLS_AT_ONCE) as pool:
-        futures = {key: pool.submit(one, fn) for key, fn in cells.items()}
+        futures = {key: pool.submit(one, fn) for key, fn in side_by_side.items()}
         out = {key: f.result() for key, f in futures.items()}
-    for case in NET_PARTITION_CASES:
-        out["ha_partition", case] = one(lambda c=case: run_net_partition(c))
+    for key, fn in in_turn.items():
+        out[key] = one(fn)
     return out
 
 
@@ -4461,54 +4491,241 @@ _HA_KEYS = ("ok", "why", "windows_lost", "failovers", "migrated_sessions", "fail
             "gateway_exit", "tenant_sheds", "frames", "ack_coalesce_ratio", "seconds")
 
 
+def _ha_cell_problem(group: str, name: str, r: dict) -> str | None:
+    """Why one wire cell failed, or None: not ok or a window lost; a ship
+    point that resumed no transfer; a failover on a link fault; a split
+    brain that never split; a gateway point's exit other than the hard
+    one (137), or the drain's other than the clean one (0)."""
+    if not (r["ok"] and r.get("windows_lost", 0) == 0):
+        return r.get("why") or f"ok {r['ok']}, {r.get('windows_lost')} windows lost"
+    if group == "ha_ship" and name in ("mid_ship_send", "mid_ship_recv"):
+        if r.get("ship_resumes", 0) < 1:
+            return "no transfer resumed"
+    if group == "ha_partition" and name == "split_brain":
+        if len(r.get("dual_owners") or []) != 2:
+            return "the split never happened"
+    elif group == "ha_partition" and r.get("failovers") != 0:
+        return f"{r.get('failovers')} failovers"
+    if group == "ha_gateway" and "gateway_exit" in r:
+        if r["gateway_exit"] != (0 if name == "drain" else 137):
+            return f"gateway exit {r['gateway_exit']}"
+    return None
+
+
 def ha_verdicts(cells: dict) -> dict:
-    """The wire cells grouped and checked: every one ok with no window
-    lost; the ship points resumed where they must; no failover on a link
-    fault and one owner a session after the split brain; the gateway
-    points' hard exit and the drain's clean one."""
+    """The wire cells grouped, emitted and each checked
+    (``_ha_cell_problem``)."""
     groups: dict = {}
     for (group, name), r in cells.items():
         groups.setdefault(group, {})[name] = {k: r[k] for k in _HA_KEYS if k in r}
     for group, rs in groups.items():
         emit(group, **rs)
-    bad = {f"{g}/{n}": r.get("why") for g, rs in groups.items() for n, r in rs.items()
-           if not (r["ok"] and r.get("windows_lost", 0) == 0)}
-    ship, part, gw = groups["ha_ship"], groups["ha_partition"], groups["ha_gateway"]
-    for p in ("mid_ship_send", "mid_ship_recv"):
-        if ship[p].get("ship_resumes", 0) < 1:
-            bad[f"ha_ship/{p}"] = "no transfer resumed"
-    for c in ("slow_link", "dropped_probe", "duplicate"):
-        if part[c].get("failovers") != 0:
-            bad[f"ha_partition/{c}"] = f"{part[c].get('failovers')} failovers"
-    if len(part["split_brain"].get("dual_owners") or []) != 2:
-        bad["ha_partition/split_brain"] = "the split never happened"
-    for p, r in gw.items():
-        want = 0 if p == "drain" else 137
-        if "gateway_exit" in r and r["gateway_exit"] != want:
-            bad[f"ha_gateway/{p}"] = f"gateway exit {r['gateway_exit']}"
+    bad = {f"{g}/{n}": why for (g, n), r in cells.items()
+           if (why := _ha_cell_problem(g, n, r)) is not None}
     if bad:
         raise AssertionError(f"the wire cells: {bad}")
     return groups
 
 
-def phase_ha_main(runs: dict) -> dict:
+def phase_ha_main(runs: dict, cells) -> dict:
     """The rest of the fleet cluster on the card: ``ha_standby`` (the
     warm-standby failover of the CLI transformer's cluster, against
-    cluster_main's runs ``runs``), then the wire cells of ``ha_ship``,
-    ``ha_partition`` and ``ha_gateway``."""
+    cluster_main's runs ``runs``), then the wire cells ``cells``
+    (``ha_wire_cells``: None runs every one)."""
     t0 = time.perf_counter()
     path = str(MODELS_DIR / "transformer")
     card_model = checkpoint.load_model(path, "cuda")
     layers = len(card_model.inner.module.blocks)
     standby = ha_standby(card_model, layers, runs)
     t_cells = time.perf_counter()
-    cells = ha_verdicts(ha_wire_cells())
+    verdicts = ha_verdicts(ha_wire_cells(cells))
     seconds = time.perf_counter() - t0
     launches = standby["launches"]["flash_attention"]
     emit("ha_main", seconds=seconds, wire_cells_seconds=time.perf_counter() - t_cells,
          nvidia_smi=nvidia_smi(), launches=launches)
-    return dict(seconds=seconds, standby=standby, cells=cells,
+    return dict(seconds=seconds, standby=standby, cells=verdicts,
                 launches=dict(flash_attention=launches))
+
+
+# the port's bench (har_tpu_torch/bench.py) in smoke mode: every lane
+# shrunk, none skipped by the deadline; --bench-only runs it at full size
+BENCH_DIR = OUT / "bench"
+BENCH_SMOKE_BUDGET_S = 3000
+BENCH_LANES = (
+    "mlp", "cnn1d", "bilstm", "transformer", "saturation_transformer",
+    "fleet_serving", "fleet_pipeline_grid", "model_parallel_grid",
+    "adaptive_serving", "fleet_recovery", "cluster_failover",
+    "wire_failover", "journal_ship", "wire_ingest", "gateway_ha",
+    "elastic_traffic", "host_plane_scaling",
+)
+# the grid cells and the cards each needs: a cell of more cards than are
+# visible is refused by the mesh (its error), one that fits must run
+BENCH_GRID_CELLS = {
+    "fleet_pipeline_grid": {"1x1": 1, "2x1": 1, "3x1_fused": 1, "3x1_fused_int8": 1,
+                            "3x8_fused": 8},
+    "model_parallel_grid": {"1x1": 1, "8x1": 8, "2x4": 8, "2x4_wide_transformer": 8},
+}
+BENCH_CONTRACTS = {  # lane: the verdict keys that must be true
+    "adaptive_serving": ("swap_contract_ok",),
+    "fleet_recovery": ("contract_ok",),
+    "cluster_failover": ("contract_ok",),
+    "wire_failover": ("contract_ok",),
+    "journal_ship": ("contract_ok",),
+    "wire_ingest": ("contract_ok",),
+    "gateway_ha": ("contract_ok",),
+    "elastic_traffic": ("contract_ok", "beats_static"),
+    "host_plane_scaling": ("contract_ok",),
+}
+BENCH_ENV = ("HAR_TPU_BENCH_SMOKE", "HAR_TPU_BENCH_BUDGET_S", "HAR_TPU_BENCH_ARTIFACT_DIR")
+
+
+def bench_expected_launches(result: dict) -> dict:
+    """K1 and K2 launches of one bench run, from its own line: K1 once a
+    tree level of every GBDT, DT and RF fit (``tree_kernel_work``), K2
+    once a layer a training step of the transformer and saturation lanes
+    (three short fits of epochs // 5, a warmup and ``n_runs`` full
+    fits); a lane the deadline skipped launched nothing."""
+    work = result["extra"]["tree_kernel_work"]
+    k1 = work["fits_each"] * (
+        work["gbdt_rounds"] * work["gbdt_max_depth"] + work["dt_parity_max_depth"]
+        + math.ceil(work["rf_tpu_num_trees"] / TREE_BATCH) * work["rf_tpu_max_depth"])
+    k2 = 0
+    for lane in ("transformer", "saturation_transformer"):
+        stats = result["extra"]["lanes"][lane]
+        if "config" not in stats:
+            continue
+        cfg = stats["config"]
+        layers = len(Transformer1D(**cfg["model_kwargs"]).blocks)
+        steps = math.ceil(cfg["n_train"] / cfg["batch_size"])
+        short = max(1, cfg["epochs"] // 5)
+        k2 += layers * steps * (3 * short + (1 + stats["n_runs"]) * cfg["epochs"])
+    return dict(hist=0, hist_rows=k1, flash_attention=k2)
+
+
+def bench_lane_summary(stats: dict) -> dict:
+    """A lane's flat numbers, and each grid cell's windows/s or error."""
+    out = {k: v for k, v in stats.items() if not isinstance(v, (dict, list))}
+    for k in ("config", "dispatch_cost_model"):
+        if k in stats:
+            out[k] = stats[k]
+    if "grid" in stats:
+        out["grid"] = {c: (r["error"][-160:] if "error" in r else
+                           {k: r.get(k) for k in ("windows_per_sec_median", "event_p99_ms_median",
+                                                  "dispatches", "scorer", "params_bytes_per_device",
+                                                  "single_device_equivalent")
+                            if r.get(k) is not None})
+                       for c, r in stats["grid"].items()}
+    if "configs" in stats:
+        out["configs"] = {c: {k: r[k] for k in ("windows_per_sec_median", "p99_ms_median",
+                                                "shed_rate_median", "resizes")}
+                          for c, r in stats["configs"].items()}
+    if "rows" in stats:
+        out["rows"] = [{k: v for k, v in r.items() if not isinstance(v, (dict, list))}
+                       for r in stats["rows"]]
+    return out
+
+
+def bench_problems(result: dict, smoke: bool) -> list:
+    """What is wrong with a bench line: its keys, a lane's error, a broken
+    contract, the calibrated CNN's lane crashed or skipped (the fleet
+    lanes then serve a host model), a data lane skipped although its
+    file is there; in smoke mode also a skipped lane, and a grid cell
+    that should run and did not or should be refused and was not."""
+    from har_tpu_torch.data.ucihar import resolve_ucihar_root
+    from har_tpu_torch.parity import resolve_wisdm_raw
+
+    bad = [k for k in ("metric", "value", "unit", "vs_baseline", "smoke_mode", "extra")
+           if k not in result]
+    if bad:
+        return [f"keys missing: {bad}"]
+    extra, cards = result["extra"], torch.cuda.device_count()
+    if result["metric"] != "wisdm_mlp_train_throughput" or not result["value"] > 0:
+        bad.append(f"headline {result['metric']} {result['value']}")
+    if result["smoke_mode"] is not smoke:
+        bad.append(f"smoke_mode {result['smoke_mode']}")
+    for key in ("raw_synthetic_error", "raw_synthetic_skipped"):
+        if extra.get(key) is not None:
+            bad.append(f"{key}: {extra[key]}")
+    # may a lane skip: the serving-latency lane only at full size (the
+    # deadline), a data lane only when its file is absent
+    may_skip = {"serving_latency_ms": not smoke,
+                "ucihar_parity": resolve_ucihar_root() is None,
+                "wisdm_raw_parity": resolve_wisdm_raw() is None}
+    for key, skip_ok in may_skip.items():
+        stats = extra.get(key)
+        if not isinstance(stats, dict) or "error" in stats:
+            bad.append(f"{key}: {stats}")
+        elif "skipped" in stats and not skip_ok:
+            bad.append(f"{key} skipped: {stats['skipped']}")
+    if set(extra["lanes"]) != set(BENCH_LANES):
+        bad.append(f"lanes {sorted(extra['lanes'])}")
+    for lane, stats in extra["lanes"].items():
+        if "error" in stats or (smoke and "skipped" in stats):
+            bad.append(f"{lane}: {stats.get('error') or stats.get('skipped')}")
+            continue
+        if "skipped" in stats:
+            continue
+        if lane in ("fleet_serving", "adaptive_serving") and stats.get("model") != "cnn1d_calibrated":
+            bad.append(f"{lane} served {stats.get('model')}, not the calibrated CNN on the card")
+        bad += [f"{lane}: {k} {stats.get(k)}" for k in BENCH_CONTRACTS.get(lane, ())
+                if stats.get(k) is not True]
+        if stats.get("dropped_windows", 0) != 0:
+            bad.append(f"{lane}: {stats['dropped_windows']} dropped windows")
+        for cell, need in BENCH_GRID_CELLS.get(lane, {}).items():
+            r = stats["grid"].get(cell, {})
+            if need <= cards and not ("error" not in r and r.get("accounting_balanced")
+                                      and r.get("dropped_windows") == 0):
+                bad.append(f"{lane}/{cell}: {r.get('error', r)}")
+            if need > cards and f"needs {need} devices" not in r.get("error", ""):
+                bad.append(f"{lane}/{cell} was not refused for want of cards: {r}")
+    return bad
+
+
+def phase_bench_main(smoke: bool = True) -> dict:
+    """``har_tpu_torch.bench.main(["--device", "cuda"])`` in this process,
+    its line read and checked (``bench_problems``), K1 and K2 counted
+    over the run against ``bench_expected_launches``.  In smoke mode
+    (the whole run) every lane that one card can run must run; the full
+    size (``--bench-only``) keeps the bench's budget (its default, or
+    ``HAR_TPU_BENCH_BUDGET_S``)."""
+    from har_tpu_torch import bench
+
+    saved = {k: os.environ.get(k) for k in BENCH_ENV}
+    os.environ["HAR_TPU_BENCH_ARTIFACT_DIR"] = str(BENCH_DIR)
+    if smoke:
+        os.environ["HAR_TPU_BENCH_SMOKE"] = "1"
+        os.environ["HAR_TPU_BENCH_BUDGET_S"] = str(BENCH_SMOKE_BUDGET_S)
+    else:
+        os.environ.pop("HAR_TPU_BENCH_SMOKE", None)
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with launch_counts() as launches, contextlib.redirect_stdout(printed):
+            rc = bench.main(["--device", "cuda"])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    seconds = time.perf_counter() - t0
+    result = json.loads(printed.getvalue().strip().splitlines()[-1])
+    expected = bench_expected_launches(result)
+    extra = result["extra"]
+    name = "bench_main" if smoke else "bench_full"
+    emit(name, seconds=seconds, rc=rc, launches=launches, expected_launches=expected,
+         headline={k: result.get(k) for k in ("metric", "value", "unit", "vs_baseline",
+                                              "chip_pct_of_peak", "degraded_chip_state",
+                                              "degraded_note", "smoke_mode")},
+         flat={k: v for k, v in extra.items() if not isinstance(v, (dict, list))},
+         lane_seconds=extra["lane_seconds"],
+         chip_state_probe=extra.get("chip_state_probe"), nvidia_smi=nvidia_smi())
+    for lane, stats in extra["lanes"].items():
+        emit(f"{name}_{lane}", **bench_lane_summary(stats))
+    bad = bench_problems(result, smoke)
+    if rc != 0 or launches != expected or bad:
+        raise AssertionError(f"{name}: rc {rc}, launches {launches} expected {expected}, {bad}")
+    return dict(seconds=seconds, launches=launches, result=result)
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
@@ -4540,9 +4757,12 @@ def main(argv: list[str]) -> int:
         phase_raw_main()
         phase_mesh_serve_main()
         return 0
+    if "--bench-only" in argv:
+        phase_bench_main(smoke=False)
+        return 0
     if "--cluster-only" in argv:
         phase_raw_main()
-        phase_ha_main(phase_cluster_main()["runs"])
+        phase_ha_main(phase_cluster_main()["runs"], cells=None)
         return 0
     hist = phase_hist()
     hist_rows = phase_hist_rows()
@@ -4581,7 +4801,8 @@ def main(argv: list[str]) -> int:
     parallel_main = phase_parallel_main()
     mesh_serve_main = phase_mesh_serve_main()
     cluster_main = phase_cluster_main()
-    ha_main = phase_ha_main(cluster_main["runs"])
+    ha_main = phase_ha_main(cluster_main["runs"], cells=HA_DEFAULT_CELLS)
+    bench_main = phase_bench_main()
     if "--profile" in argv:
         phase_profile()
     flash_launches = {
@@ -4594,7 +4815,8 @@ def main(argv: list[str]) -> int:
                            ("adapt_main", adapt_main), ("traffic_main", traffic_main),
                            ("parallel_main", parallel_main),
                            ("mesh_serve_main", mesh_serve_main),
-                           ("cluster_main", cluster_main), ("ha_main", ha_main))
+                           ("cluster_main", cluster_main), ("ha_main", ha_main),
+                           ("bench_main", bench_main))
     }
     hist_rows_launches = {
         name: path["launches"]["hist_rows"]
@@ -4605,7 +4827,7 @@ def main(argv: list[str]) -> int:
                            ("lifecycle_main", lifecycle["scoring"]),
                            ("ucihar_main", ucihar_main), ("ucihar_gbt_main", ucihar_gbt_main),
                            ("ucihar_parity_lane", ucihar_lane), ("sweep_main", sweep_main),
-                           ("raw_lane_main", raw_lane_main))
+                           ("raw_lane_main", raw_lane_main), ("bench_main", bench_main))
     }
     rows_checked = dict(
         max_abs_err=max(hist_rows["max_abs_err"], gbdt_hist["max_abs_err"]),
@@ -4768,6 +4990,8 @@ def main(argv: list[str]) -> int:
                  "failover_ms", "cold_failover_ms", "failover_path_bytes",
                  "standby_fetches", "windows_lost", "migrated_is_partition")},
              cells_ok={g: sorted(rs) for g, rs in ha_main["cells"].items()}),
+         bench_main=dict(seconds=bench_main["seconds"], launches=bench_main["launches"],
+                         value=bench_main["result"]["value"]),
          ucihar_split_candidates_s=ucihar_main["split_candidates_s"],
          ucihar_parity_lane_result=ucihar_lane["lane"], raw_lane_result=raw_lane_main["lane"])
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -42,6 +42,7 @@ and ``export``:
   python -m har_tpu_torch.cli serve --adapt --inject-drift 0.5 --registry reg
   python -m har_tpu_torch.cli serve --adapt --journal wal --resume --registry reg
   python -m har_tpu_torch.cli serve --trace diurnal --autoscale
+  HAR_TPU_BENCH_SMOKE=1 python -m har_tpu_torch.cli bench --device cpu
 
 ``train`` writes result.txt, additional_param.csv,
 crossFold_additional_param.csv (with CV) and timing.csv into
@@ -49,7 +50,8 @@ crossFold_additional_param.csv (with CV) and timing.csv into
 writes the first three.  Both print the accuracies and artifact paths as
 JSON; ``sweep`` writes sweep.csv and sweep.txt and prints the table;
 ``parity --raw``, ``evaluate``, ``predict``, ``finetune``, ``stream``,
-``export`` and ``serve`` print their results as JSON (``stream`` replays a recording,
+``export`` and ``serve`` print their results as JSON (``bench`` runs
+``har_tpu_torch.bench`` and prints its one line) (``stream`` replays a recording,
 or a synthetic demo one, through ``serving.StreamingClassifier`` at the
 live cadence; ``export`` writes ``predict.pt2`` and ``export_meta.json``).  Without ``--data-path``, ``ucihar`` is a synthetic
 table of its shape, and ``parity --raw`` reads the file
@@ -274,6 +276,14 @@ def _parser() -> argparse.ArgumentParser:
                          "WISDM_ar_v1.1_raw.txt (HAR_TPU_WISDM_RAW / "
                          "./data, or --data-path), train the CNN, report "
                          "held-out accuracy against the 0.97 target")
+
+    b = sub.add_parser(
+        "bench",
+        help="run the port's headline benchmark (har_tpu_torch.bench): "
+             "every lane, one JSON line last",
+    )
+    b.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="where the lanes run (default cuda)")
 
     # the fleet's process entry points: main() forwards each before this
     # parser runs (the real parsers live in har_tpu_torch.serve.net), so
@@ -1477,6 +1487,10 @@ def main(argv=None) -> int:
 
         return _agent_main(argv[1:])
     args = _parser().parse_args(argv)
+    if args.command == "bench":
+        from har_tpu_torch.bench import run as _bench
+
+        return _bench(["--device", args.device])
     if args.command == "parity":
         return _parity(args)
     if args.command in ("evaluate", "predict"):

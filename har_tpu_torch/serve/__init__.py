@@ -21,8 +21,14 @@ Public surface:
   DispatchFaults / DeliveryFaults / FakeClock — fault injection
   AnalyticDemoModel / JitDemoModel / synthetic_sessions / drive_fleet
                                           — load generation
+  run_pipeline_cell / run_fused_grid_cells / run_pipeline_cell_subprocess
+  WideTransformerDemoModel / run_model_parallel_cell /
+  run_model_parallel_cell_subprocess / host_plane_benchmark
+                                          — the bench cells (loadgen.py)
   FleetJournal / JournalConfig            — durability (journal.py)
   restore_server / recovery_smoke         — crash recovery (recover.py)
+  recovery_benchmark / recovery_benchmark_summary
+                                          — its bench lane
   KILL_POINTS / ENGINE_KILL_POINTS / run_kill_point
                                           — kill-point chaos (chaos.py;
                                             the engine points drive the
@@ -58,9 +64,6 @@ Public surface:
                                             ingest gateway pair, the
                                             wire chaos + partition
                                             matrices)
-
-Not ported yet (ROADMAP.md Queue 1 item 16): the bench cells and the
-recovery benchmark.
 """
 
 from har_tpu_torch.serve.arena import PendingArena, SessionArena
@@ -106,13 +109,21 @@ from har_tpu_torch.serve.loadgen import (
     HostPlaneStubModel,
     JitDemoModel,
     LoadReport,
+    WideTransformerDemoModel,
     drive_fleet,
     host_plane_benchmark,
     host_plane_summary,
+    run_fused_grid_cells,
+    run_model_parallel_cell,
+    run_model_parallel_cell_subprocess,
+    run_pipeline_cell,
+    run_pipeline_cell_subprocess,
     synthetic_sessions,
 )
 from har_tpu_torch.serve.recover import (
     RecoveryError,
+    recovery_benchmark,
+    recovery_benchmark_summary,
     recovery_smoke,
     restore_server,
 )
@@ -132,6 +143,7 @@ from har_tpu_torch.serve.traffic import (
     TrafficTrace,
     drive_trace,
     elastic_smoke,
+    elastic_traffic_benchmark,
 )
 
 __all__ = [
@@ -175,9 +187,11 @@ __all__ = [
     "TraceSpec",
     "TrafficTrace",
     "WarmReplica",
+    "WideTransformerDemoModel",
     "drive_fleet",
     "drive_trace",
     "elastic_smoke",
+    "elastic_traffic_benchmark",
     "events_equal",
     "fleet_pipeline_smoke",
     "fleet_slo_smoke",
@@ -185,10 +199,17 @@ __all__ = [
     "host_plane_summary",
     "make_scorer",
     "model_parallel_smoke",
+    "recovery_benchmark",
+    "recovery_benchmark_summary",
     "recovery_smoke",
     "restore_server",
     "run_cluster_kill_point",
+    "run_fused_grid_cells",
     "run_kill_point",
+    "run_model_parallel_cell",
+    "run_model_parallel_cell_subprocess",
+    "run_pipeline_cell",
+    "run_pipeline_cell_subprocess",
     "run_random_kill",
     "run_tail_kill_point",
     "synthetic_sessions",

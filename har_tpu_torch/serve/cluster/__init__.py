@@ -9,6 +9,7 @@ Public surface:
   broadcast / map_fn / reduce_sum / reduce_mean — DrJAX-style
                                                aggregation primitives
   cluster_failover_smoke                     — the failover check
+  failover_benchmark                         — its bench lane
 
 Port of ``har_tpu/serve/cluster`` (the JAX package's docs/multihost.md
 describes the lease protocol, the hand-off sequence and the
@@ -36,7 +37,7 @@ from har_tpu_torch.serve.cluster.primitives import (
     reduce_sum,
 )
 from har_tpu_torch.serve.cluster.router import ConsistentHashRouter, stable_hash
-from har_tpu_torch.serve.cluster.smoke import cluster_failover_smoke
+from har_tpu_torch.serve.cluster.smoke import cluster_failover_smoke, failover_benchmark
 from har_tpu_torch.serve.cluster.worker import ClusterWorker
 
 __all__ = [
@@ -52,6 +53,7 @@ __all__ = [
     "WorkerUnavailable",
     "broadcast",
     "cluster_failover_smoke",
+    "failover_benchmark",
     "map_fn",
     "reduce_mean",
     "reduce_sum",

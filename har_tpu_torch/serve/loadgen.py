@@ -20,8 +20,10 @@ smoke) pins without spending a model fit.
 Port of ``har_tpu/serve/loadgen.py``: the numpy models, the host-plane
 measurement and the drivers are copies; ``JitDemoModel`` is a torch
 module on an explicit device with the JAX package's numpy-drawn
-weights.  The pipeline and model-parallel bench cells wait for ROADMAP.md
-Queue 1 items 14 and 16.
+weights.  The bench cells lay their meshes as ``parallel.mesh.ServingMesh``
+grids of the visible cards (the CPU repeated), where the JAX package forces
+a host device count; ``WideTransformerDemoModel`` is a torch module with the
+JAX package's numpy-drawn weights and plain attention.
 """
 
 from __future__ import annotations
@@ -98,7 +100,33 @@ class _DemoMLP(nn.Module):
         return h @ self.w2
 
 
-class JitDemoModel:
+class _DemoProgram:
+    """A demo serving model's device half: ``module`` on ``device``,
+    unwrapped by the dispatch plane through ``device_program()``."""
+
+    def device_program(self):
+        from har_tpu_torch.serve.dispatch import DeviceProgram
+
+        return DeviceProgram(
+            self, self.module, self.device, tuple(self.module.parameters())
+        )
+
+    def transform(self, x):
+        """The synchronous reference path — same ops, same order, as
+        the async scorer's launch+fetch (dispatch.DeviceScorer), so
+        pipelined and synchronous runs of this model are bit-identical."""
+        from har_tpu_torch.models.base import Predictions
+
+        x = np.ascontiguousarray(x, np.float32)
+        with torch.no_grad():
+            logits = self.module(
+                torch.from_numpy(x).to(self.device)
+            ).cpu().numpy()
+        probs = torch.softmax(torch.from_numpy(logits), dim=-1).numpy()
+        return Predictions.from_raw(logits, probs)
+
+
+class JitDemoModel(_DemoProgram):
     """A training-free MLP over raw windows on a device — the
     DEVICE-path counterpart of ``AnalyticDemoModel``.
 
@@ -156,26 +184,454 @@ class JitDemoModel:
         """The weights by the JAX package's names and layouts."""
         return dict(self.module.named_parameters())
 
-    def device_program(self):
-        from har_tpu_torch.serve.dispatch import DeviceProgram
 
-        return DeviceProgram(
-            self, self.module, self.device, tuple(self.module.parameters())
+def run_pipeline_cell(
+    pipeline_depth: int = 1,
+    devices: int = 1,
+    *,
+    target_batch: int = 256,
+    n_sessions: int = 1000,
+    windows_per_session: int = 2,
+    tunnel_rtt_ms: float = 30.0,
+    n_runs: int = 3,
+    hidden: int = 256,
+    seed: int = 3,
+    fused: bool = False,
+    tier: str = "f32",
+    smoothing: str = "ema",
+    collect_labels: bool = False,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """One cell of the pipelined-dispatch grid: drive the standard
+    synthetic fleet load through a FleetServer at the given pipeline
+    depth / device count and report windows/s (median+std over n_runs,
+    after a warmup) plus the dispatch-plane stats.
+
+    THE shared measurement behind ``har_tpu_torch.bench``'s
+    ``fleet_pipeline_grid`` lane, whose mesh cell runs in a subprocess
+    (:func:`run_pipeline_cell_subprocess`).  ``devices > 1`` lays a
+    ``ServingMesh`` over ``parallel.mesh.serving_devices``: distinct
+    visible cards on CUDA (a ValueError names the shortfall when fewer
+    are visible), the CPU repeated on the CPU.
+
+    ``fused=True`` serves through the fused hot loop (needs a
+    fused-eligible ``smoothing`` — vote/none); ``tier="int8"`` serves
+    the weight-only int8 quantization of the demo model
+    (``quantize.quantize_serving``).  ``collect_labels=True`` adds the
+    final run's ``(session, t_index, label)`` stream to the result —
+    what the grid's int8-agreement key is computed from.
+    """
+    from har_tpu_torch.parallel.mesh import create_serving_mesh, serving_devices
+
+    device = resolve_device(device)
+    grid = serving_devices(int(devices), device)
+    mesh = create_serving_mesh(dp=devices, tp=1, devices=grid) if devices > 1 else None
+    model = JitDemoModel(hidden=hidden, tunnel_rtt_ms=tunnel_rtt_ms, device=device)
+    if tier == "int8":
+        from har_tpu_torch.quantize import quantize_serving
+
+        model = quantize_serving(model)
+    elif tier != "f32":
+        raise ValueError(f"unknown tier {tier!r}")
+    recordings, _ = synthetic_sessions(
+        n_sessions, windows_per_session=windows_per_session, seed=seed
+    )
+
+    def one_run():
+        from har_tpu_torch.serve.engine import FleetConfig, FleetServer
+
+        server = FleetServer(
+            model,
+            window=200,
+            hop=200,
+            smoothing=smoothing,
+            config=FleetConfig(
+                max_sessions=n_sessions,
+                pipeline_depth=pipeline_depth,
+                target_batch=target_batch,
+                fused=fused,
+            ),
+            mesh=mesh,
         )
+        for i in range(n_sessions):
+            server.add_session(i)
+        events, report = drive_fleet(server, recordings, seed=seed)
+        return server, report, events
 
-    def transform(self, x):
-        """The synchronous reference path — same ops, same order, as
-        the async scorer's launch+fetch (dispatch.DeviceScorer), so
-        pipelined and synchronous runs of this model are bit-identical."""
-        from har_tpu_torch.models.base import Predictions
+    one_run()  # warmup: the padded shapes' first launches
+    wps, server, events = [], None, None
+    for _ in range(int(n_runs)):
+        server, report, events = one_run()
+        acct = server.stats.accounting()
+        wps.append(
+            acct["scored"] / report.duration_s if report.duration_s else 0.0
+        )
+    snap = server.stats_snapshot()
+    scored = snap["accounting"]["scored"]
+    # device-ms attribution: calibrate the program the cell actually
+    # dispatched (the FUSED program when fused) at the emitted padded
+    # shapes, so the speedup claim rides with per-shape device times
+    try:
+        device_ms = {
+            str(b): d["p50_ms"]
+            for b, d in sorted(server.calibrate_device(iters=4).items())
+        }
+    except ValueError:  # host-only model: no device program to time
+        device_ms = None
+    out = {
+        "pipeline_depth": int(pipeline_depth),
+        "devices": int(devices),
+        "target_batch": int(target_batch),
+        "device_ms": device_ms,
+        "fused": bool(fused),
+        "tier": tier,
+        "smoothing": smoothing,
+        "windows_per_sec_median": round(float(np.median(wps)), 1),
+        "windows_per_sec_std": round(float(np.std(wps)), 1),
+        "event_p99_ms_median": snap["stages"]["event_ms"].get("p99_ms"),
+        "overlap_pct": snap["overlap_pct"],
+        "inflight_depth": snap["inflight_depth"],
+        "device_windows": snap["device_windows"],
+        "dispatch_backend": snap["dispatch_backend"],
+        "dispatches": snap["dispatches"],
+        "fused_dispatches": snap["fused_dispatches"],
+        "fetch_bytes_per_window": (
+            round(snap["fetch_bytes"] / scored, 1) if scored else None
+        ),
+        "fetch_bytes_saved": snap["fetch_bytes_saved"],
+        "dropped_windows": snap["accounting"]["dropped"],
+        "accounting_balanced": snap["accounting"]["balanced"],
+    }
+    if collect_labels:
+        out["labels"] = [
+            [fe.session_id, fe.event.t_index, int(fe.event.label)]
+            for fe in events
+        ]
+    return out
 
-        x = np.ascontiguousarray(x, np.float32)
-        with torch.no_grad():
-            logits = self.module(
-                torch.from_numpy(x).to(self.device)
-            ).cpu().numpy()
-        probs = torch.softmax(torch.from_numpy(logits), dim=-1).numpy()
-        return Predictions.from_raw(logits, probs)
+
+def run_fused_grid_cells(tb_base: int, common: dict) -> tuple[dict, object]:
+    """The fused depth-3 cells of the pipeline grid — f32 and int8
+    through the same fused hot loop — plus the int8 LIVE-label
+    agreement between them.
+
+    tb doubles vs the grid's base cells: the depth-3 ring then
+    pipelines full dispatches while exposing half the serial link
+    RTTs — a different dispatch-plane configuration by design, exactly
+    like the mesh cell's devices-scaled batch.  Returns
+    ``({"3x1_fused": ..., "3x1_fused_int8": ...}, int8_agreement)``
+    with the label streams consumed (popped) into the agreement."""
+    cells = {
+        "3x1_fused": run_pipeline_cell(
+            3, 1, target_batch=tb_base * 2, fused=True,
+            smoothing="vote", collect_labels=True, **common
+        ),
+        "3x1_fused_int8": run_pipeline_cell(
+            3, 1, target_batch=tb_base * 2, fused=True, tier="int8",
+            smoothing="vote", collect_labels=True, **common
+        ),
+    }
+    f32_labels = cells["3x1_fused"].pop("labels", [])
+    int8_labels = cells["3x1_fused_int8"].pop("labels", [])
+    agreement = None
+    if f32_labels and len(f32_labels) == len(int8_labels):
+        agreement = round(
+            sum(a == b for a, b in zip(f32_labels, int8_labels))
+            / len(f32_labels),
+            4,
+        )
+    return cells, agreement
+
+
+def _cell_subprocess(call: str, what: str, timeout_s: float, devices: int,
+                     device) -> dict:
+    """``call`` (an expression of this module's names) in a fresh
+    interpreter started as the wire launchers start theirs
+    (``serve.net.controller``'s environment and priority); its JSON.  A
+    cell of more ``devices`` than ``device``'s visible cards is refused
+    here by the mesh's own check (``serving_devices``' ValueError),
+    before a child starts.  Raises on failure or timeout."""
+    import json
+    import subprocess
+    import sys
+
+    from har_tpu_torch.parallel.mesh import serving_devices
+    from har_tpu_torch.serve.net.controller import _child_env, _nice
+
+    serving_devices(int(devices), device)
+    proc = subprocess.run(
+        _nice() + [
+            sys.executable,
+            "-c",
+            "import json; from har_tpu_torch.serve import loadgen; "
+            f"print(json.dumps(loadgen.{call}))",
+        ],
+        capture_output=True,
+        text=True,
+        timeout=timeout_s,
+        env=_child_env(),
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"{what} failed (rc={proc.returncode}): {proc.stderr[-500:]}"
+        )
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def run_pipeline_cell_subprocess(
+    pipeline_depth: int,
+    devices: int,
+    kwargs: dict,
+    *,
+    timeout_s: float = 600.0,
+) -> dict:
+    """Run one grid cell in a fresh interpreter, ``kwargs`` (``device``
+    included) passed through.  The bench lane runs its mesh cell so, as
+    the JAX package does; a cell that needs more cards than are visible
+    is refused with the mesh's ValueError before a child starts.  Raises
+    on failure or timeout — callers that must survive a dead cell catch
+    and record."""
+    return _cell_subprocess(
+        f"run_pipeline_cell({int(pipeline_depth)}, {int(devices)}, "
+        f"**{dict(kwargs)!r})",
+        "pipeline grid cell", timeout_s, devices, kwargs.get("device", "cuda"),
+    )
+
+
+class _WideTransformer(nn.Module):
+    """``WideTransformerDemoModel``'s forward in float32: the window
+    strided to ``window // stride`` tokens, an input projection
+    ``embed``, pre-norm encoder blocks with plain softmax attention
+    (``EncoderBlock(use_flash=False)``: the JAX model's attention is
+    plain, not its Pallas kernel), a mean pool over the tokens and the
+    ``head``."""
+
+    def __init__(self, embed_dim, num_layers, num_heads, channels, num_classes, stride):
+        from har_tpu_torch.models.transformer import Dense, EncoderBlock
+
+        super().__init__()
+        f32 = torch.float32
+        self.stride = int(stride)
+        self.embed = Dense(channels, embed_dim, f32)
+        self.blocks = nn.ModuleList(
+            EncoderBlock(embed_dim, num_heads, f32, use_flash=False)
+            for _ in range(num_layers)
+        )
+        self.head = Dense(embed_dim, num_classes, f32)
+
+    def forward(self, x):
+        h = self.embed(x[:, :: self.stride, :])
+        for block in self.blocks:
+            h = block(h)
+        return self.head(h.mean(1))
+
+
+class WideTransformerDemoModel(_DemoProgram):
+    """A WIDE Transformer1D-shaped serving checkpoint — the
+    bigger-than-one-device star of the ``model_parallel_grid`` lane.
+
+    Its parameters carry the names ``TRANSFORMER_RULES`` keys on
+    (``blocks.<i>.{qkv, proj, mlp_in, mlp_out}`` sharded, a replicated
+    ``embed`` input projection, the norms and ``head``), so
+    ``rules_for_params`` selects that table and a
+    ``ModelParallelScorer`` places it head-parallel over the ``tp``
+    axis (``serve.model_parallel``).  At the default width (embed 768,
+    3 blocks) the f32 checkpoint is ~85 MB — past the grid's 64 MiB
+    emulated-device budget, so batch-only sharding (a full replica per
+    device) is declared impossible and only the 2D placement serves it
+    within budget.
+
+    Like ``JitDemoModel``: fixed-seed weights drawn with numpy in the
+    JAX package's order (``np.random.default_rng((seed, 0xA77))``), so
+    both packages hold the same float32 weights; training-free,
+    row-independent (attention never crosses batch rows).  The forward
+    strides the 200-sample window to ``window // stride`` tokens; the
+    labels mean nothing — the cell measures placement, not accuracy.
+    """
+
+    def __init__(
+        self,
+        embed_dim: int = 768,
+        num_layers: int = 3,
+        num_heads: int = 8,
+        window: int = 200,
+        channels: int = 3,
+        num_classes: int = 6,
+        seed: int = 1729,
+        stride: int = 8,
+        tunnel_rtt_ms: float = 0.0,
+        device: str | torch.device = "cuda",
+    ):
+        rng = np.random.default_rng((seed, 0xA77))
+        e = int(embed_dim)
+        self.tunnel_rtt_ms = float(tunnel_rtt_ms)
+        self.window = int(window)
+        self.channels = int(channels)
+        self.num_classes = int(num_classes)
+        self.class_names = tuple(
+            f"class{i}" for i in range(self.num_classes)
+        )
+        module = _WideTransformer(e, int(num_layers), int(num_heads), int(channels),
+                                  self.num_classes, stride)
+
+        def dense(layer, d_in, d_out):
+            kernel = rng.normal(0, 1.0 / np.sqrt(d_in), size=(d_in, d_out))
+            layer.weight.data = torch.from_numpy(kernel.T.astype(np.float32))
+
+        # the JAX package's draw order: embed, then each block's qkv,
+        # proj, Dense_0 (mlp_in), Dense_1 (mlp_out), then head; norms and
+        # biases are ones and zeros
+        dense(module.embed, channels, e)
+        for block in module.blocks:
+            dense(block.qkv, e, 3 * e)
+            dense(block.proj, e, e)
+            dense(block.mlp_in, e, 4 * e)
+            dense(block.mlp_out, 4 * e, e)
+        dense(module.head, e, num_classes)
+        self.device = resolve_device(device)
+        self.module = module.requires_grad_(False).to(self.device)
+
+
+def run_model_parallel_cell(
+    dp: int,
+    tp: int,
+    *,
+    target_batch: int = 256,
+    n_sessions: int = 1000,
+    windows_per_session: int = 2,
+    tunnel_rtt_ms: float = 30.0,
+    n_runs: int = 3,
+    pipeline_depth: int = 2,
+    seed: int = 3,
+    smoothing: str = "ema",
+    model: str = "mlp",
+    check_single_device: bool = False,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """One cell of the model-parallel grid: drive the standard
+    synthetic fleet load through a FleetServer on a ``dp × tp``
+    (batch × model) ``ServingMesh`` and report windows/s (median+std
+    over n_runs, after a warmup) plus the placement evidence — scorer
+    kind, model-axis extent, and the per-device vs total parameter
+    bytes the ``fits_one_device`` claim is judged against.
+
+    THE shared measurement behind ``har_tpu_torch.bench``'s
+    ``model_parallel_grid`` lane (each cell in a subprocess,
+    :func:`run_model_parallel_cell_subprocess`).  ``model`` picks the
+    checkpoint: ``"mlp"`` (the h256 JitDemoModel — the small-model
+    cells) or ``"wide_transformer"`` (the ~85 MB
+    WideTransformerDemoModel — the bigger-than-one-device cell).
+    ``check_single_device=True`` additionally replays the load on one
+    device and pins the equivalence contract (label-equal, probability
+    vectors to 1e-6) into the cell as ``single_device_equivalent``.
+    The mesh's devices are ``parallel.mesh.serving_devices``'s: a
+    ValueError names the shortfall when ``dp*tp`` exceeds the visible
+    cards (the CPU is repeated)."""
+    from har_tpu_torch.parallel.mesh import create_serving_mesh, serving_devices
+
+    device = resolve_device(device)
+    n_dev = int(dp) * int(tp)
+    grid = serving_devices(n_dev, device)
+    mesh = create_serving_mesh(dp=dp, tp=tp, devices=grid) if n_dev > 1 else None
+    if model == "mlp":
+        served = JitDemoModel(tunnel_rtt_ms=tunnel_rtt_ms, device=device)
+    elif model == "wide_transformer":
+        served = WideTransformerDemoModel(tunnel_rtt_ms=tunnel_rtt_ms, device=device)
+    else:
+        raise ValueError(f"unknown model {model!r}")
+    recordings, _ = synthetic_sessions(
+        n_sessions, windows_per_session=windows_per_session, seed=seed
+    )
+
+    def one_run(run_mesh, depth):
+        from har_tpu_torch.serve.engine import FleetConfig, FleetServer
+
+        server = FleetServer(
+            served,
+            window=200,
+            hop=200,
+            smoothing=smoothing,
+            config=FleetConfig(
+                max_sessions=n_sessions,
+                pipeline_depth=depth,
+                target_batch=target_batch,
+            ),
+            mesh=run_mesh,
+        )
+        for i in range(n_sessions):
+            server.add_session(i)
+        events, report = drive_fleet(server, recordings, seed=seed)
+        return server, report, events
+
+    one_run(mesh, pipeline_depth)  # warmup: the padded shapes' first launches
+    wps, server, events = [], None, None
+    for _ in range(int(n_runs)):
+        server, report, events = one_run(mesh, pipeline_depth)
+        acct = server.stats.accounting()
+        wps.append(
+            acct["scored"] / report.duration_s if report.duration_s else 0.0
+        )
+    snap = server.stats_snapshot()
+    pb = server.scorer.params_bytes()
+    out = {
+        "mesh": f"{int(dp)}x{int(tp)}",
+        "dp": int(dp),
+        "tp": int(tp),
+        "devices": n_dev,
+        "model": model,
+        "pipeline_depth": int(pipeline_depth),
+        "target_batch": int(target_batch),
+        "scorer": type(server.scorer).__name__,
+        "model_axis_shards": snap["model_axis_shards"],
+        "dispatch_backend": snap["dispatch_backend"],
+        "windows_per_sec_median": round(float(np.median(wps)), 1),
+        "windows_per_sec_std": round(float(np.std(wps)), 1),
+        "event_p99_ms_median": snap["stages"]["event_ms"].get("p99_ms"),
+        "params_bytes_total": pb["total"],
+        "params_bytes_per_device": pb["per_device"],
+        "dropped_windows": snap["accounting"]["dropped"],
+        "accounting_balanced": snap["accounting"]["balanced"],
+    }
+    if check_single_device:
+        _, _, ref_events = one_run(None, 1)
+        by_sid: dict[int, list] = {i: [] for i in range(n_sessions)}
+        ref_sid: dict[int, list] = {i: [] for i in range(n_sessions)}
+        for fe in events:
+            by_sid[fe.session_id].append(fe.event)
+        for fe in ref_events:
+            ref_sid[fe.session_id].append(fe.event)
+        equivalent = True
+        for i in range(n_sessions):
+            a, b = ref_sid[i], by_sid[i]
+            if len(a) != len(b) or not all(
+                x.t_index == y.t_index
+                and x.label == y.label
+                and x.raw_label == y.raw_label
+                and np.allclose(x.probability, y.probability, atol=1e-6)
+                for x, y in zip(a, b)
+            ):
+                equivalent = False
+                break
+        out["single_device_equivalent"] = equivalent
+    return out
+
+
+def run_model_parallel_cell_subprocess(
+    dp: int,
+    tp: int,
+    kwargs: dict,
+    *,
+    timeout_s: float = 600.0,
+) -> dict:
+    """Run one model-parallel grid cell in a fresh interpreter — the 2D
+    twin of :func:`run_pipeline_cell_subprocess`, ``kwargs`` (``device``
+    included) passed through.  Raises on failure or timeout — callers
+    that must survive a dead cell catch and record."""
+    return _cell_subprocess(
+        f"run_model_parallel_cell({int(dp)}, {int(tp)}, **{dict(kwargs)!r})",
+        "model-parallel grid cell", timeout_s, int(dp) * int(tp),
+        kwargs.get("device", "cuda"),
+    )
 
 
 class HostPlaneStubModel:

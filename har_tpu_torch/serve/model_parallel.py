@@ -11,11 +11,14 @@ families a fleet serves:
   ``alternating_rules`` table on its weights in ``(out, in)`` layout, and
   its int8 tier (``quantize_serving``) by ``INT8_RULES`` on the stored
   int8 leaves in their ``(in, out)`` layout;
-- the neural MLP (``DENSE_MLP_RULES`` or its ``alternating_rules``) and
-  ``Transformer1D`` under ``TRANSFORMER_RULES``: the model's own forward
-  runs on a copy of the module whose ``Dense`` layers are swapped for
-  layers of the table's layout and whose encoder blocks attend on each
-  device's heads.
+- the neural MLP (``DENSE_MLP_RULES`` or its ``alternating_rules``),
+  and any transformer-shaped module (parameter names that select
+  ``TRANSFORMER_RULES``, ``blocks`` of encoder blocks: ``Transformer1D``,
+  the bench's ``WideTransformerDemoModel``): the model's own forward runs
+  on a copy of the module whose ``Dense`` layers are swapped for layers
+  of the table's layout and whose encoder blocks attend on each device's
+  heads (K2 where the block uses it; the wide demo's plain attention, as
+  the JAX model's).
 
 Each weight leaf sits on each device as its block of the table's spec
 (``rules.place_local``); activations are whole on the row's first device
@@ -54,6 +57,7 @@ from torch import nn
 from har_tpu_torch.parallel.mesh import TP_AXIS
 from har_tpu_torch.parallel.rules import (
     INT8_RULES,
+    TRANSFORMER_RULES,
     P,
     match_partition_rules,
     place_local,
@@ -281,6 +285,16 @@ def _int8_demo(model, mesh, rules):
     return TPProgram(row_forward, tree, specs, mesh, table)
 
 
+def _transformer_shaped(module: nn.Module, tree: dict) -> bool:
+    """A module served head-parallel: its parameter names select
+    ``TRANSFORMER_RULES`` and its ``blocks`` are encoder blocks."""
+    from har_tpu_torch.models.transformer import EncoderBlock
+
+    blocks = getattr(module, "blocks", None)
+    return (rules_for_params(tree) is TRANSFORMER_RULES and isinstance(blocks, nn.ModuleList)
+            and all(isinstance(b, EncoderBlock) for b in blocks))
+
+
 def tp_program(model, program, mesh, rules=None) -> TPProgram:
     """The tensor-parallel program of a served model on ``mesh``.
     ``program`` is the model's ``dispatch.DeviceProgram``; ``rules``
@@ -289,7 +303,6 @@ def tp_program(model, program, mesh, rules=None) -> TPProgram:
     not divide ``tp``, and :class:`NoTensorParallelForward` for a family
     with no tensor-parallel forward here."""
     from har_tpu_torch.models.neural import MLP
-    from har_tpu_torch.models.transformer import Transformer1D
     from har_tpu_torch.quantize import Int8Forward
     from har_tpu_torch.serve.loadgen import _DemoMLP
 
@@ -302,27 +315,29 @@ def tp_program(model, program, mesh, rules=None) -> TPProgram:
         )
     if not isinstance(fwd, nn.Module):
         raise NoTensorParallelForward(f"{type(model).__name__} serves an exported program")
+    transformer = False
     if isinstance(fwd, _DemoMLP):
         # the demo keeps JAX's (in, out) weights: its table is read on
         # the (out, in) layout every other family has
         tree = {"w1": fwd.w1.detach().t(), "b1": fwd.b1.detach(), "w2": fwd.w2.detach().t()}
         row_forward = lambda row: functools.partial(_demo_forward, row)  # noqa: E731
-    elif isinstance(fwd, (MLP, Transformer1D)):
+    else:
         tree = {k: v.detach() for k, v in fwd.named_parameters()}
-        row_forward = functools.partial(_placed_module, fwd)
-        if isinstance(fwd, Transformer1D) and fwd.sp_axis is not None:
+        transformer = _transformer_shaped(fwd, tree)
+        if not (transformer or isinstance(fwd, MLP)):
+            raise NoTensorParallelForward(
+                f"{type(fwd).__name__} has no tensor-parallel forward"
+            )
+        if getattr(fwd, "sp_axis", None) is not None:
             raise NoTensorParallelForward("a sequence-sharded transformer has no "
                                           "tensor-parallel forward")
-    else:
-        raise NoTensorParallelForward(
-            f"{type(fwd).__name__} has no tensor-parallel forward"
-        )
+        row_forward = functools.partial(_placed_module, fwd)
     table = rules_for_params(tree) if rules is None else rules
     specs = _specs(table, tree, mesh)
     for name, spec in specs.items():
         if tree[name].dim() == 2:
             _kind(spec, 2)
-    if isinstance(fwd, Transformer1D):
+    if transformer:
         tp = dict(zip(mesh.mesh_dim_names, mesh.shape)).get(TP_AXIS, 1)
         heads = fwd.blocks[0].num_heads if len(fwd.blocks) else tp
         if heads % tp:

@@ -54,14 +54,14 @@ the ingest front door.
                 kill points, and the real-time delivery loop
                 ``serve --workers N --net`` drives
   smoke.py      the wire checks: failover, journal ship, replication,
-                ingest and the gateway pair
+                ingest and the gateway pair, and the four wire bench
+                lanes measured over the same runs
 
 Port of ``har_tpu/serve/net`` (the JAX package's docs/multihost.md,
 "Wire protocol", gives the frame layout, the election rules and the
 partition-resolution argument): frames, codecs, RPCs, manifests, ship
 logs and lease files are byte-compatible with the JAX package's, so a
-cluster may mix the two packages' workers and agents.  The wire bench
-lanes wait for ROADMAP.md Queue 1 item 16.
+cluster may mix the two packages' workers and agents.
 """
 
 from har_tpu_torch.serve.net.client import HAGatewayClient, NetWorker
@@ -96,10 +96,14 @@ from har_tpu_torch.serve.net.ship import (
     fetch_journal,
 )
 from har_tpu_torch.serve.net.smoke import (
+    gateway_ha_benchmark,
     gateway_ha_smoke,
+    journal_ship_benchmark,
     journal_ship_smoke,
     replication_smoke,
+    wire_failover_benchmark,
     wire_failover_smoke,
+    wire_ingest_benchmark,
     wire_ingest_smoke,
 )
 from har_tpu_torch.serve.net.tail import (
@@ -165,7 +169,9 @@ __all__ = [
     "encode_samples",
     "fetch_journal",
     "finalize_tail",
+    "gateway_ha_benchmark",
     "gateway_ha_smoke",
+    "journal_ship_benchmark",
     "journal_ship_smoke",
     "launch_agents",
     "launch_gateway",
@@ -174,6 +180,8 @@ __all__ = [
     "model_pool",
     "replication_smoke",
     "tail_once",
+    "wire_failover_benchmark",
     "wire_failover_smoke",
+    "wire_ingest_benchmark",
     "wire_ingest_smoke",
 ]

@@ -21,11 +21,15 @@ end-to-end and the group-committed ``acks`` records measured against
 their per-event equivalent straight from the workers' journal
 segments.
 
-Port of ``har_tpu/serve/net/smoke.py`` (copied).  The JAX package's
-four bench lanes
-(``journal_ship_benchmark``, ``wire_failover_benchmark``,
-``wire_ingest_benchmark``, ``gateway_ha_benchmark``) wait for
-ROADMAP.md Queue 1 item 16 and raise NotImplementedError.
+The four bench lanes of ``har_tpu_torch.bench`` measure the same runs
+per fleet size: ``wire_failover_benchmark`` (failover wall time and the
+controller-side ``rpc_rtt`` p50/p99), ``journal_ship_benchmark`` (the
+shipped, shared-dir and replicated arms of one kill),
+``wire_ingest_benchmark`` (windows/s over sockets against in-process,
+and the ack path's journal bytes per window) and
+``gateway_ha_benchmark`` (the active gateway's failover time).
+
+Port of ``har_tpu/serve/net/smoke.py`` (copied).
 """
 
 from __future__ import annotations
@@ -321,23 +325,124 @@ def replication_smoke(
 
 
 def journal_ship_benchmark(
-    session_counts, n_runs: int = 3, **kwargs
+    session_counts,
+    n_runs: int = 3,
+    *,
+    workers: int = 3,
+    seed: int = 0,
+    n_samples: int = 300,
 ) -> list[dict]:
-    """The JAX package's ``journal_ship`` bench lane."""
-    raise NotImplementedError(
-        "journal_ship_benchmark: the bench cells wait for "
-        "ROADMAP.md Queue 1 item 16"
-    )
+    """``har_tpu_torch.bench``'s ``journal_ship`` lane rows: per fleet size, the
+    shared-nothing failover measured twice — the SHIPPED run (private
+    dirs + agents: ``ship_ms`` inside fetch_journal, plus the whole
+    failover wall time) against the SHARED-DIR baseline (the same
+    kill, the dead directory restored in place) — so the cost of
+    crossing the process boundary with the recovery currency is a
+    measured delta, not an assumption.  ``contract_ok`` pins the
+    exactly-once + complete-delivery + conservation verdict on every
+    measured run of ALL modes.
+
+    The REPLICATED arm rides in the same lane: the identical kill
+    with a warm standby tailing every worker, where the failover path
+    moves zero journal bytes (``replicated_failover_path_bytes``) —
+    its ``replicated_failover_ms_median`` against ``failover_ms_median``
+    is the headline number continuous replication buys."""
+    rows = []
+    for n_sessions in session_counts:
+        ship_ms, failover_ms, base_ms, repl_ms = [], [], [], []
+        shipped_bytes, chunks, ok = 0, 0, True
+        repl_path_bytes, repl_lag = 0, 0
+        for r in range(int(n_runs)):
+            shipped = _run_wire_failover(
+                int(n_sessions), workers, seed + r, n_samples,
+                private=True,
+            )
+            base = _run_wire_failover(
+                int(n_sessions), workers, seed + r, n_samples,
+                private=False,
+            )
+            repl = _run_wire_failover(
+                int(n_sessions), workers, seed + r, n_samples,
+                replicated=True,
+            )
+            ok = ok and shipped["ok"] and base["ok"] and repl["ok"]
+            ship_ms.append(shipped["rpc"]["ship_ms"])
+            failover_ms.append(shipped["failover_ms"])
+            base_ms.append(base["failover_ms"])
+            repl_ms.append(repl["failover_ms"])
+            shipped_bytes = shipped["rpc"]["shipped_bytes"]
+            chunks = shipped["rpc"]["ship_chunks"]
+            repl_path_bytes = repl["failover_path_bytes"]
+            repl_lag = repl["steady_lag_records"]
+        rows.append(
+            {
+                "n_sessions": int(n_sessions),
+                "workers": int(workers),
+                "transport": "tcp",
+                "ship_ms_median": round(float(np.median(ship_ms)), 3),
+                "ship_ms_std": round(float(np.std(ship_ms)), 3),
+                "failover_ms_median": round(
+                    float(np.median(failover_ms)), 3
+                ),
+                "baseline_failover_ms_median": round(
+                    float(np.median(base_ms)), 3
+                ),
+                "replicated_failover_ms_median": round(
+                    float(np.median(repl_ms)), 3
+                ),
+                "replicated_failover_path_bytes": int(repl_path_bytes),
+                "replicated_steady_lag_records": int(repl_lag),
+                "shipped_bytes": int(shipped_bytes),
+                "chunks": int(chunks),
+                "contract_ok": ok,
+            }
+        )
+    return rows
 
 
 def wire_failover_benchmark(
-    session_counts, n_runs: int = 3, **kwargs
+    session_counts,
+    n_runs: int = 3,
+    *,
+    workers: int = 3,
+    seed: int = 0,
+    n_samples: int = 300,
 ) -> list[dict]:
-    """The JAX package's ``wire_failover`` bench lane."""
-    raise NotImplementedError(
-        "wire_failover_benchmark: the bench cells wait for "
-        "ROADMAP.md Queue 1 item 16"
-    )
+    """``har_tpu_torch.bench``'s ``wire_failover`` lane rows: per fleet size, median
+    failover wall time over the REAL transport plus the rpc_rtt
+    distribution, ``contract_ok`` pinning the conservation + complete-
+    delivery verdict on every measured run."""
+    rows = []
+    for n_sessions in session_counts:
+        times, rtt50, rtt99, migrated, ok = [], [], [], 0, True
+        for r in range(int(n_runs)):
+            out = _run_wire_failover(
+                int(n_sessions), workers, seed + r, n_samples
+            )
+            ok = ok and out["ok"]
+            times.append(out["failover_ms"])
+            if out["rpc"]["rpc_rtt_p50_ms"] is not None:
+                rtt50.append(out["rpc"]["rpc_rtt_p50_ms"])
+                rtt99.append(out["rpc"]["rpc_rtt_p99_ms"])
+            migrated = out["migrated_sessions"]
+        rows.append(
+            {
+                "n_sessions": int(n_sessions),
+                "workers": int(workers),
+                "transport": "tcp",
+                "migrated_sessions": int(migrated),
+                "failover_ms_median": round(float(np.median(times)), 3),
+                "failover_ms_std": round(float(np.std(times)), 3),
+                "rpc_rtt_p50_ms": (
+                    round(float(np.median(rtt50)), 4) if rtt50 else None
+                ),
+                "rpc_rtt_p99_ms": (
+                    round(float(np.median(rtt99)), 4) if rtt99 else None
+                ),
+                "contract_ok": ok,
+            }
+        )
+    return rows
 
 
 # ------------------------------------------------- wire-rate ingest
@@ -617,13 +722,63 @@ def wire_ingest_smoke(
 
 
 def wire_ingest_benchmark(
-    session_counts, n_runs: int = 3, **kwargs
+    session_counts,
+    n_runs: int = 3,
+    *,
+    workers: int = 2,
+    seed: int = 0,
+    rounds: int = 40,
 ) -> list[dict]:
-    """The JAX package's ``wire_ingest`` bench lane."""
-    raise NotImplementedError(
-        "wire_ingest_benchmark: the bench cells wait for "
-        "ROADMAP.md Queue 1 item 16"
-    )
+    """``har_tpu_torch.bench``'s ``wire_ingest`` lane rows: per traffic size, the
+    front-door throughput over real sockets (median windows/s of
+    ``n_runs``) against the in-process drive of the SAME trace, the
+    per-event p99 latency over the wire, and the ack path's journal
+    bytes per window — coalesced vs the per-event equivalent, with the
+    ratio the 0.5× acceptance bound rides on.  ``contract_ok`` pins
+    the bit-identity + conservation verdict on every measured run."""
+    rows = []
+    for n_sessions in session_counts:
+        wire_ws, inproc_ws, p99s = [], [], []
+        ack = {}
+        frames, ok = 0, True
+        for r in range(int(n_runs)):
+            out = _run_wire_ingest(
+                int(n_sessions), workers, seed + r, rounds=rounds
+            )
+            ok = ok and out["ok"]
+            scored = out["windows_scored"]
+            if out["wire_duration_s"]:
+                wire_ws.append(scored / out["wire_duration_s"])
+            if out["inproc_duration_s"]:
+                inproc_ws.append(scored / out["inproc_duration_s"])
+            lat = out["event_latency_ms"]
+            if lat:
+                p99s.append(float(np.percentile(lat, 99)))
+            ack = out["ack_stats"]
+            frames = out["frames"]
+        rows.append(
+            {
+                "n_sessions": int(n_sessions),
+                "workers": int(workers),
+                "transport": "tcp",
+                "frames": int(frames),
+                "windows_s_median": round(float(np.median(wire_ws)), 1),
+                "windows_s_std": round(float(np.std(wire_ws)), 1),
+                "inproc_windows_s_median": round(
+                    float(np.median(inproc_ws)), 1
+                ),
+                "event_p99_ms": (
+                    round(float(np.median(p99s)), 3) if p99s else None
+                ),
+                "ack_bytes_per_window": ack.get("bytes_per_window"),
+                "per_record_bytes_per_window": ack.get(
+                    "per_record_bytes_per_window"
+                ),
+                "ack_coalesce_ratio": ack.get("coalesce_ratio"),
+                "contract_ok": ok,
+            }
+        )
+    return rows
 
 
 def _run_gateway_ha(
@@ -866,13 +1021,47 @@ def gateway_ha_smoke(
 
 
 def gateway_ha_benchmark(
-    session_counts, n_runs: int = 3, **kwargs
+    session_counts,
+    n_runs: int = 3,
+    *,
+    workers: int = 2,
+    seed: int = 0,
+    rounds: int = 12,
 ) -> list[dict]:
-    """The JAX package's ``gateway_ha`` bench lane."""
-    raise NotImplementedError(
-        "gateway_ha_benchmark: the bench cells wait for "
-        "ROADMAP.md Queue 1 item 16"
-    )
+    """``har_tpu_torch.bench``'s ``gateway_ha`` lane rows: per session count, the
+    failover cost of the ACTIVE gateway dying — wall time from the
+    SIGKILL to the first frame the new leader ACCEPTS
+    (``failover_ms``, median of ``n_runs``) — plus the reconnect storm
+    size.  ``contract_ok`` pins the lossless verdict (bit-identity,
+    zero windows lost, tenant fairness) on every measured run."""
+    rows = []
+    for n_sessions in session_counts:
+        fo_ms, reconnects, moved = [], 0, 0
+        resumed, ok = 0, True
+        for r in range(int(n_runs)):
+            out = _run_gateway_ha(
+                int(n_sessions), workers, seed + r, rounds=rounds
+            )
+            ok = ok and out["ok"]
+            fo_ms.append(out["failover_ms"])
+            reconnects = out["reconnects"]
+            moved = out["moved_receipts"]
+            resumed = out["resumed_sessions"]
+        rows.append(
+            {
+                "n_sessions": int(n_sessions),
+                "workers": int(workers),
+                "gateways": 2,
+                "transport": "tcp",
+                "failover_ms_median": round(float(np.median(fo_ms)), 1),
+                "failover_ms_max": round(float(np.max(fo_ms)), 1),
+                "reconnects": int(reconnects),
+                "moved_receipts": int(moved),
+                "resumed_sessions": int(resumed),
+                "contract_ok": ok,
+            }
+        )
+    return rows
 
 
 if __name__ == "__main__":

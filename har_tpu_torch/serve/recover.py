@@ -30,8 +30,8 @@ recovery, the chaos harness's default) or declares the gap via
 ``FleetServer.declare_lost`` — which extends the conservation law to
 ``enqueued == scored + dropped + pending + lost_in_crash``.
 
-Port of ``har_tpu/serve/recover.py`` (copied); the recovery benchmark
-waits for ROADMAP.md Queue 1 item 16.
+Port of ``har_tpu/serve/recover.py`` (copied), the recovery benchmark
+behind ``har_tpu_torch.bench``'s ``fleet_recovery`` lane included.
 """
 
 from __future__ import annotations
@@ -441,6 +441,110 @@ def restore_server(
             require_fresh=False,  # this IS the resume path
         )
     return server
+
+
+def recovery_benchmark(
+    session_counts,
+    n_runs: int = 3,
+    *,
+    windows_per_session: int = 2,
+    seed: int = 13,
+    flush_every: int = 64,
+) -> list[dict]:
+    """THE recovery-time measurement behind ``har_tpu_torch.bench``'s
+    ``fleet_recovery`` lane: per session count, drive a journaled
+    fleet under live load, kill it (``FleetJournal.kill`` drops the
+    un-flushed buffer — the SIGKILL model), and time
+    ``FleetServer.restore``; ``contract_ok`` pins the accounting
+    invariant across every measured recovery."""
+    import shutil
+    import tempfile
+    import time
+
+    from har_tpu_torch.serve.engine import FleetConfig, FleetServer
+    from har_tpu_torch.serve.journal import FleetJournal, JournalConfig
+    from har_tpu_torch.serve.loadgen import (
+        AnalyticDemoModel,
+        drive_fleet,
+        synthetic_sessions,
+    )
+
+    model = AnalyticDemoModel()
+    rows = []
+    for n_sessions in session_counts:
+        recordings, _ = synthetic_sessions(
+            n_sessions, windows_per_session=windows_per_session, seed=seed
+        )
+        times, journal_mb, ok = [], 0.0, True
+        for _ in range(int(n_runs)):
+            root = tempfile.mkdtemp(prefix="har_recovery_bench_")
+            try:
+                server = FleetServer(
+                    model, window=200, hop=200, smoothing="ema",
+                    config=FleetConfig(max_sessions=n_sessions),
+                    journal=FleetJournal(
+                        root,
+                        JournalConfig(
+                            flush_every=flush_every, snapshot_every=0
+                        ),
+                    ),
+                )
+                for i in range(n_sessions):
+                    server.add_session(i)
+                drive_fleet(server, recordings, seed=seed)
+                expected = server.stats.scored
+                journal_mb = round(
+                    sum(
+                        os.path.getsize(os.path.join(dirpath, f))
+                        for dirpath, _, files in os.walk(root)
+                        for f in files
+                    )
+                    / 1e6,
+                    3,
+                )
+                server.journal.kill()  # SIGKILL model
+                t0 = time.perf_counter()
+                restored = FleetServer.restore(root, model)
+                times.append((time.perf_counter() - t0) * 1e3)
+                acct = restored.stats.accounting()
+                ok = ok and (
+                    acct["balanced"]
+                    and acct["scored"] == expected
+                    and acct["pending"] == 0
+                    and restored.stats.recoveries == 1
+                    and len(restored.sessions) == n_sessions
+                )
+            finally:
+                shutil.rmtree(root, ignore_errors=True)
+        rows.append(
+            {
+                "n_sessions": int(n_sessions),
+                "windows": int(n_sessions) * windows_per_session,
+                "recovery_ms_median": round(float(np.median(times)), 3),
+                "recovery_ms_std": round(float(np.std(times)), 3),
+                "recovery_ms_runs": [round(t, 3) for t in times],
+                "journal_mb": journal_mb,
+                "contract_ok": ok,
+            }
+        )
+    return rows
+
+
+def recovery_benchmark_summary(
+    rows: list[dict], n_runs: int, *, windows_per_session: int = 2
+) -> dict:
+    """The summary the ``fleet_recovery`` lane publishes for
+    ``recovery_benchmark``'s rows: the largest session count's median
+    and spread, and ``contract_ok`` over every row."""
+    return {
+        "model": "analytic_demo",
+        "n_runs": int(n_runs),
+        "windows_per_session": int(windows_per_session),
+        "rows": rows,
+        "recovery_ms_median": rows[-1]["recovery_ms_median"],
+        "recovery_ms_std": rows[-1]["recovery_ms_std"],
+        "contract_ok": all(r["contract_ok"] for r in rows),
+    }
 
 
 def recovery_smoke(

@@ -16,10 +16,10 @@ device or a serving mesh, or a ``FleetCluster``.  Public surface:
         zero-drop at a dispatch boundary) and drives the cluster's
         add_worker / retire_worker from load.
   elastic_smoke — the elastic-traffic check.
+  elastic_traffic_benchmark — the ``elastic_traffic`` bench lane: static
+        floor, static ceiling and autoscaled runs of one swing under a
+        deterministic dispatch-cost model.
   DECLARED_SHEDS / undeclared_drops — the elastic run's loss verdict.
-
-Not ported yet (ROADMAP.md Queue 1 item 16): the ``elastic_traffic``
-bench lane.
 """
 
 from har_tpu_torch.serve.traffic.autoscale import (
@@ -35,6 +35,7 @@ from har_tpu_torch.serve.traffic.generate import (
 from har_tpu_torch.serve.traffic.smoke import (
     DECLARED_SHEDS,
     elastic_smoke,
+    elastic_traffic_benchmark,
     undeclared_drops,
 )
 
@@ -47,5 +48,6 @@ __all__ = [
     "TrafficTrace",
     "drive_trace",
     "elastic_smoke",
+    "elastic_traffic_benchmark",
     "undeclared_drops",
 ]

@@ -899,8 +899,10 @@ def test_unported_parts_name_item_15(tmp_path):
     """What once waited for ROADMAP.md Queue 1 item 15 keeps its
     contract: a registered warm standby shows in ``cluster_stats`` and
     serves the failover at zero failover-path bytes, the standby run of
-    the kill matrix and the replication-tail kill points pass; the
-    failover bench lane still names item 16."""
+    the kill matrix and the replication-tail kill points pass; and the
+    failover bench lane (item 16, ported) measures ``har_tpu``'s rows:
+    its keys, one failover a run with the victim's sessions migrated,
+    contract_ok."""
     from har_tpu_torch.serve.chaos import TAIL_KILL_POINTS, run_tail_kill_point
     from har_tpu_torch.serve.net.tail import LocalShipSource
     from har_tpu_torch.serve.replica import StandbyAgent
@@ -935,8 +937,14 @@ def test_unported_parts_name_item_15(tmp_path):
         assert out["ok"] and out["windows_lost"] == 0, (point, out["why"])
     from har_tpu_torch.serve.cluster.smoke import failover_benchmark
 
-    with pytest.raises(NotImplementedError, match="item 16"):
-        failover_benchmark([24])
+    rows = failover_benchmark([24], n_runs=2)
+    assert [set(r) for r in rows] == [{
+        "n_sessions", "workers", "migrated_sessions", "failover_ms_median",
+        "failover_ms_std", "migration_ms_median", "contract_ok"}]
+    (row,) = rows
+    assert (row["n_sessions"], row["workers"], row["contract_ok"]) == (24, 3, True)
+    assert 0 < row["migrated_sessions"] < 24
+    assert row["failover_ms_median"] > 0 and row["failover_ms_std"] >= 0
 
 
 def test_dead_worker_refuses_calls(tmp_path):

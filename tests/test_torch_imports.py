@@ -62,6 +62,12 @@ def test_port_has_files():
         "har_tpu_torch/serve/net/rpc.py",
         "har_tpu_torch/serve/net/worker.py",
         "har_tpu_torch/serve/net/controller.py",
+        "har_tpu_torch/bench.py",
+        "har_tpu_torch/serve/loadgen.py",
+        "har_tpu_torch/serve/recover.py",
+        "har_tpu_torch/serve/traffic/smoke.py",
+        "har_tpu_torch/serve/cluster/smoke.py",
+        "har_tpu_torch/serve/net/smoke.py",
     ):
         assert required in names
 

@@ -34,6 +34,7 @@ import os
 import subprocess
 import sys
 import threading
+import types
 
 import numpy as np
 import pytest
@@ -60,7 +61,7 @@ from har_tpu_torch.serve.net.rpc import (
     RpcServer,
 )
 from har_tpu_torch.serve.stats import FleetStats
-from tests._torch_ranks import CHILD_ENV, REPO, _one_at_a_time, child_hygiene
+from tests._torch_ranks import CHILD_ENV, CHILD_NICE, REPO, _one_at_a_time, child_hygiene
 
 torch.set_num_threads(1)
 
@@ -667,7 +668,12 @@ def test_unported_parts_name_item_15(tmp_path):
     counters; ``HAGatewayClient`` drives a gateway; the wire runners
     pass a ship point, a partition case and a gateway point (their full
     matrices live in tests/test_torch_{net_chaos,ship,gateway}.py).  The
-    wire bench lanes still name item 16."""
+    four wire bench lanes (item 16, ported) run beside ``har_tpu``'s on
+    the same sizes and seeds (its worker and gateway processes niced as
+    the port's): the same row keys, the seeded fields equal (migrated
+    sessions, shipped bytes and chunks, none on the replicated failover
+    path, frames and ack bytes, resumed sessions, contract_ok), the
+    timings a float >= 0 in both."""
     from har_tpu_torch.serve.chaos import (
         GATEWAY_KILL_POINTS,
         SHIP_KILL_POINTS,
@@ -685,6 +691,10 @@ def test_unported_parts_name_item_15(tmp_path):
     from har_tpu_torch.serve.net.gateway import IngestGateway
     from har_tpu_torch.serve.net.ship import fetch_journal, journal_manifest
     from tests._torch_ranks import cell, run_cells
+
+    import har_tpu.serve.net.controller as jax_controller
+    import har_tpu.serve.net.gateway as jax_gateway
+    from har_tpu.serve.net import smoke as jax_smoke
 
     jdir = tmp_path / "host" / "w0"
     server = FleetServer(MODEL, window=WINDOW, hop=HOP, channels=3, smoothing="ema",
@@ -766,7 +776,65 @@ def test_unported_parts_name_item_15(tmp_path):
         assert verdict["ok"], (name, verdict["why"])
         assert verdict.get("windows_lost", 0) == 0
 
-    for bench in ("journal_ship_benchmark", "wire_failover_benchmark",
-                  "wire_ingest_benchmark", "gateway_ha_benchmark"):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            getattr(smoke, bench)([24])
+    sizes = {"wire_failover_benchmark": 12, "journal_ship_benchmark": 12,
+             "wire_ingest_benchmark": 24, "gateway_ha_benchmark": 8}
+    benches = {(pkg, name): (lambda mod=mod, name=name, n=n: getattr(mod, name)([n], n_runs=1))
+               for pkg, mod in (("port", smoke), ("jax", jax_smoke)) for name, n in sizes.items()}
+    # one lane at a time: each starts 4-9 worker, agent and gateway
+    # processes, and the JAX package's wall-clock tests share the cores
+    niced = types.SimpleNamespace(**{**vars(subprocess), "Popen": _niced_popen})
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_controller, "subprocess", niced)
+        mp.setattr(jax_gateway, "subprocess", niced)
+        results = run_cells(benches, max_workers=1)
+    for name in sizes:
+        (row,), (theirs,) = cell(results, ("port", name)), cell(results, ("jax", name))
+        assert set(row) == set(theirs), name
+        assert row["transport"] == "tcp" and row["contract_ok"] is True, (name, row)
+        for key in BENCH_EQUAL_FIELDS[name]:
+            assert row[key] == theirs[key], (name, key, row[key], theirs[key])
+        for key in BENCH_TIMING_FIELDS[name]:
+            for r in (row, theirs):
+                assert isinstance(r[key], float) and r[key] >= 0, (name, key, r[key])
+    rows = {name: cell(results, ("port", name))[0] for name in sizes}
+    wire, ship = rows["wire_failover_benchmark"], rows["journal_ship_benchmark"]
+    ingest, gw = rows["wire_ingest_benchmark"], rows["gateway_ha_benchmark"]
+    assert wire["migrated_sessions"] > 0 and wire["failover_ms_median"] > 0
+    assert ship["shipped_bytes"] > 0 and ship["chunks"] >= 1
+    assert ship["ship_ms_median"] > 0 and ship["baseline_failover_ms_median"] > 0
+    assert ship["replicated_steady_lag_records"] >= 0
+    assert ingest["frames"] > 0 and ingest["windows_s_median"] > 0
+    assert 0 < ingest["ack_bytes_per_window"] < ingest["per_record_bytes_per_window"]
+    assert gw["failover_ms_median"] > 0 and gw["resumed_sessions"] >= 1
+    for r in (gw, cell(results, ("jax", "gateway_ha_benchmark"))[0]):
+        # how the clients met the flip (a dead socket or a moved receipt)
+        # follows when each gateway renewed its lease, not the seed
+        assert r["reconnects"] + r["moved_receipts"] >= 1
+
+
+def _niced_popen(cmd, *args, **kwargs):
+    return subprocess.Popen(["nice", "-n", str(CHILD_NICE), *cmd], *args, **kwargs)
+
+
+# the fields of a wire bench row that the seeds decide, equal in both
+# packages' runs, and its timings (each package's own, a float >= 0)
+BENCH_EQUAL_FIELDS = {
+    "wire_failover_benchmark": ("n_sessions", "workers", "transport", "migrated_sessions",
+                                "contract_ok"),
+    "journal_ship_benchmark": ("n_sessions", "workers", "transport", "shipped_bytes", "chunks",
+                               "replicated_failover_path_bytes", "contract_ok"),
+    "wire_ingest_benchmark": ("n_sessions", "workers", "transport", "frames",
+                              "ack_bytes_per_window", "per_record_bytes_per_window",
+                              "ack_coalesce_ratio", "contract_ok"),
+    "gateway_ha_benchmark": ("n_sessions", "workers", "gateways", "transport",
+                             "resumed_sessions", "contract_ok"),
+}
+BENCH_TIMING_FIELDS = {
+    "wire_failover_benchmark": ("failover_ms_median", "failover_ms_std", "rpc_rtt_p50_ms",
+                                "rpc_rtt_p99_ms"),
+    "journal_ship_benchmark": ("ship_ms_median", "ship_ms_std", "failover_ms_median",
+                               "baseline_failover_ms_median", "replicated_failover_ms_median"),
+    "wire_ingest_benchmark": ("windows_s_median", "windows_s_std", "inproc_windows_s_median",
+                              "event_p99_ms"),
+    "gateway_ha_benchmark": ("failover_ms_median", "failover_ms_max"),
+}

@@ -658,7 +658,10 @@ def test_elastic_smoke_verdict_green():
     """The elastic check, run in-process: 10x swing + storm + online
     resizes (a mesh rung on the CPU repeated twice) + cluster worker
     add/retire, zero windows lost, conservation balanced in every
-    snapshot.  Its bench lane waits for item 16."""
+    snapshot.  Its bench lane (item 16, ported) serves the same swing
+    statically and autoscaled: the autoscaled run beats the best static
+    one on p99 or shed rate, conservation balanced in every
+    configuration."""
     from har_tpu_torch.serve.traffic.smoke import (
         elastic_smoke,
         elastic_traffic_benchmark,
@@ -672,8 +675,17 @@ def test_elastic_smoke_verdict_green():
     assert out["mesh_devices"] >= 2
     assert out["worker_adds"] >= 1 and out["worker_retires"] >= 1
     assert out["balanced_every_round"] is True
-    with pytest.raises(NotImplementedError, match="item 16"):
-        elastic_traffic_benchmark(smoke=True)
+    bench = elastic_traffic_benchmark(smoke=True)
+    assert set(bench) == {
+        "trace", "swing", "dispatch_cost_model", "configs", "best_static_p99_ms",
+        "best_static_shed_rate", "windows_per_sec_parity", "parity_floor",
+        "parity_checked", "beats_static", "contract_ok"}
+    assert set(bench["configs"]) == {"static_floor", "static_ceiling", "autoscaled"}
+    assert bench["swing"] >= 8.0 and bench["parity_checked"] is False
+    assert bench["beats_static"] is True and bench["contract_ok"] is True
+    assert bench["configs"]["autoscaled"]["resizes"] >= 2
+    assert all(c["contract_ok"] and c["windows_per_sec_median"] > 0
+               for c in bench["configs"].values())
 
 
 def test_controller_mesh_ladder_names_item_14():
