@@ -309,10 +309,16 @@ exits nonzero without the final ``ok`` line:
     two fits of each tree lane (GBDT rounds x depth, parity's DT depth,
     the RF lane's chunks x depth), K2 exactly layers x steps of the
     transformer and saturation lanes' fits, from the line's own stats;
-37. with ``--profile`` only: one DT, one RF and one transformer fit, one
+37. lint_main: ``python -m har_tpu_torch.cli lint --check --json`` in a
+    fresh interpreter over the port's whole fileset (``har_tpu_torch/
+    analyze``, the port's own baseline): rc 0, the eight rules HL001-
+    HL008, no finding outside the baseline, its wall clock (imports
+    included) under the release gate's 8,000 ms and printed with the
+    card's name and power limit; no kernel launches;
+38. with ``--profile`` only: one DT, one RF and one transformer fit, one
     default run, one parity run, one GBDT fit and a 2-epoch BiLSTM fit
     under torch.profiler, with K1's and K2's shares of the device time;
-38. the kernels line (K1's launches over every path that grows trees),
+39. the kernels line (K1's launches over every path that grows trees),
     a short ``summary`` line, then ``{"ok": true, "device": {...}}``.
 
 ``train --eda`` (host matplotlib, no kernel) is not driven here: the card's
@@ -331,6 +337,15 @@ size with its default budget, or ``HAR_TPU_BENCH_BUDGET_S`` (phase 36's
 checks, a lane the deadline skips allowed) and stops there, without the last lines: the bench's
 numbers on the card.  Its whole line is in
 har_tpu_torch/_build/chip_smoke/bench/bench_latest.json.
+
+``--gate-only`` runs phases 1, 2 and 37, then ``gate_main``: the port's
+release gate, ``python -m har_tpu_torch.release_gate --skip-suite
+--device cuda`` (this machine has no jax for the port's tests, and the
+log says so): its lint, then its thirteen smokes each in a fresh
+interpreter, the mesh smokes over the visible cards; rc 0 and every
+verdict ok, the log under har_tpu_torch/_build/chip_smoke/gate/, the
+smokes' seconds printed with the card's name and power limit.  It stops
+there, without the last lines.
 
 ``--flash-only`` runs phases 1, 2 and 4 and stops there, without the last
 two lines: the quick way to time K2, or to time another checkout's K2 by
@@ -4745,6 +4760,85 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int,
     )
 
 
+# the release gate's lint budget (har_tpu_torch.release_gate), the JAX
+# package's: fresh-interpreter wall clock, imports included
+LINT_BUDGET_MS = 8000
+LINT_RULES = [f"HL00{i}" for i in range(1, 9)]
+
+
+def phase_lint_main() -> dict:
+    """``python -m har_tpu_torch.cli lint --check --json`` in a fresh
+    interpreter over the whole fileset (the checkout is an archive, so
+    no ``--changed``): rc 0, the eight rules, no finding outside the
+    port's baseline, within the gate's budget of wall clock; no kernel
+    launches."""
+    with launch_counts() as launches:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "har_tpu_torch.cli", "lint", "--check", "--json"],
+            cwd=ROOT, capture_output=True, text=True, timeout=300,
+        )
+        lint_ms = (time.perf_counter() - t0) * 1e3
+    if proc.returncode != 0:
+        raise AssertionError(f"lint rc {proc.returncode}: {proc.stdout[-2000:]}"
+                             f"{proc.stderr[-2000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    out = dict(lint_ms=lint_ms, budget_ms=LINT_BUDGET_MS, nvidia_smi=nvidia_smi(),
+               launches=launches,
+               **{k: report[k] for k in ("rules_run", "files", "findings", "per_rule",
+                                         "suppressed", "baselined", "annotation_suppressed",
+                                         "rule_ms", "callgraph_ms")},
+               in_process_ms=report["lint_ms"])
+    emit("lint_main", **out)
+    if not (report["ok"] and report["rules_run"] == LINT_RULES and report["findings"] == 0
+            and lint_ms < LINT_BUDGET_MS and not any(launches.values())):
+        raise AssertionError(f"lint_main: {out}")
+    return out
+
+
+def phase_gate_main() -> dict:
+    """``python -m har_tpu_torch.release_gate --skip-suite --device cuda``
+    (this machine has no jax for the port's tests): lint, then every
+    smoke in its own interpreter, the mesh smokes over the visible
+    cards; rc 0, every verdict ok, the log written under the build
+    directory.  Its smokes serve demo models in their own processes:
+    nothing launches a kernel here."""
+    log = OUT / "gate" / "test_gate.json"
+    log.unlink(missing_ok=True)
+    with launch_counts() as launches:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "har_tpu_torch.release_gate", "--skip-suite",
+             "--device", "cuda", "--log", str(log)],
+            cwd=ROOT, capture_output=True, text=True, timeout=1500,
+        )
+        seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"release_gate rc {proc.returncode}: {proc.stdout[-3000:]}"
+                             f"{proc.stderr[-3000:]}")
+    gate = json.loads(log.read_text())
+    verdicts = {k: v for k, v in gate.items()
+                if isinstance(v, dict) and k not in ("suite", "harlint")}
+    out = dict(
+        seconds=seconds, nvidia_smi=nvidia_smi(), launches=launches,
+        lint_ms=gate["harlint"]["lint_ms"], suite=gate["suite"],
+        smoke_seconds={k: v.get("seconds") for k, v in verdicts.items()},
+        model_parallel={k: gate["model_parallel"].get(k) for k in (
+            "mesh_shape", "cards", "model_axis_shards", "batch_shards",
+            "params_bytes_per_device", "max_abs_prob_diff", "p99_ms")},
+        fleet_pipeline={k: gate["fleet_pipeline"].get(k) for k in (
+            "devices", "cards_visible", "depth", "fused", "overlap_pct", "p99_ms")},
+        elastic={k: gate["elastic_smoke"].get(k) for k in (
+            "swing", "resizes", "p99_ms", "windows_lost")},
+    )
+    emit("gate_main", **out)
+    if not (gate["harlint"]["ok"] and gate["suite"].get("skipped")
+            and all(v.get("ok") for v in verdicts.values())
+            and len(verdicts) == 13 and not any(launches.values())):
+        raise AssertionError(f"gate_main: {out}")
+    return out
+
+
 def main(argv: list[str]) -> int:
     native_before = native_hashes()
     shutil.rmtree(MODELS_DIR, ignore_errors=True)
@@ -4763,6 +4857,10 @@ def main(argv: list[str]) -> int:
     if "--cluster-only" in argv:
         phase_raw_main()
         phase_ha_main(phase_cluster_main()["runs"], cells=None)
+        return 0
+    if "--gate-only" in argv:
+        phase_lint_main()
+        phase_gate_main()
         return 0
     hist = phase_hist()
     hist_rows = phase_hist_rows()
@@ -4803,6 +4901,7 @@ def main(argv: list[str]) -> int:
     cluster_main = phase_cluster_main()
     ha_main = phase_ha_main(cluster_main["runs"], cells=HA_DEFAULT_CELLS)
     bench_main = phase_bench_main()
+    lint_main = phase_lint_main()
     if "--profile" in argv:
         phase_profile()
     flash_launches = {
@@ -4992,6 +5091,7 @@ def main(argv: list[str]) -> int:
              cells_ok={g: sorted(rs) for g, rs in ha_main["cells"].items()}),
          bench_main=dict(seconds=bench_main["seconds"], launches=bench_main["launches"],
                          value=bench_main["result"]["value"]),
+         lint_main={k: lint_main[k] for k in ("lint_ms", "files", "findings", "baselined")},
          ucihar_split_candidates_s=ucihar_main["split_candidates_s"],
          ucihar_parity_lane_result=ucihar_lane["lane"], raw_lane_result=raw_lane_main["lane"])
     print(json.dumps({"ok": True, "device": device}), flush=True)

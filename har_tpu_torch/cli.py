@@ -43,6 +43,7 @@ and ``export``:
   python -m har_tpu_torch.cli serve --adapt --journal wal --resume --registry reg
   python -m har_tpu_torch.cli serve --trace diurnal --autoscale
   HAR_TPU_BENCH_SMOKE=1 python -m har_tpu_torch.cli bench --device cpu
+  python -m har_tpu_torch.cli lint --check --json   # harlint; imports no torch
 
 ``train`` writes result.txt, additional_param.csv,
 crossFold_additional_param.csv (with CV) and timing.csv into
@@ -51,7 +52,8 @@ writes the first three.  Both print the accuracies and artifact paths as
 JSON; ``sweep`` writes sweep.csv and sweep.txt and prints the table;
 ``parity --raw``, ``evaluate``, ``predict``, ``finetune``, ``stream``,
 ``export`` and ``serve`` print their results as JSON (``bench`` runs
-``har_tpu_torch.bench`` and prints its one line) (``stream`` replays a recording,
+``har_tpu_torch.bench`` and prints its one line; ``lint`` runs
+``har_tpu_torch.analyze`` and exits 1 on a finding outside the baseline) (``stream`` replays a recording,
 or a synthetic demo one, through ``serving.StreamingClassifier`` at the
 live cadence; ``export`` writes ``predict.pt2`` and ``export_meta.json``).  Without ``--data-path``, ``ucihar`` is a synthetic
 table of its shape, and ``parity --raw`` reads the file
@@ -65,13 +67,13 @@ import json
 import sys
 
 from har_tpu_torch.config import (
+    PARITY_BLOCKS,
     DataConfig,
     MeshConfig,
     ModelConfig,
     RunConfig,
     TuningConfig,
 )
-from har_tpu_torch.parity import BLOCKS
 
 DATASETS = ["wisdm", "wisdm_raw", "ucihar", "synthetic"]
 
@@ -265,7 +267,8 @@ def _parser() -> argparse.ArgumentParser:
     )
     pa.add_argument("--data-path", default=None)
     pa.add_argument("--output-dir", default="parity_result")
-    pa.add_argument("--blocks", nargs="+", default=list(BLOCKS), choices=BLOCKS,
+    pa.add_argument("--blocks", nargs="+", default=list(PARITY_BLOCKS),
+                    choices=PARITY_BLOCKS,
                     help="which reference blocks to run (default: all four)")
     pa.add_argument("--device", default="cuda",
                     help="where DT grows (with --raw: where the CNN "
@@ -315,7 +318,110 @@ def _parser() -> argparse.ArgumentParser:
              "WID=HOST:PORT` a warm standby that tails live workers; "
              "`serve-agent --help` for flags",
     )
+    _lint_arguments(sub)
     return p
+
+
+def _lint_arguments(sub) -> None:
+    """``lint``: har_tpu's flags and return codes over the port's tree."""
+    ln = sub.add_parser(
+        "lint",
+        help="harlint over the port's fleet stack (HL001 hot-path host "
+             "sync via call-graph reachability, HL002 state "
+             "completeness, HL003 journal/replay exhaustiveness, HL004 "
+             "determinism, HL005 durability, HL006 trace purity, HL007 "
+             "placement coverage, HL008 stale suppressions); rc 1 on "
+             "any finding outside the baseline.  Imports no torch",
+    )
+    ln.add_argument("paths", nargs="*", default=None,
+                    help="files/directories to lint (repo-relative); "
+                         "default is the fleet-stack fileset "
+                         "(har_tpu_torch/serve, adapt, parallel, "
+                         "serving.py, utils/durable.py, utils/backoff.py)")
+    ln.add_argument("--json", action="store_true", dest="as_json",
+                    help="one JSON report line (the release gate's "
+                         "format) instead of text findings")
+    ln.add_argument("--baseline", default=None,
+                    help="baseline suppression file (default: "
+                         "har_tpu_torch/harlint_baseline.json)")
+    ln.add_argument("--update-baseline", action="store_true",
+                    help="rewrite the baseline to the current findings "
+                         "(reviewed-debt admission; keep it near-empty)")
+    ln.add_argument("--check", action="store_true",
+                    help="summary only (no per-finding lines); rc is "
+                         "the verdict — the release-gate invocation")
+    ln.add_argument("--changed", nargs="?", const="HEAD", default=None,
+                    metavar="REF",
+                    help="lint only fileset files changed vs a git ref "
+                         "(default HEAD); HL003 and HL008 are skipped "
+                         "(they only hold over the full fileset)")
+    ln.add_argument("--rule", action="append", default=None,
+                    metavar="HL00X",
+                    help="run only the named rule (repeatable)")
+    ln.add_argument("--stats", action="store_true",
+                    help="print per-rule timing and the file count after "
+                         "the report; with --json the timings ride the "
+                         "report's rule_ms/callgraph_ms/lint_ms keys")
+
+
+def _lint(args) -> int:
+    """The pure-stdlib path: ``har_tpu_torch.analyze`` and nothing that
+    imports torch, so the release gate's lint stays inside its budget."""
+    from har_tpu_torch.analyze import (
+        LintReport,
+        changed_fileset_paths,
+        default_rules,
+        repo_root,
+        run_harlint,
+    )
+
+    rules = None
+    if args.rule:
+        known = {r.rule_id: r for r in default_rules()}
+        bad = [r for r in args.rule if r not in known]
+        if bad:
+            raise SystemExit(
+                f"unknown rule id(s) {', '.join(bad)} — "
+                f"available: {', '.join(sorted(known))}"
+            )
+        # deduplicated, order kept: a repeated --rule must not run twice
+        rules = [known[r] for r in dict.fromkeys(args.rule)]
+    paths = args.paths or None
+    if args.changed is not None:
+        if paths is not None:
+            raise SystemExit(
+                "--changed computes its own path subset; drop the "
+                "explicit paths (or drop --changed)"
+            )
+        paths = changed_fileset_paths(repo_root(), args.changed)
+        if not paths:
+            if args.as_json:
+                # one parseable report line even for the cleanest commit
+                print(json.dumps(LintReport(
+                    findings=[], baselined=0, annotation_suppressed=0,
+                    rules_run=[], files=0, baseline_path="",
+                    baseline_size=0,
+                ).to_json()))
+            else:
+                print(f"harlint: no fileset files changed vs "
+                      f"{args.changed} — nothing to lint")
+            return 0
+    report = run_harlint(
+        paths=paths,
+        baseline=args.baseline,
+        update_baseline=args.update_baseline,
+        rules=rules,
+    )
+    if args.as_json:
+        print(json.dumps(report.to_json()))
+    elif args.check:
+        print(f"harlint: {len(report.findings)} finding(s), "
+              f"{report.suppressed} suppressed")
+    else:
+        print(report.render())
+    if args.stats and not args.as_json:
+        print(report.render_stats())
+    return 0 if report.ok else 1
 
 
 def _serve_arguments(sub) -> None:
@@ -1487,6 +1593,8 @@ def main(argv=None) -> int:
 
         return _agent_main(argv[1:])
     args = _parser().parse_args(argv)
+    if args.command == "lint":
+        return _lint(args)
     if args.command == "bench":
         from har_tpu_torch.bench import run as _bench
 

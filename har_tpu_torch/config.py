@@ -19,6 +19,11 @@ from typing import Any, Mapping, Sequence
 WISDM_CSV_ENV = "HAR_TPU_WISDM_CSV"
 
 
+# the reference's four result.txt blocks, in its order (``parity``);
+# here, not in parity.py, so the CLI's parser needs no torch import
+PARITY_BLOCKS = ("lr", "lr_cv", "dt", "rf")
+
+
 def default_wisdm_path() -> str | None:
     path = os.environ.get(WISDM_CSV_ENV)
     return path if path and os.path.exists(path) else None

@@ -209,6 +209,9 @@ def data_shard_count(mesh) -> int:
 def model_shard_count(mesh) -> int:
     """How many ways the model (hidden) dimension splits: the ``tp``
     extent, 1 when the mesh has no model axis."""
+    # host-side mesh-shape arithmetic (a dict of ints), evaluated once
+    # at scorer construction — no device value is touched
+    # harlint: host-ok
     return int(mesh_shape(mesh).get(TP_AXIS, 1))
 
 

@@ -108,6 +108,8 @@ def _ndim(leaf) -> int:
 
 
 def _size(leaf) -> int:
+    # a leaf's shape metadata, read when a scorer places its weights
+    # harlint: host-ok
     return int(np.prod(leaf.shape)) if hasattr(leaf, "shape") else np.size(leaf)
 
 
@@ -355,6 +357,9 @@ def shard_divisibility_check(params, specs, mesh) -> None:
     for (path, leaf), s in zip(_walk(_as_tree(params)), spec_leaves):
         for dim, entry in zip(tuple(leaf.shape), tuple(s)):
             for ax in entry if isinstance(entry, tuple) else (entry,):
+                # host-side mesh-shape arithmetic at scorer
+                # construction — no device value is touched
+                # harlint: host-ok
                 if ax is not None and dim % int(shape[ax]):
                     raise ValueError(
                         f"param {tree_path_str(path)!r} dim {dim} not "

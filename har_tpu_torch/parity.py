@@ -37,12 +37,12 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from har_tpu_torch.config import DataConfig, RunConfig
+from har_tpu_torch.config import PARITY_BLOCKS, DataConfig, RunConfig
 from har_tpu_torch.device import resolve_device
 from har_tpu_torch.ops.metrics import evaluate
 from har_tpu_torch.reporting import ModelResult, ReportWriter
 
-BLOCKS = ("lr", "lr_cv", "dt", "rf")
+BLOCKS = PARITY_BLOCKS
 
 
 def write_reference_prefix(report, table, train, test, pipe) -> None:

@@ -462,7 +462,7 @@ class HostScorer:
         return self.model.transform(windows).probability
 
     def fetch(self, handle, k: int) -> np.ndarray:
-        return np.asarray(handle[:k], np.float64)
+        return np.asarray(handle[:k], np.float64)  # harlint: fetch-ok
 
     def measure(self, batch: int, iters: int = 16, *,
                 fused: bool = False) -> dict:
@@ -538,7 +538,11 @@ def _fused_program(forward, pre, device):
     argmax (int32) + top-prob, as one function of a device tensor."""
     mean = std = None
     if pre is not None:
+        # the fitted scaler's host-side statistics, uploaded once when
+        # the program is built; no device buffer is read
+        # harlint: host-ok
         mean = torch.as_tensor(np.asarray(pre.mean, np.float32), device=device)
+        # harlint: host-ok
         std = torch.as_tensor(np.asarray(pre.std, np.float32), device=device)
 
     @torch.no_grad()
@@ -630,6 +634,9 @@ class DeviceScorer:
         self.compiled_shapes.add(len(windows))
         self._programs.add(("bare", len(windows)))
         x = windows if self._pre is None else self._pre.transform(windows)
+        # cast of the host-side scaler's float64 output before it is
+        # placed; no device buffer is touched
+        # harlint: host-ok
         x = self._place(np.asarray(x, np.float32))
         with torch.no_grad():
             handle = self._run(x)
@@ -638,9 +645,10 @@ class DeviceScorer:
         return handle
 
     def fetch(self, handle, k: int) -> np.ndarray:
-        logits = self._wait_rtt(handle).cpu().numpy()
+        logits = self._wait_rtt(handle).cpu().numpy()  # harlint: fetch-ok (THE fetch)
+        # harlint: fetch-ok
         probs = torch.softmax(torch.from_numpy(logits), dim=-1).numpy()
-        return np.asarray(probs[:k], np.float64)
+        return np.asarray(probs[:k], np.float64)  # harlint: fetch-ok
 
     # ------------------------------------------------- fused hot loop
 
@@ -691,9 +699,12 @@ class DeviceScorer:
         logits fetch; the saving is counted in
         ``FleetStats.fetch_bytes_saved``)."""
         labels, top = self._wait_rtt(handle)
-        labels = labels.cpu().numpy()
-        top = top.cpu().numpy()
-        return labels[:k].astype(np.int64), np.asarray(top[:k], np.float64)
+        labels = labels.cpu().numpy()  # harlint: fetch-ok (THE fetch)
+        top = top.cpu().numpy()  # harlint: fetch-ok
+        return (
+            labels[:k].astype(np.int64),
+            np.asarray(top[:k], np.float64),  # harlint: fetch-ok
+        )
 
     def program_count(self) -> int:
         """Programs this scorer dispatched, over the bare forward AND the
@@ -843,7 +854,8 @@ class ShardedScorer(DeviceScorer):
         return self._gather([self._shard_forward(i)(x) for i, x in enumerate(parts)])
 
     def _sync(self) -> None:
-        for d in {_canonical(d) for d in (*self.mesh.devices.flat, self.device)}:
+        devices = {_canonical(d) for d in (*self.mesh.devices.flat, self.device)}
+        for d in sorted(devices, key=str):
             _synchronize(d)
 
     def _fused_fn(self):
