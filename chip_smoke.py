@@ -258,8 +258,32 @@ exits nonzero without the final ``ok`` line:
     ``make_pipeline_fn`` on one-rank NCCL meshes against
     ``moe_dense_reference`` and the stages in turn, outputs and
     gradients within 1e-5 (one rank: a single expert, so no routing, no
-    router gradient and no exchange between ranks);
-34. cluster_main: the fleet cluster (``serve.cluster``, ``serve.net``).
+    router gradient and no exchange between ranks).  The same layouts of
+    the other families a model axis serves (random float32 weights from
+    a seed at the registry's widths, TF32 off): CNN1D and
+    BiLSTM, and the int8 tiers (``quantize_serving``) of the MLP, CNN1D,
+    BiLSTM and the transformer, the MLP over fixed batches of 13-wide
+    feature rows through the scorer (the fleet scores windows): each
+    layout's scorer kind, devices and weight bytes the CPU port's
+    (model-parallel on 2x2, the single-device rung on 1x4 where a
+    sharded dim does not divide 4, as in har_tpu), probabilities within
+    1e-5 of one card and of the CPU, K2 exactly layers x dp x tp a
+    dispatch for the int8 transformer and 0 for the others; their
+    seconds printed;
+34. staging_main: the copy into the card that does not wait.  With a
+    random transformer at the CLI's widths (bf16): a wait of ~0.5 s
+    queued on the stream, then a launch, bare and fused, of a
+    ``DeviceScorer`` and of a ``ModelParallelScorer`` on 2x2: the stream
+    still busy right after each launch returns (the copy out of a pinned
+    ``PinnedStaging`` buffer did not wait), the result equal to the same
+    launch with the stream idle; a DeviceScorer's host ms a dispatch at
+    a batch of 32 (synchronous, two deep, and a launch behind one queued
+    forward); then ``fleet_pipeline_smoke`` at
+    pipeline depths 1-3, bare and fused, each against the synchronous
+    depth-1 run (labels equal, the confidence within 1e-6, nothing
+    dropped), windows/s of both legs printed with the card's name and
+    power limit; K2 exactly layers x dispatches;
+35. cluster_main: the fleet cluster (``serve.cluster``, ``serve.net``).
     The CLI transformer (phase 8's bf16 checkpoint) over a 3-worker
     ``FleetCluster`` on the card, 1,000 sessions x 2 windows, target
     batch 256, on a FakeClock: labels and raw labels equal to one card's
@@ -275,13 +299,13 @@ exits nonzero without the final ``ok`` line:
     --kill-worker w1`` in-process and with ``--net`` (three
     ``serve-worker`` processes on loopback), one failover each and the
     same windows scored;
-35. ha_main: the rest of the fleet cluster (warm standbys, journal
+36. ha_main: the rest of the fleet cluster (warm standbys, journal
     shipping, election, the ingest gateway pair).  ``ha_standby``: phase
-    34's transformer cluster with every worker tailed by a
+    35's transformer cluster with every worker tailed by a
     ``StandbyAgent`` over ``LocalShipSource`` (registered with ``prefer``,
     the next worker) and w1 killed once windows are scored: no window
     lost or repeated, the migrated sessions exactly w1's partition, one
-    standby fetch, labels and raw labels equal to phase 34's un-killed
+    standby fetch, labels and raw labels equal to phase 35's un-killed
     and cold-failover runs (probabilities within 1e-3), K2 exactly
     layers x the dispatches summed over the workers and the restored
     partition's drain, ``failover_ms`` and ``failover_path_bytes``
@@ -298,7 +322,7 @@ exits nonzero without the final ``ok`` line:
     ``ha_partition``, the four partition cases one at a time at the JAX
     package's RPC deadlines (no failover on a link fault, one owner a
     session after the split brain).  Every cell ok with no window lost;
-36. bench_main: the port's ``bench`` (``har_tpu_torch.bench.main``, as
+37. bench_main: the port's ``bench`` (``har_tpu_torch.bench.main``, as
     ``cli bench --device cuda`` runs it) in smoke mode with a budget no
     lane reaches: its last line's keys, every one of its 17 lanes with
     stats and its verdicts true (no window dropped, each contract_ok,
@@ -309,16 +333,16 @@ exits nonzero without the final ``ok`` line:
     two fits of each tree lane (GBDT rounds x depth, parity's DT depth,
     the RF lane's chunks x depth), K2 exactly layers x steps of the
     transformer and saturation lanes' fits, from the line's own stats;
-37. lint_main: ``python -m har_tpu_torch.cli lint --check --json`` in a
+38. lint_main: ``python -m har_tpu_torch.cli lint --check --json`` in a
     fresh interpreter over the port's whole fileset (``har_tpu_torch/
     analyze``, the port's own baseline): rc 0, the eight rules HL001-
     HL008, no finding outside the baseline, its wall clock (imports
     included) under the release gate's 8,000 ms and printed with the
     card's name and power limit; no kernel launches;
-38. with ``--profile`` only: one DT, one RF and one transformer fit, one
+39. with ``--profile`` only: one DT, one RF and one transformer fit, one
     default run, one parity run, one GBDT fit and a 2-epoch BiLSTM fit
     under torch.profiler, with K1's and K2's shares of the device time;
-39. the kernels line (K1's launches over every path that grows trees),
+40. the kernels line (K1's launches over every path that grows trees),
     a short ``summary`` line, then ``{"ok": true, "device": {...}}``.
 
 ``train --eda`` (host matplotlib, no kernel) is not driven here: the card's
@@ -328,17 +352,17 @@ machine has no matplotlib; the CPU tests hold it to har_tpu's files.
 last lines: the check of serving over a mesh, on as many cards as are
 visible (on a machine of four cards each mesh is laid over the four).
 
-``--cluster-only`` runs phases 1, 2, 8, 34 and 35 (every wire cell) and
+``--cluster-only`` runs phases 1, 2, 8, 35 and 36 (every wire cell) and
 stops there, without the last lines: the check of the fleet cluster on
 the card.
 
 ``--bench-only`` runs phases 1 and 2, then the port's bench once at full
-size with its default budget, or ``HAR_TPU_BENCH_BUDGET_S`` (phase 36's
+size with its default budget, or ``HAR_TPU_BENCH_BUDGET_S`` (phase 37's
 checks, a lane the deadline skips allowed) and stops there, without the last lines: the bench's
 numbers on the card.  Its whole line is in
 har_tpu_torch/_build/chip_smoke/bench/bench_latest.json.
 
-``--gate-only`` runs phases 1, 2 and 37, then ``gate_main``: the port's
+``--gate-only`` runs phases 1, 2 and 38, then ``gate_main``: the port's
 release gate, ``python -m har_tpu_torch.release_gate --skip-suite
 --device cuda`` (this machine has no jax for the port's tests, and the
 log says so): its lint, then its thirteen smokes each in a fresh
@@ -346,6 +370,12 @@ interpreter, the mesh smokes over the visible cards; rc 0 and every
 verdict ok, the log under har_tpu_torch/_build/chip_smoke/gate/, the
 smokes' seconds printed with the card's name and power limit.  It stops
 there, without the last lines.
+
+``--staging-only`` runs phases 1, 2 and 34 and stops there, without the
+last lines.  ``--pipeline-only`` runs phases 1 and 2 and then phase 34's
+dispatch times and pipelined schedules alone, five runs a configuration
+(no check that a launch does not wait): a copy of this script run from another
+checkout's root times that checkout's fleet pipeline the same way.
 
 ``--flash-only`` runs phases 1, 2 and 4 and stops there, without the last
 two lines: the quick way to time K2, or to time another checkout's K2 by
@@ -3788,40 +3818,83 @@ def _compare_events(got: dict, want: dict) -> dict:
     return out
 
 
+def scorer_fixed_batches(model, batches, mesh=None) -> tuple[dict, dict]:
+    """``model`` scoring each of ``batches`` (feature rows) through
+    ``make_scorer`` on ``mesh``: launch, fetch, the argmax.  Decisions by
+    (batch, row), in the shape the fleet's events have, and the scorer's
+    snapshot fields: what the fleet checks of a model over feature
+    vectors (the fleet itself scores windows)."""
+    from types import SimpleNamespace
+
+    from har_tpu_torch.serve import make_scorer
+
+    scorer = make_scorer(model, mesh)
+    events = {}
+    for b, x in enumerate(batches):
+        probs = scorer.fetch(scorer.launch(scorer.pad(x)), len(x))
+        for i, p in enumerate(probs):
+            label = int(p.argmax())
+            events[(b, i)] = SimpleNamespace(label=label, raw_label=label, drift=False,
+                                             probability=p)
+    return events, dict(dispatch_backend=scorer.kind, devices=scorer.devices,
+                        model_axis_shards=scorer.model_axis_shards, dispatches=len(batches),
+                        batch_sizes=[len(x) for x in batches],
+                        params_bytes=scorer.params_bytes())
+
+
 def mesh_layouts(tag: str, card_model, cpu_model, layers: int, atol_single: float,
-                 atol_cpu: float) -> dict:
+                 atol_cpu: float, kinds: dict | None = None, batches=None) -> dict:
     """``card_model`` on one card and on each MESH_SHAPES layout of the
-    cards (FakeClock, fixed batches): every layout against the single
-    card (probabilities within ``atol_single``) and against ``cpu_model``
-    on the same layout of the CPU (within ``atol_cpu``) — labels, raw
-    labels and drift equal; the scorer's kind; weight bytes a device
-    below the total on a model axis; K2 exactly layers x dp x tp a
-    dispatch."""
-    recordings, ref = _fleet_recordings()
-    single, _ = fleet_fixed_schedule(card_model, recordings, ref)
+    cards (FakeClock, fixed batches; ``batches`` of feature rows through
+    the scorer instead, for a model over feature vectors): every layout
+    against the single card (probabilities within ``atol_single``) and
+    against ``cpu_model`` on the same layout of the CPU (within
+    ``atol_cpu``) — labels, raw labels and drift equal; the scorer's
+    kind, devices, model-axis shards and weight bytes the CPU port's
+    (and the kind ``kinds`` names for the layout: by default batch-sharded
+    on a mesh of data axes, model-parallel on a model axis); weight bytes
+    a device below the total on a model axis; K2 exactly layers x the
+    devices a dispatch runs on (dp x tp model-parallel, dp batch-sharded,
+    1 on the single-device rung) a dispatch."""
+    if batches is None:
+        recordings, ref = _fleet_recordings()
+
+        def run(model, mesh=None):
+            return fleet_fixed_schedule(model, recordings, ref, mesh)
+    else:
+        def run(model, mesh=None):
+            return scorer_fixed_batches(model, batches, mesh)
+    single, _ = run(card_model)
     out = {}
     for dp, tp in MESH_SHAPES:
         t0 = time.perf_counter()
         with launch_counts() as launches:
-            card, snap = fleet_fixed_schedule(card_model, recordings, ref,
-                                              serving_mesh(dp, tp, "cuda"))
+            card, snap = run(card_model, serving_mesh(dp, tp, "cuda"))
         seconds = time.perf_counter() - t0
-        cpu, _ = fleet_fixed_schedule(cpu_model, recordings, ref, serving_mesh(dp, tp, "cpu"))
-        kind = "sharded" if tp == 1 else "model_parallel"
+        cpu, cpu_snap = run(cpu_model, serving_mesh(dp, tp, "cpu"))
+        kind = (kinds or {}).get((dp, tp), "sharded" if tp == 1 else "model_parallel")
+        shards = {"model_parallel": dp * tp, "sharded": dp}.get(snap["dispatch_backend"], 1)
         r = dict(
-            kind=snap["dispatch_backend"], devices=snap["devices"],
-            model_axis_shards=snap["model_axis_shards"], dispatches=snap["dispatches"],
-            batch_sizes=snap["batch_sizes"], params_bytes=snap["params_bytes"],
+            kind=snap["dispatch_backend"], cpu_kind=cpu_snap["dispatch_backend"],
+            devices=snap["devices"], model_axis_shards=snap["model_axis_shards"],
+            dispatches=snap["dispatches"], batch_sizes=snap["batch_sizes"],
+            params_bytes=snap["params_bytes"], cpu_params_bytes=cpu_snap["params_bytes"],
             vs_single=_compare_events(card, single), vs_cpu=_compare_events(card, cpu),
             launches=launches, seconds=seconds,
             expected_launches=dict(hist=0, hist_rows=0,
-                                   flash_attention=layers * snap["dispatches"] * dp * tp))
+                                   flash_attention=layers * snap["dispatches"] * shards))
         pb = r["params_bytes"]
         r["ok"] = bool(
-            r["kind"] == kind and r["devices"] == dp and r["model_axis_shards"] == tp
+            r["kind"] == kind == r["cpu_kind"]
+            and (r["devices"], r["model_axis_shards"])
+            == (cpu_snap["devices"], cpu_snap["model_axis_shards"])
+            and (kind != "device" or r["devices"] == 1)
+            and (kind != "sharded" or r["devices"] == dp)
+            and (kind != "model_parallel" or (r["devices"], r["model_axis_shards"]) == (dp, tp))
             and all(c.get("labels_equal") and c["max_prob_diff"] <= a
                     for c, a in ((r["vs_single"], atol_single), (r["vs_cpu"], atol_cpu)))
-            and (tp == 1 or pb["per_device"] < pb["total"])
+            and pb == r["cpu_params_bytes"]
+            and (kind != "model_parallel" or pb["per_device"] < pb["total"])
             and launches == r["expected_launches"])
         out[f"{dp}x{tp}"] = r
     emit("mesh_layouts", model=tag, **out)
@@ -3829,6 +3902,74 @@ def mesh_layouts(tag: str, card_model, cpu_model, layers: int, atol_single: floa
     if bad:
         raise AssertionError(f"mesh layouts of {tag}: {bad}")
     return out
+
+
+MESH_FAMILY_PROB_ATOL = 1e-5  # float32, TF32 off
+MLP_FEATURES = 13  # the WISDM feature vector the MLP family is trained on
+# the other families a model axis serves (the registry's widths,
+# float32, random weights from a seed), and the scorer
+# kind each layout gives, as in har_tpu: where a sharded dim of the
+# layout (a 6-class head, the int8 list's 1-D leaves, the recurrence's
+# two directions) does not divide tp = 4, the single-device rung
+MESH_FAMILIES = {
+    "cnn1d_f32": ("cnn1d", "f32", "model_parallel"),
+    "bilstm_f32": ("bilstm", "f32", "device"),
+    "mlp_int8": ("mlp", "int8", "device"),
+    "cnn1d_int8": ("cnn1d", "int8", "device"),
+    "bilstm_int8": ("bilstm", "int8", "device"),
+    "transformer_int8": ("transformer", "int8", "device"),
+}
+
+
+def random_family_model(name: str, device: str, seed: int = 0, dtype: str = "float32"):
+    """A model of the family ``name`` at the registry's widths (compute
+    ``dtype``) with random float32 weights (nonzero biases and norms) and
+    a random scaler, all from ``seed``: the same values on every device."""
+    from har_tpu_torch.features.scaler import FittedScaler
+    from har_tpu_torch.models.neural_classifier import NeuralClassifierModel
+    from har_tpu_torch.train.trainer import NeuralModel
+
+    shape = (MLP_FEATURES,) if name == "mlp" else (200, 3)
+    module = build_model(name, 6, in_features=shape[-1], dtype=dtype, dropout_rate=0.0)
+    module.reset_parameters(torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for p in module.parameters():
+            p.add_(torch.from_numpy(rng.normal(0, 0.1, p.shape).astype(np.float32)))
+    scaler = FittedScaler(mean=rng.normal(0, 0.5, shape).astype(np.float32),
+                          std=rng.uniform(0.5, 2.0, shape).astype(np.float32))
+    return NeuralClassifierModel(NeuralModel(module=module.eval().to(device), num_classes=6),
+                                 scaler, 6)
+
+
+def mesh_families() -> tuple[dict, dict]:
+    """``mesh_layouts`` of CNN1D and BiLSTM (float32) and the int8 tiers
+    of the MLP, CNN1D, BiLSTM and the transformer (``quantize_serving``
+    of the same weights on the card and on the CPU); the MLP over fixed
+    batches of feature rows.  K2 only in the int8 transformer's layouts.
+    The layouts by family, and each family's seconds."""
+    from har_tpu_torch.quantize import quantize_serving
+
+    rng = np.random.default_rng(3)
+    batches = [rng.normal(size=(n, MLP_FEATURES)).astype(np.float32) for n in (64, 64, 37)]
+    out, seconds = {}, {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for tag, (name, tier, on_1x4) in MESH_FAMILIES.items():
+            t0 = time.perf_counter()
+            card, cpu = random_family_model(name, "cuda"), random_family_model(name, "cpu")
+            if tier == "int8":
+                card, cpu = quantize_serving(card), quantize_serving(cpu)
+            layers = len(card.inner.forward.core.module.blocks) if name == "transformer" else 0
+            out[tag] = mesh_layouts(
+                tag, card, cpu, layers, MESH_FAMILY_PROB_ATOL, MESH_FAMILY_PROB_ATOL,
+                kinds={(2, 1): "sharded", (2, 2): "model_parallel", (1, 4): on_1x4},
+                batches=batches if name == "mlp" else None)
+            seconds[tag] = time.perf_counter() - t0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    return out, seconds
 
 
 def mesh_smoke(card_model, layers: int) -> dict:
@@ -4050,6 +4191,186 @@ def mesh_expert_pipeline() -> dict:
     return out
 
 
+STAGING_SLEEP_CYCLES = 1_000_000_000  # about 0.5 s of the card's clock queued ahead
+PIPELINE_DEPTHS = (1, 2, 3)
+PIPELINE_REPEATS = 5  # runs of a configuration under --pipeline-only
+
+
+def staging_async(model, layers: int) -> dict:
+    """A wait of STAGING_SLEEP_CYCLES queued on the current stream, then
+    one launch, bare and fused, of a DeviceScorer and of a
+    ModelParallelScorer (2x2 of the cards): right after each returns the
+    stream still runs (``query()`` is False: the copy into the card did
+    not wait for it), the copy came out of a pinned buffer, and the
+    result equals the launch before it, made with the stream idle.  K2
+    layers x (1 + 4) a launch pair."""
+    from har_tpu_torch.serve import make_scorer
+    from har_tpu_torch.serve.dispatch import PinnedStaging
+
+    recordings, _ = _fleet_recordings()
+    x = np.stack([r[:200] for r in recordings[:FLEET_AGREE_BATCH]])
+    out = {}
+    with launch_counts() as launches:
+        for tag, mesh in (("device", None), ("model_parallel", serving_mesh(2, 2, "cuda"))):
+            scorer = make_scorer(model, mesh)
+            padded = scorer.pad(x)
+            for fused in (False, True):
+                launch = scorer.launch_fused if fused else scorer.launch
+                fetch = scorer.fetch_fused if fused else scorer.fetch
+                idle = fetch(launch(padded), len(x))  # the program built, a buffer pinned
+                torch.cuda.synchronize()
+                torch.cuda._sleep(STAGING_SLEEP_CYCLES)
+                t0 = time.perf_counter()
+                handle = launch(padded)
+                launch_ms = (time.perf_counter() - t0) * 1e3
+                busy = not torch.cuda.current_stream().query()
+                got = fetch(handle, len(x))
+                wait_ms = (time.perf_counter() - t0) * 1e3
+                if fused:
+                    labels_equal = bool((got[0] == idle[0]).all())
+                    diff = float(np.abs(got[1] - idle[1]).max())
+                else:
+                    labels_equal = bool((got.argmax(-1) == idle.argmax(-1)).all())
+                    diff = float(np.abs(got - idle).max())
+                out[f"{tag}_{'fused' if fused else 'bare'}"] = dict(
+                    kind=scorer.kind, launch_ms=launch_ms, fetch_done_ms=wait_ms,
+                    stream_busy_after_launch=busy,
+                    pinned=isinstance(scorer._staging, PinnedStaging),
+                    pinned_buffers=getattr(scorer._staging, "allocated", 0),
+                    labels_equal=labels_equal, max_abs_diff=diff)
+    expected = dict(hist=0, hist_rows=0, flash_attention=layers * 2 * 2 * (1 + 4))
+    emit("staging_async", launches=launches, expected_launches=expected, **out)
+    if not (launches == expected and all(
+            r["stream_busy_after_launch"] and r["pinned"] and r["pinned_buffers"] > 0
+            and r["labels_equal"] and r["max_abs_diff"] <= FLEET_CONFIDENCE_ATOL
+            for r in out.values())):
+        raise AssertionError(f"staging_async: {out}")
+    return dict(out, launches=launches)
+
+
+def pipeline_rates(model, layers: int, repeats: int = 1) -> dict:
+    """``fleet_pipeline_smoke`` of ``model`` at pipeline depths 1-3, bare
+    and fused (FakeClock, fixed batches), ``repeats`` runs each after one
+    warm-up run: the decisions equal the synchronous depth-1 run's
+    (labels, raw labels and drift; the confidence within 1e-6), no window
+    dropped, every dispatch fused where asked, several tickets in flight
+    at depths 2-3; windows/s of both legs (each run's, and the median);
+    K2 layers x both legs' dispatches."""
+    import functools
+
+    from har_tpu_torch.serve import fleet_pipeline_smoke
+
+    run = functools.partial(fleet_pipeline_smoke, sessions=FLEET_AGREE_SESSIONS,
+                            target_batch=32, model=model, fake_clock=True)
+    with launch_counts() as launches:
+        warm = run(pipeline_depth=1, fused=False)  # every padded shape's first use
+    out = dict(warm_up=dict(launches=launches, expected_launches=dict(
+        hist=0, hist_rows=0,
+        flash_attention=layers * (warm["dispatches_depth1"] + warm["dispatches"])),
+        passed=bool(warm["equivalent"])))
+    out["warm_up"]["passed"] &= launches == out["warm_up"]["expected_launches"]
+    for depth in PIPELINE_DEPTHS:
+        for fused in (False, True):
+            with launch_counts() as launches:
+                runs = [run(pipeline_depth=depth, fused=fused) for _ in range(repeats)]
+            expected = dict(hist=0, hist_rows=0, flash_attention=layers * sum(
+                r["dispatches_depth1"] + r["dispatches"] for r in runs))
+            rates = [r["windows_per_sec"] for r in runs]
+            rates_1 = [r["windows_per_sec_depth1"] for r in runs]
+            out[f"depth{depth}_{'fused' if fused else 'bare'}"] = dict(
+                windows_per_sec=statistics.median(rates),
+                windows_per_sec_depth1=statistics.median(rates_1),
+                runs_windows_per_sec=rates, runs_windows_per_sec_depth1=rates_1,
+                dispatches=runs[0]["dispatches"], inflight_depth=runs[0]["inflight_depth"],
+                launches=launches, expected_launches=expected,
+                passed=bool(launches == expected and all(
+                    r["equivalent"] and r["dropped"] == 0
+                    and (not fused or r["fused_dispatches"] == r["dispatches"])
+                    and (depth == 1 or r["ok"]) for r in runs)))
+    emit("staging_pipeline", nvidia_smi=nvidia_smi(), repeats=repeats, **out)
+    bad = {k: r for k, r in out.items() if not r["passed"]}
+    if bad:
+        raise AssertionError(f"pipelined schedules against depth 1: {bad}")
+    return out
+
+
+def dispatch_rates(model, layers: int, rounds: int = 5, iters: int = 100) -> dict:
+    """A DeviceScorer of ``model`` on one padded batch of 32 windows, in
+    host milliseconds a dispatch (wall clock, the median of ``rounds``
+    runs of ``iters``): synchronous (launch, fetch), two deep (each
+    launch before the last fetch, the pipeline's overlap), and a launch's
+    own time with one forward already queued (a copy that waits for the
+    queue pays that forward here).  K2 layers x launches."""
+    from har_tpu_torch.serve import make_scorer
+
+    recordings, _ = _fleet_recordings()
+    x = np.stack([r[:200] for r in recordings[:32]])
+    scorer = make_scorer(model, None)
+    padded = scorer.pad(x)
+    launched = [0]
+
+    def launch():
+        launched[0] += 1
+        return scorer.launch(padded)
+
+    def sync():
+        for _ in range(iters):
+            scorer.fetch(launch(), len(x))
+
+    def overlapped():
+        prev = launch()
+        for _ in range(iters - 1):
+            handle = launch()
+            scorer.fetch(prev, len(x))
+            prev = handle
+        scorer.fetch(prev, len(x))
+
+    def per_dispatch(fn):
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3 / iters
+
+    with launch_counts() as launches:
+        sync()  # warm
+        out = dict(sync_ms=statistics.median(per_dispatch(sync) for _ in range(rounds)),
+                   overlapped_ms=statistics.median(per_dispatch(overlapped)
+                                                   for _ in range(rounds)))
+        behind = []
+        for _ in range(iters):
+            queued = launch()
+            t0 = time.perf_counter()
+            handle = launch()
+            behind.append((time.perf_counter() - t0) * 1e3)
+            scorer.fetch(queued, len(x))
+            scorer.fetch(handle, len(x))
+        out["launch_behind_one_ms"] = statistics.median(behind)
+    expected = dict(hist=0, hist_rows=0, flash_attention=layers * launched[0])
+    out.update(launches=launches, expected_launches=expected, rounds=rounds, iters=iters)
+    emit("staging_dispatch", nvidia_smi=nvidia_smi(), **out)
+    if launches != expected:
+        raise AssertionError(f"staging_dispatch: {out}")
+    return out
+
+
+def phase_staging_main() -> dict:
+    """The copy into the card that does not wait (``PinnedStaging``):
+    ``staging_async``, then ``pipeline_rates``, both with a random
+    transformer at the CLI's widths (embed 64, 4 heads, 2 layers, bf16)."""
+    t0 = time.perf_counter()
+    model = random_family_model("transformer", "cuda", dtype="bfloat16")
+    layers = len(model.inner.module.blocks)
+    staged = staging_async(model, layers)
+    dispatch = dispatch_rates(model, layers)
+    rates = pipeline_rates(model, layers)
+    launches = (staged["launches"]["flash_attention"]
+                + dispatch["launches"]["flash_attention"]
+                + sum(r["launches"]["flash_attention"] for r in rates.values()))
+    seconds = time.perf_counter() - t0
+    emit("staging_main", seconds=seconds, launches=launches)
+    return dict(seconds=seconds, staged=staged, dispatch=dispatch, rates=rates,
+                launches=dict(flash_attention=launches))
+
+
 def phase_mesh_serve_main() -> dict:
     """Serving over a single-controller mesh over the visible cards
     (cuda:0 repeated on one card): the CLI transformer (bf16, fleet_main's
@@ -4074,6 +4395,10 @@ def phase_mesh_serve_main() -> dict:
         layouts["demo_f32"] = mesh_layouts("demo_f32", JitDemoModel(device="cuda"),
                                            JitDemoModel(device="cpu"), 0, MESH_DEMO_PROB_ATOL,
                                            MESH_DEMO_PROB_ATOL)
+        t_families = time.perf_counter()
+        families, family_seconds = mesh_families()
+        families_seconds = time.perf_counter() - t_families
+        layouts.update(families)
         smoke = mesh_smoke(card_model, layers)
         kill = run_kill_point("mid_dispatch", mesh=serving_mesh(2, 2, "cuda"))
     finally:
@@ -4085,15 +4410,19 @@ def phase_mesh_serve_main() -> dict:
     mesh_cli_run = mesh_cli(path, layers)
     artifact = mesh_artifact(path, layers)
     parallel = mesh_expert_pipeline()
-    launches = (sum(r["launches"]["flash_attention"] for r in layouts["transformer"].values())
+    launches = (sum(r["launches"]["flash_attention"] for tag in ("transformer", "transformer_int8")
+                    for r in layouts[tag].values())
                 + smoke["transformer"]["launches"]["flash_attention"]
                 + resize["launches"]["flash_attention"]
                 + sum(r["launches"]["flash_attention"]
                       for r in mesh_cli_run.values() if not isinstance(r, str))
                 + artifact["launches"]["flash_attention"])
     seconds = time.perf_counter() - t0
-    emit("mesh_serve_main", seconds=seconds, nvidia_smi=nvidia_smi(), launches=launches)
-    return dict(seconds=seconds, layouts=layouts, smoke=smoke, kill=kill, resize=resize,
+    emit("mesh_serve_main", seconds=seconds, nvidia_smi=nvidia_smi(), launches=launches,
+         families_seconds=families_seconds,
+         family_seconds=family_seconds)
+    return dict(seconds=seconds, families_seconds=families_seconds, layouts=layouts,
+                smoke=smoke, kill=kill, resize=resize,
                 cli=mesh_cli_run, artifact=artifact, parallel=parallel,
                 launches=dict(flash_attention=launches))
 
@@ -4851,6 +5180,14 @@ def main(argv: list[str]) -> int:
         phase_raw_main()
         phase_mesh_serve_main()
         return 0
+    if "--staging-only" in argv:
+        phase_staging_main()
+        return 0
+    if "--pipeline-only" in argv:
+        model = random_family_model("transformer", "cuda", dtype="bfloat16")
+        dispatch_rates(model, 2)
+        pipeline_rates(model, 2, repeats=PIPELINE_REPEATS)
+        return 0
     if "--bench-only" in argv:
         phase_bench_main(smoke=False)
         return 0
@@ -4898,6 +5235,7 @@ def main(argv: list[str]) -> int:
     raw_lane_main = phase_raw_lane_main()
     parallel_main = phase_parallel_main()
     mesh_serve_main = phase_mesh_serve_main()
+    staging_main = phase_staging_main()
     cluster_main = phase_cluster_main()
     ha_main = phase_ha_main(cluster_main["runs"], cells=HA_DEFAULT_CELLS)
     bench_main = phase_bench_main()
@@ -4914,6 +5252,7 @@ def main(argv: list[str]) -> int:
                            ("adapt_main", adapt_main), ("traffic_main", traffic_main),
                            ("parallel_main", parallel_main),
                            ("mesh_serve_main", mesh_serve_main),
+                           ("staging_main", staging_main),
                            ("cluster_main", cluster_main), ("ha_main", ha_main),
                            ("bench_main", bench_main))
     }
@@ -5056,6 +5395,7 @@ def main(argv: list[str]) -> int:
                    for sp, r in parallel_main["ring"]["by_sp"].items()}),
          mesh_serve_main=dict(
              seconds=mesh_serve_main["seconds"], launches=mesh_serve_main["launches"],
+             families_seconds=mesh_serve_main["families_seconds"],
              layouts={tag: {shape: {k: r[k] for k in ("kind", "dispatches", "launches",
                                                       "params_bytes", "seconds")}
                             | {"vs_single": r["vs_single"].get("max_prob_diff"),
@@ -5071,6 +5411,15 @@ def main(argv: list[str]) -> int:
              artifact={k: mesh_serve_main["artifact"][k]
                        for k in ("kind", "devices", "max_abs_diff", "launches")},
              parallel=mesh_serve_main["parallel"]),
+         staging_main=dict(
+             seconds=staging_main["seconds"], launches=staging_main["launches"],
+             staged={tag: {k: r[k] for k in ("launch_ms", "fetch_done_ms",
+                                             "stream_busy_after_launch", "pinned_buffers")}
+                     for tag, r in staging_main["staged"].items() if tag != "launches"},
+             dispatch={k: staging_main["dispatch"][k] for k in (
+                 "sync_ms", "overlapped_ms", "launch_behind_one_ms")},
+             rates={tag: {k: r[k] for k in ("windows_per_sec", "windows_per_sec_depth1")}
+                    for tag, r in staging_main["rates"].items() if tag != "warm_up"}),
          cluster_main=dict(
              seconds=cluster_main["seconds"], launches=cluster_main["launches"],
              agree={k: cluster_main["agree"][k] for k in (

@@ -380,14 +380,17 @@ def neural_params_to_flax(model_name: str, module, state_dict=None) -> dict:
     return _TO_FLAX[model_name](state_dict)
 
 
-def flax_leaf_names(model_name: str, module) -> dict[str, tuple[str, int]]:
+def flax_leaf_names(model_name: str, module, state_dict=None) -> dict[str, tuple[str, int]]:
     """Each ``state_dict`` name of a neural module -> the flax leaf that
     holds its values (its ``/``-joined path) and that leaf's ndim: the
     family's conversion run on tensors that each hold their own index
-    (a ``scan_layers`` block's leaves share one stacked flax leaf)."""
-    names = list(module.state_dict())
+    (a ``scan_layers`` block's leaves share one stacked flax leaf).
+    ``state_dict`` gives the parameters' shapes where the module's own
+    are not the served ones (an int8 program's emptied copy)."""
+    state_dict = module.state_dict() if state_dict is None else state_dict
+    names = list(state_dict)
     marked = {name: torch.full(tuple(value.shape), float(i))
-              for i, (name, value) in enumerate(module.state_dict().items())}
+              for i, (name, value) in enumerate(state_dict.items())}
     out: dict = {}
 
     def walk(tree, path):

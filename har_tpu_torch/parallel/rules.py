@@ -285,7 +285,7 @@ def natural_key(path: str) -> tuple:
 
 
 def alternating_rules(params, tp_axis: str = TP_AXIS, *, kernels_only: bool = False,
-                      walk=None):
+                      walk=None, in_out: bool = False):
     """Generated table: Megatron alternation over any parameter tree.
 
     Walks the leaves in the tree's own order (a module's registration
@@ -293,7 +293,10 @@ def alternating_rules(params, tp_axis: str = TP_AXIS, *, kernels_only: bool = Fa
     kernel-like leaf — even ordinals column-parallel ``P(tp, None)``, odd
     row-parallel ``P(None, tp)`` — a rule for the bias of each
     column-parallel kernel, and the catch-all.  ``kernels_only`` counts
-    only leaves named ``weight`` (or ``kernel``).
+    only leaves named ``weight`` (or ``kernel``).  ``in_out`` reads the
+    kernels in flax's ``(in, out)`` layout (an int8 tier's stored leaf
+    list), where the specs are the JAX package's: column-parallel
+    ``P(None, tp)``, row-parallel ``P(tp, None)``.
 
     ``walk`` replaces the tree's own walk: ``(name, path, ndim)`` a leaf,
     in the order to walk, where ``name`` is what the rule matches and the
@@ -317,7 +320,7 @@ def alternating_rules(params, tp_axis: str = TP_AXIS, *, kernels_only: bool = Fa
             kernel_index += 1
             rules.append((
                 rf"^{re.escape(name)}$",
-                P(tp_axis, None) if column else P(None, tp_axis),
+                P(tp_axis, None) if column != in_out else P(None, tp_axis),
             ))
             prev_was_column = column
         elif ndim == 1 and tail.isdigit() and prev_was_column:

@@ -11,8 +11,8 @@ pieces:
     allocations.
 
   ``DispatchTicket`` + the scorer family — the launch/retire split.
-    ``launch(windows)`` stages the batch on the device (one synchronous
-    host-to-device copy, then the forward under ``torch.no_grad()``)
+    ``launch(windows)`` stages the batch on the device (one copy that
+    does not wait, then the forward under ``torch.no_grad()``)
     and returns the un-synchronised device tensor: CUDA runs the
     forward while the host assembles the next batch.  ``fetch(handle,
     k)`` synchronises through ``.cpu()`` and produces the same ``(k,
@@ -44,11 +44,22 @@ pieces:
                           parallel forward of ``serve.model_parallel``
                           (K2 on each device's heads for a transformer).
 
-The staging copy is synchronous (a pageable ``.to(device)``; on the CPU
-the forward itself runs inside ``launch``), so a slab the engine
-rewrites after ``launch`` returns can never change that ticket's
-result; the engine still recycles slabs and staging slots only at
-retire, as the JAX package must (its ``device_put`` may alias).
+The copy into a card does not wait: ``launch`` copies the host rows
+into a page-locked buffer of :class:`PinnedStaging` (one host memcpy)
+and from there into the card with ``non_blocking=True``, so the host
+returns while the card still runs the previous dispatch's forward, as
+the JAX package's ``device_put`` does.  The rule that keeps this right:
+a pinned buffer is written again only after the copy that reads it has
+finished — each copy records a CUDA event on the stream that runs it,
+and the pool hands a buffer out again only once its events have
+completed (pooled by padded shape, so the pool grows to the copies in
+flight at once: about the pipeline depth, fused or bare).  A slab the
+engine rewrites after ``launch`` returns can therefore never change that
+ticket's result; the engine still recycles slabs and staging slots only
+at retire, as the JAX package must (its ``device_put`` may alias).  On
+the CPU the host array is the device tensor (no copy) and the forward
+runs to its end inside ``launch``.  There is no route back to a pageable
+copy into a card: a failed pin or copy raises.
 
 The pipelining itself (double-buffered launch→retire with FIFO retire
 order) lives in ``FleetServer.poll`` — retire order is the journal's
@@ -67,6 +78,64 @@ import numpy as np
 import torch
 
 from har_tpu_torch.serving import pad_pow2, pad_shard
+
+class PinnedStaging:
+    """Page-locked staging buffers for the copies into a card, pooled by
+    shape.
+
+    ``put(x, targets)`` writes the host rows ``x`` into a free buffer of
+    their shape, starts one ``non_blocking`` copy a target — ``(row
+    slice, device)`` — and records a fence on each target's stream after
+    it; the buffer goes back to the pool only when every fence has
+    completed (:meth:`acquire` reaps them), so no buffer is written while
+    a copy out of it may still read it.  ``pin=False`` and ``fence`` (a
+    callable of the device returning an object with ``query()``) let a
+    test drive the same rule on the CPU.
+    """
+
+    def __init__(self, *, pin: bool = True, fence=None):
+        self._pin = pin
+        self._fence = _cuda_fence if fence is None else fence
+        self._free: dict[tuple, list] = {}
+        self._busy: list = []  # (buffer, fences), in hand-out order
+        self.allocated = 0
+
+    def _reap(self) -> None:
+        busy = []
+        for buf, fences in self._busy:
+            if all(f.query() for f in fences):
+                self._free.setdefault(tuple(buf.shape), []).append(buf)
+            else:
+                busy.append((buf, fences))
+        self._busy = busy
+
+    def acquire(self, shape) -> torch.Tensor:
+        """A float32 buffer of ``shape`` that no copy reads any more."""
+        self._reap()
+        free = self._free.get(tuple(shape))
+        if free:
+            return free.pop()
+        self.allocated += 1
+        return torch.empty(tuple(shape), dtype=torch.float32, pin_memory=self._pin)
+
+    def in_flight(self) -> list:
+        """The buffers a copy may still read (not to be handed out)."""
+        return [buf for buf, fences in self._busy if not all(f.query() for f in fences)]
+
+    def put(self, x: np.ndarray, targets) -> list:
+        buf = self.acquire(x.shape)
+        buf.copy_(torch.from_numpy(x))
+        out = [buf[rows].to(device, non_blocking=True) for rows, device in targets]
+        devices = {str(d): d for _, d in targets}
+        self._busy.append((buf, [self._fence(d) for d in devices.values()]))
+        return out
+
+
+def _cuda_fence(device):
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
+
 
 class NoDeviceProgram(ValueError):
     """The model has no device forward to launch (trees, MLlib replicas,
@@ -528,6 +597,14 @@ def _split_predict(model):
     )
 
 
+def _host_tensor(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor of a host device: the array itself."""
+    if device.type != "cpu":
+        raise ValueError(f"no staging route to {device}: the copies into a "
+                         "card go through PinnedStaging")
+    return torch.from_numpy(x)
+
+
 def _synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -560,7 +637,7 @@ def _fused_program(forward, pre, device):
 class DeviceScorer:
     """Async launch/retire over a device forward.
 
-    launch = host scaler + one synchronous host-to-device copy + the
+    launch = host scaler + one host-to-device copy that does not wait + the
     forward under ``torch.no_grad()`` — returns the un-synchronised
     device tensor (CUDA launches are asynchronous; the card executes
     while the host moves on).  fetch = ``.cpu()`` (THE synchronisation),
@@ -598,6 +675,8 @@ class DeviceScorer:
         self.tunnel_rtt_ms = float(
             getattr(model, "tunnel_rtt_ms", 0.0) or 0.0
         )
+        # the copies into a card go through pinned buffers
+        self._staging = PinnedStaging() if self.device.type == "cuda" else None
 
     def pad(self, windows: np.ndarray) -> np.ndarray:
         return pad_pow2(windows)
@@ -606,10 +685,13 @@ class DeviceScorer:
         return 1 << (max(int(k), 1) - 1).bit_length()
 
     def _place(self, x: np.ndarray) -> torch.Tensor:
-        # a synchronous pageable copy: the host buffer may be rewritten
-        # as soon as this returns (on the CPU the forward that follows
-        # runs to its end inside launch)
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        # on a card, through a pinned buffer that no copy still reads;
+        # on the CPU the host array is the device tensor (the forward
+        # that follows runs to its end inside launch)
+        x = np.ascontiguousarray(x)
+        if self._staging is not None:
+            return self._staging.put(x, [(slice(None), self.device)])[0]
+        return _host_tensor(x, self.device)
 
     def _run(self, x):
         """The bare forward on placed input: device logits."""
@@ -803,6 +885,8 @@ class ShardedScorer(DeviceScorer):
         # package's device ids on its dry-run mesh): every cell's share
         # of a batch lands in the device-windows gauge
         self.device_labels = tuple(str(k) for k in range(grid.size))
+        cards = all(d.type == "cuda" for d in self._shard_devices)
+        self._staging = PinnedStaging() if cards else None
         self._replicas: dict = {}
         if replicas:
             for i in range(self.devices):
@@ -816,13 +900,13 @@ class ShardedScorer(DeviceScorer):
         return self.devices * (1 << (per - 1).bit_length())
 
     def _place(self, x: np.ndarray) -> list:
-        # one synchronous copy a shard, as DeviceScorer._place
+        # one copy a shard out of one pinned buffer, as DeviceScorer._place
         x = np.ascontiguousarray(x)
         per = len(x) // self.devices
-        return [
-            torch.from_numpy(x[i * per:(i + 1) * per]).to(d)
-            for i, d in enumerate(self._shard_devices)
-        ]
+        rows = [slice(i * per, (i + 1) * per) for i in range(self.devices)]
+        if self._staging is not None:
+            return self._staging.put(x, list(zip(rows, self._shard_devices)))
+        return [_host_tensor(x[r], d) for r, d in zip(rows, self._shard_devices)]
 
     def _shard_forward(self, i: int):
         """Data shard ``i``'s forward: the model's program on its own
@@ -885,14 +969,16 @@ class ModelParallelScorer(ShardedScorer):
     launch (bare, fused, calibration) runs the tensor-parallel forward of
     ``serve.model_parallel`` on the placed leaves, one data shard at a
     time.  Per-device residency is the sharded leaves' 1/tp share,
-    reported by ``params_bytes``.
+    reported by ``params_bytes`` (an int8 tier counts its stored leaves,
+    as the JAX package counts its program's weight inputs).
 
     The placement is a runtime resource like the mesh: a journal recovery
     or an engine ``resize`` onto a model-axis mesh rebuilds the scorer,
-    which re-places the weights through the same table.  A model this
-    layout that does not divide the mesh raises
+    which re-places the weights through the same table.  A model whose
+    layout does not divide the mesh raises
     ``model_parallel.NotModelParallel``, and ``make_scorer`` takes the
-    batch-only rung; a family with no tensor-parallel forward here raises
+    batch-only rung; a program with no tensor-parallel forward here (an
+    exported program, a sequence-sharded transformer) raises
     ``model_parallel.NoTensorParallelForward``, which it lets through.
     """
 
@@ -926,7 +1012,7 @@ def make_scorer(model, mesh=None, *, tier: str = "f32",
     :class:`NoDeviceProgram`) the synchronous HostScorer.  A host model,
     or a layout that does not divide the mesh (hidden dims or heads),
     takes the next rung down, as in the JAX package; any other error
-    propagates: a family with no tensor-parallel forward in the port
+    propagates: a program with no tensor-parallel forward in the port
     (``model_parallel.NoTensorParallelForward``) is refused on a model
     axis rather than served on fewer devices than asked, and a device
     program that fails to build is never quietly served on the host.

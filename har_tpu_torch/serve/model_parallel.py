@@ -4,21 +4,34 @@ The JAX package's ``ModelParallelScorer`` places a checkpoint's leaves by
 its family's partition-rule table and lets GSPMD insert the collectives
 the layout implies.  The port has no compiler to do that, so this module
 runs the layout itself, one data shard (one row of ``tp`` devices of a
-:class:`~har_tpu_torch.parallel.mesh.ServingMesh`) at a time, for the
-families a fleet serves:
+:class:`~har_tpu_torch.parallel.mesh.ServingMesh`) at a time, for every
+model a fleet serves on a device:
 
 - ``JitDemoModel``'s ``tanh(x @ w1 + b1) @ w2``, placed by the generated
   ``alternating_rules`` table on its weights in ``(out, in)`` layout, and
   its int8 tier (``quantize_serving``) by ``INT8_RULES`` on the stored
   int8 leaves in their ``(in, out)`` layout;
-- the neural MLP (``DENSE_MLP_RULES`` or its ``alternating_rules``),
-  and any transformer-shaped module (parameter names that select
+- the neural MLP, CNN1D and BiLSTM, placed by the table the JAX package
+  generates for their flax tree (``alternating_rules`` walked in the
+  natural order of the flax paths, ``convert.flax_leaf_names``: the
+  conv stack and the recurrence, 3-D, stay replicated), and any
+  transformer-shaped module (parameter names that select
   ``TRANSFORMER_RULES``, ``blocks`` of encoder blocks: ``Transformer1D``,
   the bench's ``WideTransformerDemoModel``): the model's own forward runs
   on a copy of the module whose ``Dense`` layers are swapped for layers
   of the table's layout and whose encoder blocks attend on each device's
   heads (K2 where the block uses it; the wide demo's plain attention, as
-  the JAX model's).
+  the JAX model's);
+- the int8 tier of each of those four neural families: its stored
+  leaves (int8 kernels and float32 rest, in flax's layout and
+  ``jax.tree_util``'s order) placed by position, as the JAX package's
+  generated table places ``_Int8Inner.params``.  Each device keeps its
+  blocks of the int8 values, in the port's layout, and of their scales,
+  and dequantizes them at every call, as the single-device program does;
+  the copy of the module then runs as for float32.  The positional
+  alternation ignores what a leaf is: a sharded 1-D leaf need not be the
+  bias of the column-parallel kernel before it, and a transformer's
+  ``qkv`` comes out row-parallel.
 
 Each weight leaf sits on each device as its block of the table's spec
 (``rules.place_local``); activations are whole on the row's first device
@@ -29,19 +42,22 @@ device over its block of the input, and the partial sums, taken in
 float32 over the operands rounded to the layer's dtype, are added on the
 first device in device order (so one mesh gives the same bits twice),
 the bias after and the sum rounded once; a replicated layer runs on the
-first device.  ``qkv``'s column split cuts across q | k | v, so the
-``(B, T, 3E)`` projection is gathered, and each device then runs kernel
-K2 on its own heads, ``(B/dp, T, H/tp, D)``; ``proj``'s row-parallel
-input split is the split by heads.  On CUDA tensors K2 launches or
-raises; nothing falls back to the plain attention.
+first device.  A sharded leaf used whole (a bias of a row-parallel
+layer, a norm, the recurrence's bias) is concatenated there.  The
+attention always runs on each device's heads: the ``(B, T, 3E)``
+projection is whole on the first device (gathered where ``qkv`` is
+column-parallel, summed there where it is row-parallel), and each device
+runs kernel K2 on its own heads, ``(B/dp, T, H/tp, D)``.  On CUDA
+tensors K2 launches or raises; nothing falls back to the plain
+attention.
 
 A layout whose sharded dims or heads do not divide the mesh raises
 :class:`NotModelParallel` (a ``ValueError``), and ``dispatch.make_scorer``
-then takes the batch-only rung, as the JAX package does.  A family with
-no tensor-parallel forward here (CNN1D, BiLSTM, the int8 tier of a
-neural family, an exported program) raises
-:class:`NoTensorParallelForward`, which ``make_scorer`` lets through: a
-model axis that was asked for is never quietly dropped.
+then takes the batch-only rung, as the JAX package does.  A program with
+no tensor-parallel forward here (an exported program, a
+sequence-sharded transformer) raises :class:`NoTensorParallelForward`,
+which ``make_scorer`` lets through: a model axis that was asked for is
+never quietly dropped.
 """
 
 from __future__ import annotations
@@ -59,7 +75,9 @@ from har_tpu_torch.parallel.rules import (
     INT8_RULES,
     TRANSFORMER_RULES,
     P,
+    alternating_rules,
     match_partition_rules,
+    natural_key,
     place_local,
     rules_for_params,
     shard_divisibility_check,
@@ -77,10 +95,14 @@ class NoTensorParallelForward(ValueError):
     serve it on a mesh with no model axis."""
 
 
+def _padded(spec, ndim: int) -> tuple:
+    return tuple(spec) + (None,) * (ndim - len(tuple(spec)))
+
+
 def _kind(spec, ndim: int) -> str:
     """How a weight of the port's ``(out, in)`` layout is split: ``col``
     (output dim over ``tp``), ``row`` (input dim) or ``rep``."""
-    entries = tuple(spec) + (None,) * (ndim - len(tuple(spec)))
+    entries = _padded(spec, ndim)
     if all(e is None for e in entries):
         return "rep"
     if ndim == 2 and entries == (TP_AXIS, None):
@@ -99,14 +121,15 @@ class _Row:
         self.specs = specs
 
     def leaf(self, name: str):
-        """A leaf whole, on the row's first device (a block-split 1-D leaf
-        is concatenated)."""
+        """A leaf whole, on the row's first device (a block-split leaf is
+        concatenated along the dim its spec shards)."""
         parts = self.leaves[name]
-        if all(e is None for e in tuple(self.specs[name])):
+        sharded = [d for d, e in enumerate(tuple(self.specs[name])) if e is not None]
+        if not sharded:
             return parts[0]
-        if parts[0].dim() != 1:
-            raise NoTensorParallelForward(f"leaf {name!r} must be replicated")
-        return torch.cat([p.to(self.devices[0]) for p in parts])
+        if len(sharded) > 1:
+            raise NoTensorParallelForward(f"leaf {name!r} is split over several dims")
+        return torch.cat([p.to(self.devices[0]) for p in parts], dim=sharded[0])
 
     def _bias_block(self, name, j: int, size: int):
         parts = self.leaves[name]
@@ -168,11 +191,12 @@ class _RowDense(nn.Module):
         return self.row.linear(x, f"{self.name}.weight", f"{self.name}.bias", self.dtype)
 
 
-def _placed_module(module, row: _Row):
+def _placed_module(module, row: _Row, *, bound: bool = True):
     """A copy of ``module`` for one row, none of its weights copied: each
     ``Dense`` swapped for a :class:`_RowDense`, every other parameter the
-    row's replicated leaf on its first device, and each encoder block's
-    ``attend`` run on the devices' heads."""
+    row's leaf whole on its first device (``bound=False``: an empty
+    placeholder, the caller passing the leaves at every call), and each
+    encoder block's ``attend`` run on the devices' heads."""
     from har_tpu_torch.models.transformer import Dense, EncoderBlock
 
     placed = copy.deepcopy(module, {id(p): None for p in module.parameters()})
@@ -185,7 +209,8 @@ def _placed_module(module, row: _Row):
             continue
         for key in sub._parameters:
             full = f"{name}.{key}" if name else key
-            sub._parameters[key] = nn.Parameter(row.leaf(full), requires_grad=False)
+            value = row.leaf(full) if bound else torch.empty(0)
+            sub._parameters[key] = nn.Parameter(value, requires_grad=False)
         if isinstance(sub, EncoderBlock):
             sub.attend = functools.partial(row.attention, type(sub).attend.__get__(sub))
     return placed.to(row.devices[0])
@@ -210,20 +235,26 @@ def _specs(table, tree, mesh):
 class TPProgram:
     """A model's forward over a serving mesh: its leaves placed once by a
     rule table, one data shard run at a time (:meth:`forward_row`).
-    ``row_forward`` makes a row's forward from its :class:`_Row`."""
+    ``row_forward`` makes a row's forward from its :class:`_Row`.
+    ``tree`` and ``specs`` are the model's weight leaves and their specs
+    (what ``params_bytes`` counts); ``leaves`` (name -> (tensor, spec),
+    default the tree itself) are what the rows hold."""
 
-    def __init__(self, row_forward, tree: dict, specs: dict, mesh, rules):
+    def __init__(self, row_forward, tree: dict, specs: dict, mesh, rules, leaves=None):
         self.rules = rules
         self.tree = tree
         self.specs = specs
         self.mesh = mesh
+        if leaves is None:
+            leaves = {name: (t, specs[name]) for name, t in tree.items()}
         tp = mesh.devices.shape[-1]
         rows = mesh.devices.reshape(-1, tp)
         # leaf name -> (data shard, tp index) grid of local tensors
-        placed = {name: place_local(mesh, specs[name], t).reshape(-1, tp)
-                  for name, t in tree.items()}
+        placed = {name: place_local(mesh, spec, t).reshape(-1, tp)
+                  for name, (t, spec) in leaves.items()}
+        row_specs = {name: spec for name, (_, spec) in leaves.items()}
         self._forwards = [
-            row_forward(_Row(list(devices), {n: c[i] for n, c in placed.items()}, specs))
+            row_forward(_Row(list(devices), {n: c[i] for n, c in placed.items()}, row_specs))
             for i, devices in enumerate(rows)
         ]
 
@@ -261,10 +292,11 @@ def _int8_demo(model, mesh, rules):
             kernels[str(i)] = name
     table = INT8_RULES if rules is None else rules
     specs = dict(zip(tree, _specs(table, list(tree.values()), mesh)))
+    leaves = {key: (t, specs[key]) for key, t in tree.items()}
     for key in kernels:
         out_spec = (tuple(specs[key]) + (None, None))[1]
-        tree[f"s{key}"] = torch.from_numpy(np.ascontiguousarray(stored[int(key)].scale))
-        specs[f"s{key}"] = P(out_spec)
+        scale = torch.from_numpy(np.ascontiguousarray(stored[int(key)].scale))
+        leaves[f"s{key}"] = (scale, P(out_spec))
 
     def dequant(grid):
         leaves, out_specs = {}, {}
@@ -282,7 +314,94 @@ def _int8_demo(model, mesh, rules):
         # the int8 blocks are what stays on the devices
         return lambda x: _demo_forward(_Row(row.devices, *dequant(row.leaves)), x)
 
-    return TPProgram(row_forward, tree, specs, mesh, table)
+    return TPProgram(row_forward, tree, specs, mesh, table, leaves)
+
+
+def _check_heads(module, mesh) -> None:
+    """Each device attends on H / tp heads: heads that do not divide the
+    model axis refuse the placement."""
+    tp = dict(zip(mesh.mesh_dim_names, mesh.shape)).get(TP_AXIS, 1)
+    blocks = getattr(module, "blocks", ())
+    heads = blocks[0].num_heads if len(blocks) else tp
+    if heads % tp:
+        raise NotModelParallel(
+            f"num_heads {heads} not divisible by mesh axis {TP_AXIS!r}={tp}"
+        )
+
+
+def _int8_neural(model, fwd, mesh, rules):
+    """The int8 tier of a neural family: the stored leaves (``model.
+    stored``, at ``model.paths`` in flax's tree) placed by position —
+    the JAX package's generated table over its leaf list, or ``rules`` —
+    and the module's forward run on them.  Each of the port's parameters
+    holds the values of one flax leaf (``convert.flax_leaf_names``): a
+    Dense weight the transpose of its kernel, so it takes the kernel's
+    spec reversed, any other leaf its own layout and spec.  The rows keep
+    the int8 values in the port's layout with their scales (each scale
+    split where it spans the split dim) and dequantize them at every
+    call."""
+    from har_tpu_torch.convert import flax_leaf_names
+    from har_tpu_torch.quantize import _model_name
+
+    module = fwd.core.module
+    if getattr(module, "sp_axis", None) is not None:
+        raise NoTensorParallelForward("a sequence-sharded transformer has no "
+                                      "tensor-parallel forward")
+    family = _model_name(module)
+    tree = {str(i): torch.from_numpy(np.ascontiguousarray(s.value))
+            for i, s in enumerate(model.stored)}
+    leaf_list = list(tree.values())
+    table = alternating_rules(leaf_list, in_out=True) if rules is None else rules
+    specs = dict(zip(tree, _specs(table, leaf_list, mesh)))
+    position = {"/".join(path): i for i, path in enumerate(model.paths)}
+    values = dict(zip((n for n, _ in fwd.names), fwd.stored_values()))
+    origin = flax_leaf_names(family, module, values)
+    leaves, port_specs, quantized = {}, {}, dict(fwd.names)
+    for i, (name, q) in enumerate(fwd.names):
+        path, ndim = origin[name]
+        k = position[path]
+        spec = _padded(specs[str(k)], ndim)
+        w = values[name]
+        if any(e is not None for e in spec):
+            if path.endswith("/kernel") and ndim == 2 and w.dim() == 2:
+                spec = spec[::-1]  # a Dense weight: the kernel's transpose
+            elif tuple(w.shape) != model.stored[k].value.shape:
+                raise NoTensorParallelForward(f"no tensor-parallel layout for {name!r}")
+        if w.dim() == 2:
+            _kind(spec, 2)
+        port_specs[name] = P(*spec)
+        leaves[f"w:{name}"] = (w, P(*spec))
+        if q:
+            scale = getattr(fwd, f"s{i}")
+            leaves[f"s:{name}"] = (scale, P(*(e if scale.shape[d] > 1 else None
+                                              for d, e in enumerate(spec))))
+    if family == "transformer":
+        _check_heads(module, mesh)
+
+    def row_forward(row):
+        live = _Row(row.devices, {}, port_specs)
+        placed = _placed_module(module, live, bound=False)
+        direct = [n for n, _ in placed.named_parameters()]
+
+        def dequant(name):
+            parts = row.leaves[f"w:{name}"]
+            if not quantized[name]:
+                return parts
+            scales = row.leaves[f"s:{name}"]
+            if all(e is None for e in tuple(port_specs[name])):
+                # used whole on the first device only
+                return [parts[0].to(torch.float32) * scales[0]]
+            return [w.to(torch.float32) * s for w, s in zip(parts, scales)]
+
+        def forward(x):
+            # dequantized at every call, as the single-device forward
+            # does: the int8 blocks are what stays on the devices
+            live.leaves = {name: dequant(name) for name in quantized}
+            return torch.func.functional_call(placed, {n: live.leaf(n) for n in direct}, (x,))
+
+        return forward
+
+    return TPProgram(row_forward, tree, specs, mesh, table, leaves)
 
 
 def _transformer_shaped(module: nn.Module, tree: dict) -> bool:
@@ -295,14 +414,26 @@ def _transformer_shaped(module: nn.Module, tree: dict) -> bool:
             and all(isinstance(b, EncoderBlock) for b in blocks))
 
 
+def _flax_walk(module) -> list:
+    """(name, flax path, flax ndim) of each parameter of a neural module,
+    in the natural order of the flax paths: the order the JAX package
+    walks its tree in."""
+    from har_tpu_torch.convert import flax_leaf_names
+    from har_tpu_torch.transfer import model_family
+
+    leaves = flax_leaf_names(model_family(module), module)
+    return sorted(((name, path, ndim) for name, (path, ndim) in leaves.items()),
+                  key=lambda leaf: natural_key(leaf[1]))
+
+
 def tp_program(model, program, mesh, rules=None) -> TPProgram:
     """The tensor-parallel program of a served model on ``mesh``.
     ``program`` is the model's ``dispatch.DeviceProgram``; ``rules``
     overrides the family's table.  Raises :class:`NotModelParallel` for
     a layout whose sharded dims do not divide the mesh or heads that do
-    not divide ``tp``, and :class:`NoTensorParallelForward` for a family
-    with no tensor-parallel forward here."""
-    from har_tpu_torch.models.neural import MLP
+    not divide ``tp``, and :class:`NoTensorParallelForward` for a
+    program with no tensor-parallel forward here."""
+    from har_tpu_torch.models.neural import MLP, BiLSTM, CNN1D
     from har_tpu_torch.quantize import Int8Forward
     from har_tpu_torch.serve.loadgen import _DemoMLP
 
@@ -310,9 +441,10 @@ def tp_program(model, program, mesh, rules=None) -> TPProgram:
     if isinstance(fwd, Int8Forward):
         if isinstance(fwd.core.module, _DemoMLP) and hasattr(model, "stored"):
             return _int8_demo(model, mesh, rules)
-        raise NoTensorParallelForward(
-            "the int8 tier of a neural family has no tensor-parallel forward"
-        )
+        if getattr(model, "paths", None) is not None:
+            return _int8_neural(model, fwd, mesh, rules)
+        raise NoTensorParallelForward(f"{type(model).__name__}'s int8 program has no "
+                                      "tensor-parallel forward")
     if not isinstance(fwd, nn.Module):
         raise NoTensorParallelForward(f"{type(model).__name__} serves an exported program")
     transformer = False
@@ -321,10 +453,11 @@ def tp_program(model, program, mesh, rules=None) -> TPProgram:
         # the (out, in) layout every other family has
         tree = {"w1": fwd.w1.detach().t(), "b1": fwd.b1.detach(), "w2": fwd.w2.detach().t()}
         row_forward = lambda row: functools.partial(_demo_forward, row)  # noqa: E731
+        table = rules_for_params(tree)
     else:
         tree = {k: v.detach() for k, v in fwd.named_parameters()}
         transformer = _transformer_shaped(fwd, tree)
-        if not (transformer or isinstance(fwd, MLP)):
+        if not (transformer or isinstance(fwd, (MLP, CNN1D, BiLSTM))):
             raise NoTensorParallelForward(
                 f"{type(fwd).__name__} has no tensor-parallel forward"
             )
@@ -332,16 +465,15 @@ def tp_program(model, program, mesh, rules=None) -> TPProgram:
             raise NoTensorParallelForward("a sequence-sharded transformer has no "
                                           "tensor-parallel forward")
         row_forward = functools.partial(_placed_module, fwd)
-    table = rules_for_params(tree) if rules is None else rules
+        # a transformer's table keys on names; the other families' is
+        # generated over their flax tree, as the JAX package's is
+        table = (rules_for_params(tree) if transformer
+                 else alternating_rules(tree, walk=_flax_walk(fwd)))
+    table = table if rules is None else rules
     specs = _specs(table, tree, mesh)
     for name, spec in specs.items():
         if tree[name].dim() == 2:
             _kind(spec, 2)
     if transformer:
-        tp = dict(zip(mesh.mesh_dim_names, mesh.shape)).get(TP_AXIS, 1)
-        heads = fwd.blocks[0].num_heads if len(fwd.blocks) else tp
-        if heads % tp:
-            raise NotModelParallel(
-                f"num_heads {heads} not divisible by mesh axis {TP_AXIS!r}={tp}"
-            )
+        _check_heads(fwd, mesh)
     return TPProgram(row_forward, tree, specs, mesh, table)

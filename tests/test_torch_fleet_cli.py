@@ -304,17 +304,34 @@ def test_cli_serve_mesh_shape_rejects_malformed_and_mesh_combo():
                   "--mesh-shape", "2x2"])
 
 
-def test_cli_serve_mesh_shape_refuses_a_family_without_tensor_parallelism(tmp_path):
-    """A CNN1D checkpoint on a model axis: the port has no tensor-parallel
-    forward for it, so ``--mesh-shape 2x2`` exits with a message instead
-    of serving it on fewer devices; ``--mesh 2`` shards its batch."""
+def test_cli_serve_mesh_shape_refuses_a_family_without_tensor_parallelism(tmp_path, capsys):
+    """A CNN1D checkpoint serves on a model axis (``--mesh-shape 2x2``,
+    model-parallel) and on data axes (``--mesh 2``); a checkpoint the port
+    still has no tensor-parallel forward for — a sequence-sharded
+    transformer — makes ``--mesh-shape 2x2`` exit with a message instead
+    of serving it on fewer devices."""
+    from har_tpu_torch.models.neural import build_model
+    from har_tpu_torch.models.neural_classifier import NeuralClassifierModel
+    from har_tpu_torch.train.trainer import NeuralModel
+
     ckpt = _cnn_checkpoint(tmp_path)
     argv = ["serve", "--device", "cpu", "--sessions", "4", "--checkpoint", ckpt,
             "--hop", "128"]
-    with pytest.raises(SystemExit, match=r"--mesh-shape 2x2: CNN1D has no "
-                                         r"tensor-parallel forward.*--mesh N"):
-        cli.main(argv + ["--mesh-shape", "2x2"])
+    out = _summary(capsys, argv + ["--mesh-shape", "2x2"])
+    assert out["stats"]["dispatch_backend"] == "model_parallel"
+    assert out["scored"] == out["enqueued"] > 0
     assert cli.main(argv + ["--mesh", "2"]) == 0
+    capsys.readouterr()
+    kwargs = dict(embed_dim=16, num_heads=2, num_layers=1, sp_axis="sp", dtype="float32")
+    module = build_model("transformer", 6, in_features=3, **kwargs).eval()
+    ring = checkpoint.save_model(
+        str(tmp_path / "ring"), NeuralClassifierModel(NeuralModel(module=module, num_classes=6),
+                                                      None, 6),
+        "transformer", kwargs, input_shape=(200, 3))
+    with pytest.raises(SystemExit, match=r"--mesh-shape 2x2: a sequence-sharded transformer "
+                                         r"has no tensor-parallel forward.*--mesh N"):
+        cli.main(["serve", "--device", "cpu", "--sessions", "4", "--checkpoint", ring,
+                  "--mesh-shape", "2x2"])
 
 
 def _jax_summary(capsys, argv):
@@ -496,3 +513,23 @@ def test_cli_serve_runs_on_cuda_by_default(monkeypatch):
     for extra in ([], ["--adapt"], ["--trace", "diurnal", "--autoscale"]):
         with pytest.raises(RuntimeError, match="--device cpu"):
             cli.main(["serve", "--sessions", "4", *extra])
+
+
+@pytest.mark.parametrize("family, kwargs, tier", [
+    ("cnn1d", dict(channels=(8, 8)), "f32"),
+    ("cnn1d", dict(channels=(8, 8)), "int8"),
+    ("bilstm", dict(hidden=16), "int8"),
+], ids=["cnn1d", "cnn1d-int8", "bilstm-int8"])
+def test_cli_serve_mesh_shape_serves_cnn_and_bilstm(capsys, tmp_path, family, kwargs, tier):
+    """``serve --mesh-shape 2x2`` of a saved CNN1D or BiLSTM, float32 or
+    the int8 tier, serves model-parallel (it used to end in SystemExit):
+    every window scored, two model-axis shards."""
+    port, _, saved = random_pair(family, window=200, classes=6, seed=4, kwargs=kwargs)
+    path = checkpoint.save_model(str(tmp_path / family), port, family, saved,
+                                 input_shape=(200, 3))
+    out = _summary(capsys, ["serve", "--device", "cpu", "--sessions", "8",
+                            "--checkpoint", path, "--mesh-shape", "2x2", "--tier", tier])
+    assert out["dropped"] == 0 and out["scored"] == out["enqueued"] > 0
+    stats = out["stats"]
+    assert stats["dispatch_backend"] == "model_parallel"
+    assert stats["model_axis_shards"] == 2 and stats["devices"] == 2

@@ -886,25 +886,35 @@ def test_acceptance_stale_annotation():
     assert "stale `# harlint: fetch-ok`" in stale[0].message
 
 
+# the copy into the card through a pinned buffer, and the pageable copy
+# it replaced (it waits for every kernel queued before it)
+_STAGED = "        return self._staging.put(x, [(slice(None), self.device)])[0]\n"
+_PAGEABLE = "        return torch.from_numpy(x).to(self.device)\n"
+
+
 def test_acceptance_sync_below_launch_and_the_logged_copy_in():
     """A ``.cpu()`` planted in ``_split_predict`` (reached only through
     ``_launch_batch`` -> ``_get_scorer`` -> ``make_scorer`` ->
-    ``DeviceScorer.__init__``) is flagged; so are the two blocking
-    copies into the card the baseline holds (ROADMAP Queue 3)."""
+    ``DeviceScorer.__init__``) is flagged, and so is a pageable copy into
+    the card planted back in ``DeviceScorer._place``; the launch path's
+    copies go through pinned buffers, so nothing else is flagged and the
+    baseline is empty."""
     rels = _LAUNCH_PATH
     sources = _port(*rels)
-    symbols = sorted(f.symbol for f in lint_sources(dict(sources), [HotPathRule()]))
-    assert symbols == ["DeviceScorer._place", "ShardedScorer._place"]
+    assert lint_sources(dict(sources), [HotPathRule()]) == []
     rel = "har_tpu_torch/serve/dispatch.py"
+    pageable = dict(sources)
+    pageable[rel] = _replaced(sources[rel], _STAGED, _PAGEABLE)
+    blocking = lint_sources(pageable, [HotPathRule()])
+    assert [f.symbol for f in blocking] == ["DeviceScorer._place"]
+    assert "blocking host-to-device" in blocking[0].message
     sources[rel] = _replaced(sources[rel], "    pre = None\n    inner = model\n",
                              "    pre = None\n    model.weight.cpu()\n    inner = model\n")
     planted = [f for f in lint_sources(sources, [HotPathRule()])
                if f.symbol == "_split_predict"]
     assert len(planted) == 1 and "`.cpu()`" in planted[0].message
     assert "reached from launch root" in planted[0].message
-    entries = load_baseline(REPO / DEFAULT_BASELINE)
-    assert {e.split("|")[2] for e in entries} == {"DeviceScorer._place",
-                                                  "ShardedScorer._place"}
+    assert load_baseline(REPO / DEFAULT_BASELINE) == set()
 
 
 # ------------------------------------------------------- repo + baseline
@@ -912,14 +922,14 @@ def test_acceptance_sync_below_launch_and_the_logged_copy_in():
 
 def test_repo_lints_clean_with_the_port_baseline():
     """The contract: the port's fileset with the port's own baseline
-    gives zero findings, eight rules run, and the baseline holds only
-    the two logged copy-in entries."""
+    gives zero findings, eight rules run, and the baseline is empty (the
+    copies into the card no longer wait)."""
     report = run_harlint()
     assert report.ok, "\n" + report.render()
     assert report.rules_run == ALL_RULES
     assert report.files >= 50
     assert report.baseline_path == DEFAULT_BASELINE
-    assert report.baseline_size == 2 and report.baselined == 2
+    assert report.baseline_size == 0 and report.baselined == 0
     assert report.annotation_suppressed >= 28
     assert report.per_rule == {r: 0 for r in ALL_RULES}
     assert all(p.startswith("har_tpu_torch/") for p in DEFAULT_FILESET)
@@ -927,12 +937,11 @@ def test_repo_lints_clean_with_the_port_baseline():
 
 def test_port_never_uses_the_root_baseline(tmp_path):
     """The root ``harlint_baseline.json`` is the JAX package's: the port
-    reads its own, and an empty one leaves the two logged findings."""
+    reads its own, and with an empty one the port has no finding."""
     assert DEFAULT_BASELINE == "har_tpu_torch/harlint_baseline.json"
     empty = tmp_path / "b.json"
     report = run_harlint(baseline=empty, rules=[HotPathRule()])
-    assert sorted(f.symbol for f in report.findings) == [
-        "DeviceScorer._place", "ShardedScorer._place"]
+    assert report.findings == [] and report.baselined == 0
     assert not empty.exists()
 
 
@@ -957,13 +966,31 @@ def test_cli_lint_json_and_rc(capsys):
     assert set(report) == set(LintReport([], 0, 0, [], 0, "", 0).to_json())
 
 
-def test_cli_lint_rc_1_on_a_finding_and_update_baseline(capsys, tmp_path):
+def test_cli_lint_rc_1_on_a_finding_and_update_baseline(capsys, tmp_path, monkeypatch):
+    """On a copy of the fileset with the pageable copy into the card
+    planted back in ``DeviceScorer._place``: rc 1 naming it, then an
+    updated baseline holds it and the check passes."""
+    import shutil
+
+    import har_tpu_torch.analyze as analyze
+
+    root = tmp_path / "checkout"
+    for rel in DEFAULT_FILESET:
+        src = REPO / rel
+        if src.is_dir():
+            shutil.copytree(src, root / rel, ignore=shutil.ignore_patterns("__pycache__"))
+        else:
+            (root / rel).parent.mkdir(parents=True, exist_ok=True)
+            shutil.copy(src, root / rel)
+    rel = "har_tpu_torch/serve/dispatch.py"
+    (root / rel).write_text(_replaced(_real(rel), _STAGED, _PAGEABLE))
+    monkeypatch.setattr(analyze, "repo_root", lambda: root)
     base = tmp_path / "b.json"
     rc, out = _cli(capsys, "--rule", "HL001", "--baseline", str(base))
     assert rc == 1 and "DeviceScorer._place" in out
     rc, _ = _cli(capsys, "--rule", "HL001", "--baseline", str(base),
                  "--update-baseline")
-    assert rc == 0 and len(load_baseline(base)) == 2
+    assert rc == 0 and len(load_baseline(base)) == 1
     rc, out = _cli(capsys, "--rule", "HL001", "--baseline", str(base), "--check")
     assert rc == 0 and out.strip().startswith("harlint: 0 finding(s), ")
 

@@ -23,9 +23,14 @@ runs here on that mesh, on the same weights:
      patches or packed windows on 2×2: logits within 1e-5 of the
      unsharded module and of ``har_tpu``'s 2D scorer, with K2 run once a
      layer on each device's heads (layers × dp × tp a dispatch);
-  8. a family with no tensor-parallel forward in the port refuses a
-     model axis; replicas on a second device are made when the scorer is
-     built.
+  8. what has no tensor-parallel forward in the port (an exported
+     program, a sequence-sharded transformer) refuses a model axis;
+     replicas on a second device are made when the scorer is built;
+  9. CNN1D and BiLSTM (float32) and the int8 tiers of MLP, CNN1D, BiLSTM
+     and the transformer on 2x2 and 1x4: har_tpu's scorer kind, labels,
+     probabilities to 1e-5, params_bytes and every leaf's spec, K2 on
+     each device's heads; CNN1D and the int8 transformer through the
+     whole fleet on 2x2.
 """
 
 import jax
@@ -460,23 +465,159 @@ def test_transformer_model_parallel_patched_and_packed(option, monkeypatch):
     np.testing.assert_allclose(got[: len(x)], jax_logits[: len(x)], atol=1e-5)
 
 
-def test_families_without_a_tensor_parallel_forward_refuse_a_model_axis():
-    """CNN1D and a neural family's int8 tier have no tensor-parallel
-    forward in the port: a mesh with a model axis refuses them (never
-    served quietly on fewer devices), one with data axes only shards
-    their batch."""
+def test_families_without_a_tensor_parallel_forward_refuse_a_model_axis(tmp_path):
+    """What still has no tensor-parallel forward in the port — an
+    exported program (float or int8) and a sequence-sharded transformer
+    (float or int8) — refuses a mesh with a model axis (never served
+    quietly on fewer devices); a mesh with data axes only shards their
+    batch, as it shards a CNN's."""
+    from har_tpu_torch.export import export_model, load_exported
+    from har_tpu_torch.models.neural import build_model
+    from har_tpu_torch.models.neural_classifier import NeuralClassifierModel
+    from har_tpu_torch.quantize import quantize_model
     from har_tpu_torch.serve.model_parallel import NoTensorParallelForward
+    from har_tpu_torch.train.trainer import NeuralModel
     from tests.test_torch_serving import random_pair
 
     cnn, _, _ = random_pair("cnn1d", window=24, classes=6, seed=3)
-    with pytest.raises(NoTensorParallelForward, match="no tensor-parallel forward"):
-        make_scorer(cnn, _mesh(2, 2), window=24)
     assert type(make_scorer(cnn, _mesh(4, 1), window=24)) is ShardedScorer
-    port, _ = _transformer_pair()
-    with pytest.raises(NoTensorParallelForward, match="int8 tier"):
-        make_scorer(port, _mesh(1, 2), tier="int8", window=24)
-    with pytest.raises(NoTensorParallelForward):
-        FleetServer(cnn, window=24, hop=24, mesh=_mesh(2, 2)).scorer
+    assert type(make_scorer(cnn, _mesh(2, 2), window=24)) is ModelParallelScorer
+    for tag, model in (("art", cnn), ("art8", quantize_model(cnn))):
+        art = load_exported(export_model(model, str(tmp_path / tag)), "cpu")
+        with pytest.raises(NoTensorParallelForward, match="exported program"):
+            make_scorer(art, _mesh(2, 2), window=24)
+        assert type(make_scorer(art, _mesh(4, 1), window=24)) is ShardedScorer
+    with pytest.raises(NoTensorParallelForward, match="exported program"):
+        FleetServer(art, window=24, hop=24, mesh=_mesh(2, 2)).scorer
+    module = build_model("transformer", 6, in_features=3, embed_dim=32, num_heads=4,
+                         num_layers=2, dtype="float32", sp_axis="sp").eval()
+    ring = NeuralClassifierModel(NeuralModel(module=module, num_classes=6), None, 6)
+    for tier in ("f32", "int8"):
+        with pytest.raises(NoTensorParallelForward, match="sequence-sharded"):
+            make_scorer(ring, _mesh(1, 2), tier=tier, window=24)
+
+
+# ------------------------- CNN1D, BiLSTM and the neural int8 tiers, har_tpu
+
+
+# the family/tier combinations har_tpu serves on a model axis, at
+# random_pair(window=24, classes=6, seed=3), and their params_bytes
+# (total, per device) on 2x2 in both packages
+NEW_FAMILIES = {
+    "cnn1d-f32": ("cnn1d", "f32", dict(channels=(8, 8)), (9656, 5816)),
+    "bilstm-f32": ("bilstm", "f32", dict(hidden=16), (11032, 10636)),
+    "mlp-int8": ("mlp", "int8", dict(hidden=(32, 16)), (920, 536)),
+    "cnn1d-int8": ("cnn1d", "int8", dict(channels=(8, 8)), (2960, 2052)),
+    "bilstm-int8": ("bilstm", "int8", dict(hidden=16), (2776, 2616)),
+    "transformer-int8": ("transformer", "int8",
+                         dict(embed_dim=32, num_heads=4, num_layers=2), (28600, 15644)),
+}
+
+
+def _padded(spec, ndim):
+    return tuple(spec) + (None,) * (ndim - len(tuple(spec)))
+
+
+def _jax_leaf_specs(jax_scorer):
+    """har_tpu's resolved specs by '/'-joined flax path (or position)."""
+    from jax.sharding import PartitionSpec
+
+    from har_tpu.parallel.rules import tree_path_str
+
+    flat = jax.tree_util.tree_flatten_with_path(
+        jax_scorer.param_specs, is_leaf=lambda s: isinstance(s, PartitionSpec))[0]
+    leaves = jax.tree_util.tree_flatten_with_path(jax_scorer._inner.params)[0]
+    return {tree_path_str(p): _padded(s, np.ndim(leaf))
+            for (p, s), (_, leaf) in zip(flat, leaves)}
+
+
+def _port_leaf_specs(scorer, family, tier, module):
+    """The port's specs in har_tpu's terms: an int8 tier's by position;
+    a float model's through its flax paths, a Dense weight's spec
+    reversed (the kernel is its transpose)."""
+    from har_tpu_torch import convert
+
+    if tier == "int8":
+        return {k: _padded(s, scorer._tp.tree[k].dim()) for k, s in scorer.param_specs.items()}
+    out = {}
+    for name, (path, ndim) in convert.flax_leaf_names(family, module).items():
+        spec = _padded(scorer.param_specs[name], ndim)
+        out[path] = spec[::-1] if path.endswith("/kernel") and ndim == 2 else spec
+    return out
+
+
+@pytest.mark.parametrize("dp,tp", [(2, 2), (1, 4)], ids=["2x2", "1x4"])
+@pytest.mark.parametrize("case", list(NEW_FAMILIES))
+def test_new_families_match_har_tpu_model_parallel(case, dp, tp, monkeypatch):
+    """CNN1D and BiLSTM (float32) and the int8 tiers of MLP, CNN1D, BiLSTM
+    and the transformer on a dp x tp mesh: the scorer's kind is
+    har_tpu's (model-parallel, or the rung below where a shard does not
+    divide), labels equal and probabilities within 1e-5 of har_tpu's
+    scorer and of the port's single device, params_bytes equal to
+    har_tpu's, every leaf's spec har_tpu's, and K2 once a layer on each
+    device's heads."""
+    import har_tpu_torch.ops.flash_attention as flash
+    from tests.test_torch_serving import random_pair
+
+    family, tier, kwargs, on_2x2 = NEW_FAMILIES[case]
+    port, jax_model, _ = random_pair(family, window=24, classes=6, seed=3, kwargs=kwargs)
+    x = np.random.default_rng(5).normal(size=(6, 24, 3)).astype(np.float32)
+    scorer = make_scorer(port, _mesh(dp, tp), tier=tier, window=24)
+    single = make_scorer(port, None, tier=tier, window=24)
+    jax_scorer = jax_serve.make_scorer(jax_model, _jax_mesh(dp, tp), tier=tier, window=24)
+    assert scorer.kind == jax_scorer.kind
+    want = single.fetch(single.launch(single.pad(x)), len(x))
+    calls = []
+    real = flash.flash_attention_fwd
+    monkeypatch.setattr(flash, "flash_attention_fwd",
+                        lambda q, k, v, lse: calls.append(q.shape) or real(q, k, v, lse))
+    got = scorer.fetch(scorer.launch(scorer.pad(x)), len(x))
+    monkeypatch.undo()
+    jax_probs = jax_scorer.fetch(jax_scorer.launch(jax_scorer.pad(x)), len(x))
+    for ref in (want, jax_probs):
+        np.testing.assert_array_equal(got.argmax(-1), ref.argmax(-1))
+        np.testing.assert_allclose(got, ref, atol=1e-5)
+    assert scorer.params_bytes() == jax_scorer.params_bytes()
+    if (dp, tp) == (2, 2):
+        assert scorer.kind == "model_parallel"
+        assert tuple(scorer.params_bytes().values()) == on_2x2
+    if scorer.kind == "model_parallel":
+        module = port.inner.module
+        assert _port_leaf_specs(scorer, family, tier, module) == _jax_leaf_specs(jax_scorer)
+        layers = len(module.blocks) if family == "transformer" else 0
+        assert len(calls) == layers * dp * tp
+        if layers:
+            assert {c[2] for c in calls} == {module.blocks[0].num_heads // tp}
+
+
+@pytest.mark.parametrize("case", ["cnn1d-f32", "transformer-int8"])
+def test_new_families_fleet_model_parallel_equals_single_device(case):
+    """CNN1D (float32) and the int8 transformer served on 2x2 through the
+    whole fleet: label-equal to the single device, probabilities within
+    1e-6."""
+    from har_tpu_torch.quantize import quantize_serving
+    from tests.test_torch_serving import random_pair
+
+    family, tier, kwargs, _ = NEW_FAMILIES[case]
+    port, _, _ = random_pair(family, window=24, classes=6, seed=3, kwargs=kwargs)
+    model = quantize_serving(port) if tier == "int8" else port
+    out = model_parallel_smoke(sessions=8, dp=2, tp=2, device="cpu", model=model,
+                               window=24, target_batch=8)
+    assert out["ok"], out
+    assert out["model_axis_shards"] == 2 and out["batch_shards"] == 2
+
+
+def test_int8_demo_params_bytes_match_har_tpu():
+    """The demo MLP's int8 tier counts its stored leaves (int8 kernels and
+    the float32 bias), not their scales, as har_tpu does: on one device
+    and on 2x4."""
+    from har_tpu_torch.quantize import quantize_serving
+
+    q = quantize_serving(JitDemoModel(device="cpu"))
+    jax_q = jax_serve.make_scorer(jax_serve.JitDemoModel(), None, tier="int8")
+    assert make_scorer(q, None).params_bytes() == jax_q.params_bytes()
+    jax_mp = jax_serve.make_scorer(jax_serve.JitDemoModel(), _jax_mesh(2, 4), tier="int8")
+    assert make_scorer(q, _mesh(2, 4)).params_bytes() == jax_mp.params_bytes()
 
 
 def test_replicas_are_made_when_the_scorer_is_built(tmp_path):
