@@ -1890,6 +1890,61 @@ def phase_neural_main() -> dict:
     return out
 
 
+WARM_REFIT_TRANSFORMER_EPOCHS = 10  # cut from the CLI's 60 to hold the script's time
+
+
+def _param_diff(a, b) -> float:
+    return max(float((p - q).detach().abs().max()) for p, q in
+               zip(a.inner.module.parameters(), b.inner.module.parameters()))
+
+
+def warm_refit_fits(tag: str, est, train, layers: int = 0) -> dict:
+    """``est`` fitted twice on one FeatureSet on the card: the second fit
+    a warm refit (the scaler, the standardized array and the Trainer's
+    device copies reused) whose parameters equal the first's, K2 exactly
+    layers x steps a fit."""
+    steps = est.config.epochs * math.ceil(len(train) / est.config.batch_size)
+    with launch_counts() as launches:
+        t0 = time.perf_counter()
+        cold = est.fit(train)
+        t1 = time.perf_counter()
+        warm = est.fit(train)
+        t2 = time.perf_counter()
+    out = dict(warm_refit=[cold.history["warm_refit"], warm.history["warm_refit"]],
+               max_param_diff=_param_diff(cold, warm), seconds=[t1 - t0, t2 - t1],
+               train_time_s=[cold.history["train_time_s"], warm.history["train_time_s"]],
+               launches=launches,
+               expected_launches=dict(hist=0, hist_rows=0, flash_attention=2 * layers * steps))
+    emit("warm_refit", model=tag, **out)
+    if not (out["warm_refit"] == [False, True] and launches == out["expected_launches"]):
+        raise AssertionError(f"warm refit of {tag}: {out}")
+    return out
+
+
+def phase_warm_refit() -> dict:
+    """A repeat fit on the same FeatureSet on the card: the MLP at the
+    CLI's widths and epochs on the table's numeric view (parameters
+    bit-identical to the cold fit's), and the CLI transformer (embed 64,
+    4 heads, 2 layers, bf16; epochs cut to 10) on the raw windows, its
+    difference printed, K2 exact."""
+    t0 = time.perf_counter()
+    config = RunConfig(model=ModelConfig(name="mlp"))
+    train, _, _ = featurize(config, load_dataset(config))
+    mlp = warm_refit_fits("mlp", runner.build_estimator("mlp", {}, "cuda"), train)
+    if mlp["max_param_diff"] != 0.0:
+        raise AssertionError(f"the MLP's warm refit is not bit-identical: {mlp}")
+    config = RunConfig(data=DataConfig(dataset="wisdm_raw"), model=ModelConfig(name="transformer"))
+    train, _, _ = featurize(config, load_dataset(config))
+    est = runner.build_estimator("transformer", {"epochs": WARM_REFIT_TRANSFORMER_EPOCHS},
+                                 "cuda")
+    layers = len(Transformer1D(**est.model_kwargs).blocks)
+    transformer = warm_refit_fits("transformer", est, train, layers)
+    seconds = time.perf_counter() - t0
+    emit("warm_refit_main", seconds=seconds, nvidia_smi=nvidia_smi())
+    return dict(seconds=seconds, mlp=mlp, transformer=transformer,
+                launches=dict(flash_attention=transformer["launches"]["flash_attention"]))
+
+
 @contextlib.contextmanager
 def launch_counts():
     """Every kernel's launches inside the block (each count set to 0 on
@@ -3843,10 +3898,11 @@ def scorer_fixed_batches(model, batches, mesh=None) -> tuple[dict, dict]:
 
 
 def mesh_layouts(tag: str, card_model, cpu_model, layers: int, atol_single: float,
-                 atol_cpu: float, kinds: dict | None = None, batches=None) -> dict:
-    """``card_model`` on one card and on each MESH_SHAPES layout of the
-    cards (FakeClock, fixed batches; ``batches`` of feature rows through
-    the scorer instead, for a model over feature vectors): every layout
+                 atol_cpu: float, kinds: dict | None = None, batches=None,
+                 shapes=MESH_SHAPES, whole_program: bool = False) -> dict:
+    """``card_model`` on one card and on each of ``shapes`` (dp, tp) laid
+    over the cards (FakeClock, fixed batches; ``batches`` of rows through
+    the scorer instead): every layout
     against the single card (probabilities within ``atol_single``) and
     against ``cpu_model`` on the same layout of the CPU (within
     ``atol_cpu``) — labels, raw labels and drift equal; the scorer's
@@ -3855,7 +3911,10 @@ def mesh_layouts(tag: str, card_model, cpu_model, layers: int, atol_single: floa
     on a mesh of data axes, model-parallel on a model axis); weight bytes
     a device below the total on a model axis; K2 exactly layers x the
     devices a dispatch runs on (dp x tp model-parallel, dp batch-sharded,
-    1 on the single-device rung) a dispatch."""
+    1 on the single-device rung) a dispatch.  A ``whole_program`` model
+    (a float artifact) places no weights (0 bytes on every layout) and
+    runs whole on each data shard's first device (K2 layers x dp a
+    dispatch on a model axis too)."""
     if batches is None:
         recordings, ref = _fleet_recordings()
 
@@ -3866,14 +3925,15 @@ def mesh_layouts(tag: str, card_model, cpu_model, layers: int, atol_single: floa
             return scorer_fixed_batches(model, batches, mesh)
     single, _ = run(card_model)
     out = {}
-    for dp, tp in MESH_SHAPES:
+    for dp, tp in shapes:
         t0 = time.perf_counter()
         with launch_counts() as launches:
             card, snap = run(card_model, serving_mesh(dp, tp, "cuda"))
         seconds = time.perf_counter() - t0
         cpu, cpu_snap = run(cpu_model, serving_mesh(dp, tp, "cpu"))
         kind = (kinds or {}).get((dp, tp), "sharded" if tp == 1 else "model_parallel")
-        shards = {"model_parallel": dp * tp, "sharded": dp}.get(snap["dispatch_backend"], 1)
+        shards = {"model_parallel": dp if whole_program else dp * tp,
+                  "sharded": dp}.get(snap["dispatch_backend"], 1)
         r = dict(
             kind=snap["dispatch_backend"], cpu_kind=cpu_snap["dispatch_backend"],
             devices=snap["devices"], model_axis_shards=snap["model_axis_shards"],
@@ -3894,7 +3954,8 @@ def mesh_layouts(tag: str, card_model, cpu_model, layers: int, atol_single: floa
             and all(c.get("labels_equal") and c["max_prob_diff"] <= a
                     for c, a in ((r["vs_single"], atol_single), (r["vs_cpu"], atol_cpu)))
             and pb == r["cpu_params_bytes"]
-            and (kind != "model_parallel" or pb["per_device"] < pb["total"])
+            and (pb == {"total": 0, "per_device": 0} if whole_program
+                 else kind != "model_parallel" or pb["per_device"] < pb["total"])
             and launches == r["expected_launches"])
         out[f"{dp}x{tp}"] = r
     emit("mesh_layouts", model=tag, **out)
@@ -3921,15 +3982,17 @@ MESH_FAMILIES = {
 }
 
 
-def random_family_model(name: str, device: str, seed: int = 0, dtype: str = "float32"):
+def random_family_model(name: str, device: str, seed: int = 0, dtype: str = "float32",
+                        window: int = 200):
     """A model of the family ``name`` at the registry's widths (compute
     ``dtype``) with random float32 weights (nonzero biases and norms) and
-    a random scaler, all from ``seed``: the same values on every device."""
+    a random scaler of ``window`` steps, all from ``seed``: the same
+    values on every device."""
     from har_tpu_torch.features.scaler import FittedScaler
     from har_tpu_torch.models.neural_classifier import NeuralClassifierModel
     from har_tpu_torch.train.trainer import NeuralModel
 
-    shape = (MLP_FEATURES,) if name == "mlp" else (200, 3)
+    shape = (MLP_FEATURES,) if name == "mlp" else (window, 3)
     module = build_model(name, 6, in_features=shape[-1], dtype=dtype, dropout_rate=0.0)
     module.reset_parameters(torch.Generator().manual_seed(seed))
     rng = np.random.default_rng(seed)
@@ -4108,6 +4171,81 @@ def mesh_artifact(path: str, layers: int) -> dict:
             and launches == out["expected_launches"]):
         raise AssertionError(f"an artifact on a mesh: {out}")
     return out
+
+
+# an artifact's layouts: batch-sharded, 2D, and the model axis alone at 2
+# and 4; the scorer kind each gives (as in har_tpu): an int8 artifact's
+# positional layout does not divide tp = 4 (its 6-wide 1-D leaves), so it
+# takes the single-device rung there
+ARTIFACT_MESH_SHAPES = ((2, 1), (2, 2), (1, 2), (1, 4))
+# the BiLSTM artifact's window, cut from 200: its program unrolls the
+# recurrence a step at a time, and exporting and loading that graph (on
+# the host) grow with the steps
+ARTIFACT_BILSTM_WINDOW = 25
+ARTIFACT_KINDS = {
+    "f32": {(2, 1): "sharded", (2, 2): "model_parallel", (1, 2): "model_parallel",
+            (1, 4): "model_parallel"},
+    "int8": {(2, 1): "sharded", (2, 2): "model_parallel", (1, 2): "model_parallel",
+             (1, 4): "device"},
+}
+
+
+def mesh_artifacts(path: str, layers: int) -> tuple[dict, dict]:
+    """Exported artifacts on every layout of ARTIFACT_MESH_SHAPES
+    (``mesh_layouts`` over three fixed batches through the scorer: the
+    fleet's recorded windows, random rows for the MLP): the
+    CLI transformer's checkpoint exported float and ``--quantize int8``
+    (bf16; 1e-3 from one card's DeviceScorer of the same artifact, 1e-2
+    from the CPU port; K2 layers x dp a dispatch for the float artifact,
+    whose program runs whole on each data shard's first card, layers x
+    dp x tp for the int8 one on a model axis), then the MLP, CNN1D and
+    BiLSTM at the registry's widths (random float32 weights, TF32 off,
+    1e-5; the BiLSTM over ARTIFACT_BILSTM_WINDOW steps), each exported
+    float and int8.  The layouts by artifact, and each one's seconds
+    (export, the two loads, the layouts)."""
+    from har_tpu_torch.export import export_model, load_exported
+    from har_tpu_torch.quantize import quantize_model
+
+    recordings, _ = _fleet_recordings()
+    first = np.stack([r[:200] for r in recordings])
+    windows = [first[:64], first[64:128], first[128:165]]
+    rng = np.random.default_rng(4)
+    rows = [rng.normal(size=(n, MLP_FEATURES)).astype(np.float32) for n in (64, 64, 37)]
+    out, seconds = {}, {}
+
+    def serve(tag, art_dir, tier, k2_layers, atol_single, atol_cpu, batches, t0):
+        t1 = time.perf_counter()
+        card, cpu = load_exported(str(art_dir), "cuda"), load_exported(str(art_dir), "cpu")
+        t2 = time.perf_counter()
+        out[tag] = mesh_layouts(tag, card, cpu, k2_layers, atol_single, atol_cpu,
+                                kinds=ARTIFACT_KINDS[tier], batches=batches,
+                                shapes=ARTIFACT_MESH_SHAPES, whole_program=tier == "f32")
+        seconds[tag] = dict(export=t1 - t0, load=t2 - t1, serve=time.perf_counter() - t2)
+
+    for tier, flags in (("f32", []), ("int8", ["--quantize", "int8"])):
+        t0 = time.perf_counter()
+        art_dir = MESH_DIR / f"transformer_artifact_{tier}"
+        shutil.rmtree(art_dir, ignore_errors=True)
+        run_cli_json(["export", "--checkpoint", path, "--output", str(art_dir), *flags])
+        serve(f"transformer_{tier}", art_dir, tier, layers, MESH_PROB_ATOL_BF16,
+              PREDICT_PROB_ATOL_BF16, windows, t0)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name in ("mlp", "cnn1d", "bilstm"):
+            t = ARTIFACT_BILSTM_WINDOW if name == "bilstm" else 200
+            model = random_family_model(name, "cpu", window=t)
+            batches = rows if name == "mlp" else [w[:, :t] for w in windows]
+            for tier, m in (("f32", model), ("int8", quantize_model(model))):
+                t0 = time.perf_counter()
+                art_dir = MESH_DIR / f"{name}_artifact_{tier}"
+                shutil.rmtree(art_dir, ignore_errors=True)
+                export_model(m, str(art_dir))
+                serve(f"{name}_{tier}", art_dir, tier, 0, MESH_FAMILY_PROB_ATOL,
+                      MESH_FAMILY_PROB_ATOL, batches, t0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    return out, seconds
 
 
 def _max_diff(a, b) -> float:
@@ -4378,8 +4516,9 @@ def phase_mesh_serve_main() -> dict:
     ModelParallelScorer, card against one card and against the CPU port;
     ``model_parallel_smoke``; a resize onto a mesh and off it; a kill
     point behind 2x2; ``serve --mesh/--mesh-shape``; the exported
-    transformer batch-sharded; MoE and the GPipe schedule on one-rank
-    NCCL meshes."""
+    transformer batch-sharded; every family's float and int8 artifact on
+    2x1, 2x2, 1x2 and 1x4 (``mesh_artifacts``); MoE and the GPipe
+    schedule on one-rank NCCL meshes."""
     from har_tpu_torch.serve import JitDemoModel, run_kill_point
 
     t0 = time.perf_counter()
@@ -4409,9 +4548,14 @@ def phase_mesh_serve_main() -> dict:
     resize = mesh_resize(card_model, layers)
     mesh_cli_run = mesh_cli(path, layers)
     artifact = mesh_artifact(path, layers)
+    t_artifacts = time.perf_counter()
+    artifacts, artifact_seconds = mesh_artifacts(path, layers)
+    artifacts_seconds = time.perf_counter() - t_artifacts
     parallel = mesh_expert_pipeline()
     launches = (sum(r["launches"]["flash_attention"] for tag in ("transformer", "transformer_int8")
                     for r in layouts[tag].values())
+                + sum(r["launches"]["flash_attention"] for rs in artifacts.values()
+                      for r in rs.values())
                 + smoke["transformer"]["launches"]["flash_attention"]
                 + resize["launches"]["flash_attention"]
                 + sum(r["launches"]["flash_attention"]
@@ -4420,10 +4564,12 @@ def phase_mesh_serve_main() -> dict:
     seconds = time.perf_counter() - t0
     emit("mesh_serve_main", seconds=seconds, nvidia_smi=nvidia_smi(), launches=launches,
          families_seconds=families_seconds,
-         family_seconds=family_seconds)
+         family_seconds=family_seconds, artifacts_seconds=artifacts_seconds,
+         artifact_seconds=artifact_seconds)
     return dict(seconds=seconds, families_seconds=families_seconds, layouts=layouts,
                 smoke=smoke, kill=kill, resize=resize,
-                cli=mesh_cli_run, artifact=artifact, parallel=parallel,
+                cli=mesh_cli_run, artifact=artifact, artifacts=artifacts,
+                artifacts_seconds=artifacts_seconds, parallel=parallel,
                 launches=dict(flash_attention=launches))
 
 
@@ -5025,6 +5171,48 @@ def bench_problems(result: dict, smoke: bool) -> list:
     return bad
 
 
+@contextlib.contextmanager
+def neural_fits():
+    """(estimator, data, history) of every ``NeuralClassifier.fit`` inside
+    the block, the objects held so no id is recycled."""
+    from har_tpu_torch.models.neural_classifier import NeuralClassifier
+
+    seen = []
+    fit = NeuralClassifier.fit
+
+    def record(self, data):
+        model = fit(self, data)
+        seen.append((self, data, model.history))
+        return model
+
+    NeuralClassifier.fit = record
+    try:
+        yield seen
+    finally:
+        NeuralClassifier.fit = fit
+
+
+def bench_refits(fits: list, lanes: dict) -> dict:
+    """The warm-refit cache in the bench's fits: every fit after an
+    estimator's first on the same FeatureSet reports ``warm_refit: true``
+    (the first ``false``), so each neural lane's timed fits, which follow
+    its warm-up fit, are warm refits: at least ``n_runs`` of them a
+    lane that ran."""
+    problems, seen, warm = [], set(), 0
+    for est, data, history in fits:
+        key = (id(est), id(data))
+        if history.get("warm_refit") is not (key in seen):
+            problems.append(f"{est.model_name}: fit {len(seen)} warm_refit "
+                            f"{history.get('warm_refit')}")
+        warm += key in seen
+        seen.add(key)
+    timed = sum(stats["n_runs"] for stats in lanes.values()
+                if "config" in stats and "n_runs" in stats)
+    if warm < timed:
+        problems.append(f"{warm} warm refits for {timed} timed fits")
+    return dict(fits=len(fits), warm_refits=warm, timed_fits=timed, problems=problems)
+
+
 def phase_bench_main(smoke: bool = True) -> dict:
     """``har_tpu_torch.bench.main(["--device", "cuda"])`` in this process,
     its line read and checked (``bench_problems``), K1 and K2 counted
@@ -5044,7 +5232,8 @@ def phase_bench_main(smoke: bool = True) -> dict:
     printed = io.StringIO()
     t0 = time.perf_counter()
     try:
-        with launch_counts() as launches, contextlib.redirect_stdout(printed):
+        with (launch_counts() as launches, neural_fits() as fits,
+              contextlib.redirect_stdout(printed)):
             rc = bench.main(["--device", "cuda"])
     finally:
         for k, v in saved.items():
@@ -5057,7 +5246,9 @@ def phase_bench_main(smoke: bool = True) -> dict:
     expected = bench_expected_launches(result)
     extra = result["extra"]
     name = "bench_main" if smoke else "bench_full"
+    refits = bench_refits(fits, extra["lanes"])
     emit(name, seconds=seconds, rc=rc, launches=launches, expected_launches=expected,
+         refits=refits,
          headline={k: result.get(k) for k in ("metric", "value", "unit", "vs_baseline",
                                               "chip_pct_of_peak", "degraded_chip_state",
                                               "degraded_note", "smoke_mode")},
@@ -5066,7 +5257,7 @@ def phase_bench_main(smoke: bool = True) -> dict:
          chip_state_probe=extra.get("chip_state_probe"), nvidia_smi=nvidia_smi())
     for lane, stats in extra["lanes"].items():
         emit(f"{name}_{lane}", **bench_lane_summary(stats))
-    bad = bench_problems(result, smoke)
+    bad = bench_problems(result, smoke) + refits["problems"]
     if rc != 0 or launches != expected or bad:
         raise AssertionError(f"{name}: rc {rc}, launches {launches} expected {expected}, {bad}")
     return dict(seconds=seconds, launches=launches, result=result)
@@ -5219,6 +5410,7 @@ def main(argv: list[str]) -> int:
     raw_features_main = phase_raw_features_main()
     neural_agree = phase_neural_agree()
     neural_main = phase_neural_main()
+    warm_refit = phase_warm_refit()
     trained = dict(default_main["accuracies"], gbdt=gbdt_main["accuracies"]["gbdt"],
                    transformer=raw_main["accuracies"]["transformer"],
                    cnn1d=neural_main["cnn1d_main"]["accuracy"])
@@ -5246,7 +5438,7 @@ def main(argv: list[str]) -> int:
         name: path["launches"]["flash_attention"]
         for name, path in (("raw_main", raw_main), ("raw_packed", raw_packed),
                            ("mfu_main", mfu_main), ("stream_main", stream_main),
-                           ("export_packed", export_packed),
+                           ("export_packed", export_packed), ("warm_refit", warm_refit),
                            ("lifecycle_main", lifecycle["scoring"]),
                            ("serving_main", serving_main), ("fleet_main", fleet_main),
                            ("adapt_main", adapt_main), ("traffic_main", traffic_main),
@@ -5306,6 +5498,9 @@ def main(argv: list[str]) -> int:
                         cv_seconds=gbdt_main["cv"]["seconds"]),
          raw_features_main={k: raw_features_main[k] for k in ("launches", "accuracies")},
          neural_agree=neural_agree, neural_main=neural_main,
+         warm_refit={tag: {k: warm_refit[tag][k] for k in (
+             "warm_refit", "max_param_diff", "seconds", "train_time_s")}
+             for tag in ("mlp", "transformer")},
          lifecycle_main=dict(
              seconds=lifecycle["seconds"],
              scoring={name: {k: r[k] for k in ("accuracy", "max_prob_diff")}
@@ -5410,6 +5605,12 @@ def main(argv: list[str]) -> int:
              mesh_2=mesh_serve_main["cli"]["mesh_2"],
              artifact={k: mesh_serve_main["artifact"][k]
                        for k in ("kind", "devices", "max_abs_diff", "launches")},
+             artifacts_seconds=mesh_serve_main["artifacts_seconds"],
+             artifacts={tag: {shape: {k: r[k] for k in ("kind", "launches", "params_bytes")}
+                              | {"vs_single": r["vs_single"].get("max_prob_diff"),
+                                 "vs_cpu": r["vs_cpu"].get("max_prob_diff")}
+                              for shape, r in rs.items()}
+                        for tag, rs in mesh_serve_main["artifacts"].items()},
              parallel=mesh_serve_main["parallel"]),
          staging_main=dict(
              seconds=staging_main["seconds"], launches=staging_main["launches"],

@@ -16,7 +16,12 @@ program with the trained parameters inside:
   - ``export_checkpoint(ckpt, path)`` — the same, straight from a saved
     checkpoint directory, optionally int8 (``quantize.QuantizedModel``:
     the int8 tensors stay int8 inside the artifact and the
-    dequantization is part of the exported program).
+    dequantization is part of the exported program).  An int8
+    artifact's meta records ``int8_leaves`` (``QuantizedModel.
+    leaf_record``): the JAX package's weight leaves in its order, each
+    with its flax path and the program buffers that hold it, which a
+    serving mesh places by the JAX package's table
+    (``serve.model_parallel``).
   - a packed transformer (``window_pack`` p > 1) is exported over whole
     packs: :class:`PackedPredict` takes (packs, p, *example_shape) with a
     symbolic pack count (``Dim("packs", min=1)``, traced at 2 packs: a
@@ -47,6 +52,7 @@ import copy
 import dataclasses
 import json
 import os
+import re
 
 import numpy as np
 import torch
@@ -227,6 +233,10 @@ def export_model(
         "window_pack": window_pack,
         **(extra_meta or {}),
     }
+    if hasattr(model, "leaf_record"):
+        # an int8 model: which buffers hold each of the JAX package's
+        # weight leaves, in its order (a serving mesh places them)
+        meta["int8_leaves"] = model.leaf_record()
     with open(os.path.join(path, _META), "w") as f:
         json.dump(meta, f)
     return path
@@ -323,8 +333,21 @@ class ExportedPredictor:
     @property
     def int8_weights(self) -> bool:
         """True for an int8 artifact (``make_scorer(..., tier="int8")``
-        then serves it as it is)."""
-        return (self.meta.get("quantization") or {}).get("scheme") == "int8_weight_only"
+        then serves it as it is): its program holds int8 weight buffers,
+        whether ``export_checkpoint(quantize="int8")`` or ``export_model``
+        of a ``QuantizedModel`` wrote it."""
+        return any(t.dtype == torch.int8 for t in self.program.state_dict.values())
+
+    def stored_values(self) -> tuple:
+        """An int8 artifact's weight buffers in their stored dtype (the
+        values ``w<i>``, not the scales): what ``params_bytes`` counts,
+        as the JAX package counts its artifact's weight inputs.  A float
+        artifact has none (its weights are the program's own, as
+        ``har_tpu``'s are constants of its program)."""
+        if not self.int8_weights:
+            return ()
+        state = self.program.state_dict
+        return tuple(state[k] for k in sorted(state) if re.fullmatch(r"w\d+", k))
 
     def to(self, device) -> ExportedPredictor:
         """The artifact loaded again onto ``device`` (this one stays
@@ -379,7 +402,8 @@ class _ExportedServingInner:
         from har_tpu_torch.serve.dispatch import DeviceProgram
 
         return DeviceProgram(
-            self, self.art.device_call, self.device, supports_fused=False,
+            self, self.art.device_call, self.device, self.art.stored_values(),
+            supports_fused=False,
             replicate=lambda device: self.art.to(device).device_call,
         )
 

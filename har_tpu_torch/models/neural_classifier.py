@@ -6,8 +6,16 @@ report writer treat a neural model as they treat a tree.  Inputs are
 standardized over axis 0 (per step and axis for raw windows) by a scaler
 fitted on the training rows; ``augment`` names the policy
 (``data/augment.py``) the trainer applies to each standardized batch.
-The module is built for the width of the rows it is fitted on.  The JAX
-package's warm-refit cache (a bench-only optimisation) is not ported.
+The module is built for the width of the rows it is fitted on.
+
+A repeat ``fit`` on the same ``FeatureSet`` object is a warm refit, as in
+the JAX package: it reuses the fitted scaler, the standardized array
+(the same ndarray, so the Trainer's staged-path cache finds its copy on
+the device) and the Trainer; the module is built anew and the Trainer
+re-initialises it from the config's seed and builds a new optimizer, so
+the refit is bit-identical to a cold fit and the model an earlier fit
+returned keeps its own module.  The fit's history says
+``warm_refit``.
 """
 
 from __future__ import annotations
@@ -37,6 +45,13 @@ class NeuralClassifier:
     device: str = "cuda"
     # a parallel.mesh mesh of ranks (train.Trainer(mesh=)), or None
     mesh: Any = dataclasses.field(default=None, compare=False, repr=False)
+    # warm-refit state, keyed on the FeatureSet object it holds (so its id
+    # cannot be recycled); not part of the estimator's value, and a copy
+    # (copy_with, dataclasses.replace) starts with an empty one: it may
+    # carry another config
+    _fit_cache: dict = dataclasses.field(
+        default_factory=dict, init=False, compare=False, repr=False
+    )
 
     def copy_with(self, **params) -> "NeuralClassifier":
         """A copy with ``params`` set: the estimator's own fields directly,
@@ -49,22 +64,31 @@ class NeuralClassifier:
         return dataclasses.replace(self, **direct)
 
     def fit(self, data) -> "NeuralClassifierModel":
-        x = np.asarray(data.features, np.float32)
-        y = np.asarray(data.label, np.int32)
-        num_classes = self.num_classes or int(y.max()) + 1
-        scaler = StandardScaler().fit(x) if self.standardize else None
-        if scaler is not None:
-            x = scaler.transform(x)
-        module = build_model(
-            self.model_name, num_classes=num_classes,
-            in_features=x.shape[-1], **self.model_kwargs
-        )
-        trainer = Trainer(module, self.config, device=self.device,
-                          augment=build_augment(self.augment), mesh=self.mesh)
+        cache = self._fit_cache
+        if cache.get("data") is data:
+            x, y = cache["x"], cache["y"]
+            num_classes, scaler, trainer = cache["num_classes"], cache["scaler"], cache["trainer"]
+            trainer.module = self._module(num_classes, x)
+        else:
+            x = np.asarray(data.features, np.float32)
+            y = np.asarray(data.label, np.int32)
+            num_classes = self.num_classes or int(y.max()) + 1
+            scaler = StandardScaler().fit(x) if self.standardize else None
+            if scaler is not None:
+                x = scaler.transform(x)
+            trainer = Trainer(self._module(num_classes, x), self.config, device=self.device,
+                              augment=build_augment(self.augment), mesh=self.mesh)
+            cache.clear()
+            cache.update(data=data, x=x, y=y, num_classes=num_classes, scaler=scaler,
+                         trainer=trainer)
         trained = trainer.fit(x, y, num_classes=num_classes)
         return NeuralClassifierModel(
             inner=trained, scaler=scaler, num_classes=num_classes
         )
+
+    def _module(self, num_classes: int, x: np.ndarray):
+        return build_model(self.model_name, num_classes=num_classes,
+                           in_features=x.shape[-1], **self.model_kwargs)
 
 
 @dataclasses.dataclass(frozen=True)

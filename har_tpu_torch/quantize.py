@@ -36,12 +36,17 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import itertools
 
 import numpy as np
 import torch
 from torch import nn
 
-from har_tpu_torch.convert import neural_params_from_flax, neural_params_to_flax
+from har_tpu_torch.convert import (
+    flax_leaf_names,
+    neural_params_from_flax,
+    neural_params_to_flax,
+)
 from har_tpu_torch.export import PredictCore, predict_in_chunks
 from har_tpu_torch.models.base import Predictions
 from har_tpu_torch.models.neural import MODEL_REGISTRY
@@ -230,6 +235,42 @@ class QuantizedModel:
     def size_report(self) -> dict:
         """Weight-storage accounting: int8+scales vs the f32 original."""
         return _size_report(self.stored)
+
+    def leaf_record(self) -> list[dict]:
+        """Each stored leaf in jax.tree_util's order (``paths``, the JAX
+        package's weight list): its flax path, shape and dtype, and the
+        buffers of :meth:`predict_fn` that hold it — the values ``w<i>``,
+        the scale ``s<i>`` beside a quantized one, and ``perm``, the
+        leaf's dims in the buffer's order (None where the buffer is not
+        a permutation of the whole leaf: a ``scan_layers`` slice, a patch
+        kernel folded to a matrix).  ``export_model`` writes it into an
+        int8 artifact's meta, so a serving mesh can place the program's
+        buffers by the JAX package's table without the model classes."""
+        names = self._predict.names
+        origin = flax_leaf_names(self.model_name, self.module)
+        # each leaf holding its own element indices, carried into torch's
+        # layout: a buffer that permutes a leaf holds them transposed
+        marked = neural_params_from_flax(self.model_name, _unflatten(
+            (path, np.arange(s.value.size, dtype=np.float32).reshape(s.value.shape))
+            for path, s in zip(self.paths, self.stored)
+        ))
+        record = []
+        for path, s in zip(self.paths, self.stored):
+            key = "/".join(path)
+            buffers = []
+            for i, (name, quantized) in enumerate(names):
+                if origin[name][0] != key:
+                    continue
+                mark = marked[name].numpy()
+                index = np.arange(s.value.size, dtype=np.float32).reshape(s.value.shape)
+                perm = next((list(p) for p in itertools.permutations(range(s.value.ndim))
+                             if mark.shape == index.transpose(p).shape
+                             and np.array_equal(mark, index.transpose(p))), None)
+                buffers.append({"value": f"w{i}", "scale": f"s{i}" if quantized else None,
+                                "perm": perm})
+            record.append({"path": key, "shape": list(s.value.shape),
+                           "dtype": str(s.value.dtype), "buffers": buffers})
+        return record
 
 
 def _size_report(stored: list[_Stored]) -> dict:

@@ -977,9 +977,13 @@ class ModelParallelScorer(ShardedScorer):
     which re-places the weights through the same table.  A model whose
     layout does not divide the mesh raises
     ``model_parallel.NotModelParallel``, and ``make_scorer`` takes the
-    batch-only rung; a program with no tensor-parallel forward here (an
-    exported program, a sequence-sharded transformer) raises
-    ``model_parallel.NoTensorParallelForward``, which it lets through.
+    batch-only rung; a program with no tensor-parallel forward here (a
+    sequence-sharded transformer, an int8 artifact without its leaf
+    record) raises ``model_parallel.NoTensorParallelForward``, which it
+    lets through.  A loaded artifact is served as the JAX package serves
+    its exported program: a float one whole on each row's first device
+    (no weight leaves), an int8 one by its recorded weight leaves
+    (``model_parallel._artifact_program``).
     """
 
     kind = "model_parallel"

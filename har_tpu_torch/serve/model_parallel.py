@@ -31,7 +31,15 @@ model a fleet serves on a device:
   the copy of the module then runs as for float32.  The positional
   alternation ignores what a leaf is: a sharded 1-D leaf need not be the
   bias of the column-parallel kernel before it, and a transformer's
-  ``qkv`` comes out row-parallel.
+  ``qkv`` comes out row-parallel;
+- an exported artifact (``export.ExportedPredictor``), as the JAX package
+  serves its StableHLO program: a float artifact's weights are constants
+  of its program, so each row's first device runs the whole program on
+  its data shard; an int8 artifact's weight buffers are placed by the
+  same positional table over the JAX package's weight list (the meta's
+  ``int8_leaves`` record names them), and each row runs the artifact's
+  own graph rewritten for its devices (:func:`_row_graph`): no model
+  class is rebuilt.
 
 Each weight leaf sits on each device as its block of the table's spec
 (``rules.place_local``); activations are whole on the row's first device
@@ -54,10 +62,11 @@ attention.
 A layout whose sharded dims or heads do not divide the mesh raises
 :class:`NotModelParallel` (a ``ValueError``), and ``dispatch.make_scorer``
 then takes the batch-only rung, as the JAX package does.  A program with
-no tensor-parallel forward here (an exported program, a
-sequence-sharded transformer) raises :class:`NoTensorParallelForward`,
-which ``make_scorer`` lets through: a model axis that was asked for is
-never quietly dropped.
+no tensor-parallel forward here (a sequence-sharded transformer, which
+the JAX package cannot serve either; an int8 artifact exported without
+its leaf record) raises :class:`NoTensorParallelForward`, which
+``make_scorer`` lets through: a model axis that was asked for is never
+quietly dropped.
 """
 
 from __future__ import annotations
@@ -250,11 +259,12 @@ class TPProgram:
         tp = mesh.devices.shape[-1]
         rows = mesh.devices.reshape(-1, tp)
         # leaf name -> (data shard, tp index) grid of local tensors
-        placed = {name: place_local(mesh, spec, t).reshape(-1, tp)
-                  for name, (t, spec) in leaves.items()}
+        self.placed = {name: place_local(mesh, spec, t).reshape(-1, tp)
+                       for name, (t, spec) in leaves.items()}
         row_specs = {name: spec for name, (_, spec) in leaves.items()}
         self._forwards = [
-            row_forward(_Row(list(devices), {n: c[i] for n, c in placed.items()}, row_specs))
+            row_forward(_Row(list(devices), {n: c[i] for n, c in self.placed.items()},
+                             row_specs))
             for i, devices in enumerate(rows)
         ]
 
@@ -426,6 +436,273 @@ def _flax_walk(module) -> list:
                   key=lambda leaf: natural_key(leaf[1]))
 
 
+# ------------------------------------------------------------ exported artifacts
+
+# ops a placed buffer runs through block by block (its dequantization)
+_BLOCKWISE = (torch.ops.aten.to.dtype, torch.ops.aten._to_copy.default,
+              torch.ops.aten.mul.Tensor)
+
+
+def _each(op, *args, **kwargs):
+    """``op`` on each device's block: a list argument gives its j-th
+    entry, any other argument is passed as it is."""
+    n = next(len(a) for a in args if isinstance(a, list))
+    return [op(*(a[j] if isinstance(a, list) else a for a in args), **kwargs)
+            for j in range(n)]
+
+
+def _whole(parts: list, dim, device):
+    """A placed value whole on ``device`` (the row's first): its blocks
+    concatenated along ``dim`` in device order, or, replicated (``dim``
+    None), the first device's own copy — as :meth:`_Row.leaf`."""
+    if dim is None:
+        return parts[0]
+    return torch.cat([p.to(device) for p in parts], dim=dim)
+
+
+def _linear_col(x, ws, b, b_split: bool, devices):
+    """``aten.linear`` with its weight split by output rows: each device
+    runs its block over the whole input (the bias's block beside it: a
+    split bias's own block, else a slice of the whole one), and the
+    output blocks are gathered in device order on the first device."""
+    d0, outs = devices[0], []
+    for j, (d, w) in enumerate(zip(devices, ws)):
+        bj = None
+        if b is not None:
+            full = b[j] if isinstance(b, list) else b
+            bj = full if b_split else full.narrow(0, j * w.shape[0], w.shape[0])
+        outs.append(F.linear(x.to(d), w, None if bj is None else bj.to(d)).to(d0))
+    return torch.cat(outs, -1)
+
+
+def _linear_row(x, ws, b, devices):
+    """``aten.linear`` with its weight split by input columns: each
+    device's product over its block of the input, the partial sums in
+    float32 added on the first device in device order, the bias after,
+    rounded once — as :meth:`_Row.linear`."""
+    d0, total, at = devices[0], None, 0
+    for d, w in zip(devices, ws):
+        xj = x.narrow(-1, at, w.shape[1]).to(d)
+        at += w.shape[1]
+        part = F.linear(xj.float(), w.float()).to(d0)
+        total = part if total is None else total + part
+    if b is not None:
+        total = total + b.float()
+    return total.to(torch.promote_types(x.dtype, ws[0].dtype))
+
+
+def _flash_heads(q, k, v, with_lse: bool, devices):
+    """K2's op on each device's heads of (B, T, H, D) ``q``, ``k``, ``v``
+    (views the kernel reads through their strides), out and lse gathered
+    on the first device in head order — as :meth:`_Row.attention`."""
+    from har_tpu_torch.ops import flash_attention as flash
+
+    hl, d0 = q.shape[2] // len(devices), devices[0]
+    outs, lses = [], []
+    for j, d in enumerate(devices):
+        out, lse = flash.flash_attention_fwd(
+            *(u[:, :, j * hl:(j + 1) * hl].to(d) for u in (q, k, v)), with_lse)
+        outs.append(out.to(d0))
+        lses.append(lse.to(d0))
+    return torch.cat(outs, 2), torch.cat(lses, 1) if with_lse else lses[0]
+
+
+def _blockwise_dim(node, env: dict, placed: dict):
+    """The split dim of ``node``'s result where it can run block by block
+    (every tensor operand placed, the split ones along one dim, the
+    replicated ones of size 1 there), else None."""
+    out = tuple(node.meta["val"].shape)
+    dims, whole = set(), []
+    for a in node.all_input_nodes:
+        new = env[a]
+        if new not in placed:
+            return None
+        shape = tuple(a.meta["val"].shape)
+        offset = len(out) - len(shape)
+        if placed[new] is None:
+            whole.append((shape, offset))
+        elif shape[placed[new]] != out[placed[new] + offset]:
+            return None
+        else:
+            dims.add(placed[new] + offset)
+    if len(dims) != 1:
+        return None
+    dim = dims.pop()
+    if any(0 <= dim - offset and shape[dim - offset] != 1 for shape, offset in whole):
+        return None
+    return dim
+
+
+def _row_graph(gm, dims: dict, devices):
+    """The exported graph ``gm`` rewritten for one row of devices.  A
+    placeholder named in ``dims`` takes a list of per-device blocks (its
+    split dim, or None replicated).  The rewrite:
+
+    - a dequantization op (``to``, ``mul``) of placed blocks runs block
+      by block (:func:`_each`), its result placed;
+    - ``aten.linear`` whose weight is split by output rows or input
+      columns runs column- or row-parallel (:func:`_linear_col`,
+      :func:`_linear_row`);
+    - K2's op runs on each device's heads (:func:`_flash_heads`);
+    - any other use of a placed value takes it whole on the first device
+      (:func:`_whole`, once a value);
+    - ``_assert_tensor_metadata`` (the traced device and dtype) is
+      dropped and every ``device=`` is the row's first device."""
+    from torch import fx
+
+    aten = torch.ops.aten
+    flash_op = torch.ops.har_tpu_torch.flash_attention_fwd.default
+    d0 = devices[0]
+    graph = fx.Graph()
+    env, placed, wholes = {}, {}, {}
+
+    def whole(new):
+        if new not in placed:
+            return new
+        if new not in wholes:
+            wholes[new] = graph.call_function(_whole, (new, placed[new], d0))
+        return wholes[new]
+
+    def arg(a):
+        return fx.map_arg(a, lambda n: env[n])
+
+    for n in gm.graph.nodes:
+        if n.op == "placeholder":
+            new = graph.placeholder(n.name)
+            if n.name in dims:
+                placed[new] = dims[n.name]
+        elif n.target is aten._assert_tensor_metadata.default:
+            continue
+        else:
+            kwargs = dict(n.kwargs)
+            if "device" in kwargs:
+                kwargs["device"] = d0
+            args, new = arg(n.args), None
+            dim = _blockwise_dim(n, env, placed) if n.target in _BLOCKWISE else None
+            if dim is not None:
+                new = graph.call_function(_each, (n.target, *args), arg(kwargs))
+                placed[new] = dim
+            elif n.target is aten.linear.default and placed.get(args[1]) is not None:
+                x, w, b = whole(args[0]), args[1], (args[2] if len(args) > 2 else None)
+                if placed[w] == 0:
+                    new = graph.call_function(_linear_col, (
+                        x, w, b, b is not None and placed.get(b) is not None, devices))
+                else:
+                    new = graph.call_function(_linear_row, (
+                        x, w, None if b is None else whole(b), devices))
+            elif n.target is flash_op:
+                new = graph.call_function(_flash_heads, (
+                    *(whole(u) for u in args[:3]), args[3], devices))
+            if new is None:
+                new = graph.create_node(n.op, n.target, fx.map_arg(args, whole),
+                                        fx.map_arg(arg(kwargs), whole), n.name)
+        new.meta = dict(n.meta)
+        env[n] = new
+    graph.lint()
+    return fx.GraphModule(gm, graph)
+
+
+def _program_tensors(program) -> dict:
+    """An ExportedProgram's parameters, buffers and lifted constants by
+    their target names."""
+    return {**program.state_dict, **program.constants}
+
+
+def _artifact_program(art, program, mesh, rules):
+    """A loaded artifact (``export.ExportedPredictor``) on a model axis,
+    as the JAX package serves its exported program there.
+
+    A float artifact's weights are constants of its program (the JAX
+    package's leaf tree is empty): each row's first device runs the
+    whole program on its data shard (``program.replicate`` on another
+    device), weight bytes 0.  An int8 artifact's weight leaves are its
+    program's buffers: the meta's ``int8_leaves`` record names them in
+    the JAX package's weight-list order, the list is placed by that
+    package's generated table (``alternating_rules(leaf_list,
+    in_out=True)``, or ``rules``) on flax's layout, each buffer takes its
+    leaf's spec through its ``perm`` and each scale its buffer's where it
+    spans the split dim, and every row runs the artifact's own graph
+    rewritten by :func:`_row_graph`: each device keeps only its blocks of
+    the split leaves."""
+    from har_tpu_torch.export import pad_to_packs
+    from har_tpu_torch.serve.dispatch import _canonical
+
+    if not art.int8_weights:
+        def row_forward(row):
+            if _canonical(row.devices[0]) == _canonical(program.device):
+                return program.forward
+            return program.replicate(row.devices[0])
+
+        table = alternating_rules([]) if rules is None else rules
+        return TPProgram(row_forward, {}, {}, mesh, table)
+    record = art.meta.get("int8_leaves")
+    if record is None:
+        raise NoTensorParallelForward(
+            f"the int8 artifact {art.path} holds no record of its weight leaves "
+            "(written before it was kept): export it again to serve it on a model axis"
+        )
+    leaf_list = [torch.empty(r["shape"], dtype=getattr(torch, r["dtype"]), device="meta")
+                 for r in record]
+    tree = {str(k): t for k, t in enumerate(leaf_list)}
+    table = alternating_rules(leaf_list, in_out=True) if rules is None else rules
+    specs = dict(zip(tree, _specs(table, leaf_list, mesh)))
+    ep = art.program
+    tensors = _program_tensors(ep)
+    leaves = {}
+    for k, r in enumerate(record):
+        spec = _padded(specs[str(k)], len(r["shape"]))
+        split = any(e is not None for e in spec)
+        if split and (len(r["buffers"]) != 1 or r["buffers"][0]["perm"] is None):
+            raise NoTensorParallelForward(
+                f"no tensor-parallel layout for {r['path']!r}: its buffers do not "
+                "permute the whole leaf"
+            )
+        for b in r["buffers"]:
+            own = tuple(spec[p] for p in b["perm"]) if split else ()
+            leaves[b["value"]] = (tensors[b["value"]], P(*own))
+            if b["scale"] is not None:
+                scale = tensors[b["scale"]]
+                leaves[b["scale"]] = (scale, P(*(e if scale.shape[d] > 1 else None
+                                                 for d, e in enumerate(own))))
+    tp = dict(zip(mesh.mesh_dim_names, mesh.shape)).get(TP_AXIS, 1)
+    flash_op = torch.ops.har_tpu_torch.flash_attention_fwd.default
+    for n in ep.graph_module.graph.nodes:
+        if n.target is flash_op and n.args[0].meta["val"].shape[2] % tp:
+            raise NotModelParallel(
+                f"num_heads {n.args[0].meta['val'].shape[2]} not divisible by "
+                f"mesh axis {TP_AXIS!r}={tp}"
+            )
+    inputs = [(spec.arg.name, spec.kind, spec.target)
+              for spec in ep.graph_signature.input_specs]
+    # the artifact's JSON meta, read when the scorer is built
+    # harlint: host-ok
+    pack = int(art.meta.get("window_pack", 1))
+
+    def row_forward(row):
+        from torch.export.graph_signature import InputKind
+
+        d0 = row.devices[0]
+        dims = {}
+        for name, _, target in inputs:
+            if target in leaves:
+                dims[name] = next((d for d, e in enumerate(tuple(leaves[target][1]))
+                                   if e is not None), None)
+        gm = _row_graph(ep.graph_module, dims, row.devices)
+        args = [None if kind == InputKind.USER_INPUT
+                else list(row.leaves[target]) if target in leaves
+                else tensors[target].to(d0)
+                for _, kind, target in inputs]
+        slot = next(i for i, (_, kind, _) in enumerate(inputs) if kind == InputKind.USER_INPUT)
+
+        def call(x):
+            return gm(*args[:slot], x, *args[slot + 1:])
+
+        fn = pad_to_packs(call, pack) if pack > 1 else call
+        return lambda x: fn(x)[0]
+
+    return TPProgram(row_forward, tree, specs, mesh, table, leaves)
+
+
 def tp_program(model, program, mesh, rules=None) -> TPProgram:
     """The tensor-parallel program of a served model on ``mesh``.
     ``program`` is the model's ``dispatch.DeviceProgram``; ``rules``
@@ -446,7 +723,11 @@ def tp_program(model, program, mesh, rules=None) -> TPProgram:
         raise NoTensorParallelForward(f"{type(model).__name__}'s int8 program has no "
                                       "tensor-parallel forward")
     if not isinstance(fwd, nn.Module):
-        raise NoTensorParallelForward(f"{type(model).__name__} serves an exported program")
+        art = getattr(program.owner, "art", None)
+        if art is None:
+            raise NoTensorParallelForward(f"{type(model).__name__}'s program has no "
+                                          "tensor-parallel forward")
+        return _artifact_program(art, program, mesh, rules)
     transformer = False
     if isinstance(fwd, _DemoMLP):
         # the demo keeps JAX's (in, out) weights: its table is read on

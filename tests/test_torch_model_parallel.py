@@ -23,14 +23,20 @@ runs here on that mesh, on the same weights:
      patches or packed windows on 2×2: logits within 1e-5 of the
      unsharded module and of ``har_tpu``'s 2D scorer, with K2 run once a
      layer on each device's heads (layers × dp × tp a dispatch);
-  8. what has no tensor-parallel forward in the port (an exported
-     program, a sequence-sharded transformer) refuses a model axis;
-     replicas on a second device are made when the scorer is built;
+  8. what has no tensor-parallel forward in the port (a sequence-sharded
+     transformer, which har_tpu cannot serve either; an int8 artifact
+     without its leaf record) refuses a model axis; replicas on a second
+     device are made when the scorer is built;
   9. CNN1D and BiLSTM (float32) and the int8 tiers of MLP, CNN1D, BiLSTM
      and the transformer on 2x2 and 1x4: har_tpu's scorer kind, labels,
      probabilities to 1e-5, params_bytes and every leaf's spec, K2 on
      each device's heads; CNN1D and the int8 transformer through the
-     whole fleet on 2x2.
+     whole fleet on 2x2;
+ 10. each family's float and int8 artifact, exported by each package,
+     on 2x1, 2x2, 1x2 and 1x4: the same pins against har_tpu's scorer,
+     K2 on each device's heads for the int8 transformer, each device
+     holding only its blocks; the int8 transformer artifact through the
+     fleet on 2x2.
 """
 
 import jax
@@ -466,11 +472,15 @@ def test_transformer_model_parallel_patched_and_packed(option, monkeypatch):
 
 
 def test_families_without_a_tensor_parallel_forward_refuse_a_model_axis(tmp_path):
-    """What still has no tensor-parallel forward in the port — an
-    exported program (float or int8) and a sequence-sharded transformer
-    (float or int8) — refuses a mesh with a model axis (never served
-    quietly on fewer devices); a mesh with data axes only shards their
-    batch, as it shards a CNN's."""
+    """What has no tensor-parallel forward in the port refuses a mesh
+    with a model axis (never served quietly on fewer devices): a
+    sequence-sharded transformer (float or int8), and an int8 artifact
+    written without the record of its weight leaves (an older export),
+    with a message to export it again.  A mesh with data axes only shards
+    their batch, as it shards a CNN's, and a float artifact needs no
+    record."""
+    import json
+
     from har_tpu_torch.export import export_model, load_exported
     from har_tpu_torch.models.neural import build_model
     from har_tpu_torch.models.neural_classifier import NeuralClassifierModel
@@ -482,19 +492,56 @@ def test_families_without_a_tensor_parallel_forward_refuse_a_model_axis(tmp_path
     cnn, _, _ = random_pair("cnn1d", window=24, classes=6, seed=3)
     assert type(make_scorer(cnn, _mesh(4, 1), window=24)) is ShardedScorer
     assert type(make_scorer(cnn, _mesh(2, 2), window=24)) is ModelParallelScorer
-    for tag, model in (("art", cnn), ("art8", quantize_model(cnn))):
-        art = load_exported(export_model(model, str(tmp_path / tag)), "cpu")
-        with pytest.raises(NoTensorParallelForward, match="exported program"):
-            make_scorer(art, _mesh(2, 2), window=24)
-        assert type(make_scorer(art, _mesh(4, 1), window=24)) is ShardedScorer
-    with pytest.raises(NoTensorParallelForward, match="exported program"):
+    old = export_model(quantize_model(cnn), str(tmp_path / "art8"))
+    meta_path = tmp_path / "art8" / "export_meta.json"
+    meta = json.loads(meta_path.read_text())
+    del meta["int8_leaves"]
+    meta_path.write_text(json.dumps(meta))
+    art = load_exported(old, "cpu")
+    assert art.int8_weights
+    with pytest.raises(NoTensorParallelForward, match="export it again"):
+        make_scorer(art, _mesh(2, 2), window=24)
+    with pytest.raises(NoTensorParallelForward, match="export it again"):
         FleetServer(art, window=24, hop=24, mesh=_mesh(2, 2)).scorer
+    assert type(make_scorer(art, _mesh(4, 1), window=24)) is ShardedScorer
+    floating = load_exported(export_model(cnn, str(tmp_path / "art")), "cpu")
+    assert "int8_leaves" not in floating.meta
+    assert type(make_scorer(floating, _mesh(2, 2), window=24)) is ModelParallelScorer
     module = build_model("transformer", 6, in_features=3, embed_dim=32, num_heads=4,
                          num_layers=2, dtype="float32", sp_axis="sp").eval()
     ring = NeuralClassifierModel(NeuralModel(module=module, num_classes=6), None, 6)
     for tier in ("f32", "int8"):
         with pytest.raises(NoTensorParallelForward, match="sequence-sharded"):
             make_scorer(ring, _mesh(1, 2), tier=tier, window=24)
+
+
+@pytest.mark.parametrize("tier", ["f32", "int8"])
+def test_sequence_sharded_transformer_refused_by_both_packages(tier):
+    """``Transformer1D(sp_axis=)`` has no serving scorer in either
+    package: har_tpu's raises NameError (an unbound axis name) by its
+    first launch on one device and on 2x1, 2x2 and 1x2; the port raises
+    at once, a ValueError (the unbound mesh axis) where no model axis is
+    asked for and NoTensorParallelForward on one."""
+    from har_tpu_torch.serve.model_parallel import NoTensorParallelForward
+    from tests.test_torch_serving import random_pair
+
+    port, jax_model, _ = random_pair(
+        "transformer", window=24, classes=6, seed=3,
+        kwargs=dict(embed_dim=32, num_heads=4, num_layers=2, sp_axis="sp"))
+    x = np.random.default_rng(5).normal(size=(6, 24, 3)).astype(np.float32)
+    for shape in (None, (2, 1), (2, 2), (1, 2)):
+        jax_mesh = None if shape is None else _jax_mesh(*shape)
+        with pytest.raises(NameError, match="unbound axis name: sp"):
+            scorer = jax_serve.make_scorer(jax_model, jax_mesh, tier=tier, window=24)
+            scorer.fetch(scorer.launch(scorer.pad(x)), len(x))
+        mesh = None if shape is None else _mesh(*shape)
+        if shape is not None and shape[1] > 1:
+            with pytest.raises(NoTensorParallelForward, match="sequence-sharded"):
+                make_scorer(port, mesh, tier=tier, window=24)
+        else:
+            with pytest.raises(ValueError, match="'sp' is not bound"):
+                scorer = make_scorer(port, mesh, tier=tier, window=24)
+                scorer.fetch(scorer.launch(scorer.pad(x)), len(x))
 
 
 # ------------------------- CNN1D, BiLSTM and the neural int8 tiers, har_tpu
@@ -657,4 +704,174 @@ def test_transformer_fleet_model_parallel_equals_single_device():
     out = model_parallel_smoke(sessions=8, dp=2, tp=2, device="cpu", model=port,
                                window=24, target_batch=8)
     assert out["ok"], out
+    assert out["model_axis_shards"] == 2 and out["batch_shards"] == 2
+
+
+# ------------------------------------ exported artifacts on a model axis
+
+
+# the four families at the fixture widths, exported by each package from
+# the same weights, float32 and int8
+ARTIFACT_FAMILIES = {
+    "mlp": dict(hidden=(32, 16)),
+    "cnn1d": dict(channels=(8, 8)),
+    "bilstm": dict(hidden=16),
+    "transformer": dict(embed_dim=32, num_heads=4, num_layers=2),
+}
+ARTIFACTS = [f"{family}-{tier}" for family in ARTIFACT_FAMILIES for tier in ("f32", "int8")]
+ARTIFACT_LAYOUTS = [(2, 1), (2, 2), (1, 2), (1, 4)]
+# har_tpu's (kind, params_bytes total, per device) of each int8 artifact on
+# 2x2 and 1x2; every float artifact is model-parallel with 0 / 0 there
+# and on 1x4, where every int8 artifact takes the single-device rung
+INT8_ARTIFACT_ON_TP2 = {
+    "mlp": (920, 536),
+    "cnn1d": (2960, 2052),
+    "bilstm": (10456, 10104),
+    "transformer": (28600, 15644),
+}
+
+
+@pytest.fixture(scope="module")
+def exported(tmp_path_factory):
+    """case -> (the port's artifact loaded on the CPU, har_tpu's, the JAX
+    weight list's flax paths), each exported and loaded once."""
+    from har_tpu.export import export_model as jax_export_model
+    from har_tpu.export import load_exported as jax_load_exported
+    from har_tpu.quantize import quantize_model as jax_quantize_model
+    from har_tpu_torch.export import export_model, load_exported
+    from har_tpu_torch.quantize import quantize_model
+    from tests.test_torch_serving import random_pair
+
+    root = tmp_path_factory.mktemp("artifacts")
+    out = {}
+    for family, kwargs in ARTIFACT_FAMILIES.items():
+        port, jax_model, _ = random_pair(family, window=24, classes=6, seed=3, kwargs=kwargs)
+        for tier in ("f32", "int8"):
+            case = f"{family}-{tier}"
+            p, j = port, jax_model
+            paths = []
+            if tier == "int8":
+                p, j = quantize_model(port), jax_quantize_model(jax_model)
+                paths = ["/".join(str(getattr(k, "key", k)) for k in path) for path, _ in
+                         jax.tree_util.tree_flatten_with_path(jax_model.inner.params)[0]]
+            out[case] = (load_exported(export_model(p, str(root / f"port-{case}")), "cpu"),
+                         jax_load_exported(jax_export_model(j, str(root / f"jax-{case}"))),
+                         paths)
+    return out
+
+
+def _count_k2(monkeypatch):
+    """Every K2 forward (the op's plain version on the CPU, whether the
+    program's own node or a call on a device's heads runs it): the heads
+    each attended on."""
+    import har_tpu_torch.ops.flash_attention as flash
+
+    calls = []
+    real = flash.attention_with_lse_plain
+    monkeypatch.setattr(flash, "attention_with_lse_plain",
+                        lambda q, k, v: calls.append(q.shape[2]) or real(q, k, v))
+    return calls
+
+
+@pytest.mark.parametrize("dp,tp", ARTIFACT_LAYOUTS, ids=[f"{d}x{t}" for d, t in ARTIFACT_LAYOUTS])
+@pytest.mark.parametrize("case", ARTIFACTS)
+def test_exported_artifacts_match_har_tpu_on_a_model_axis(case, dp, tp, exported, monkeypatch):
+    """Each family's float and int8 artifact, exported by each package
+    from the same weights, on dp x tp: the port's scorer kind,
+    params_bytes and every leaf's spec (matched by flax path) are
+    har_tpu's; labels equal and probabilities within 1e-5 of har_tpu's
+    scorer and of the port's single device; K2 runs layers x dp x tp
+    times on H / tp heads each for the int8 transformer on a model axis,
+    layers x the data shards for a float one."""
+    family, tier = case.rsplit("-", 1)
+    art, jax_art, paths = exported[case]
+    x = np.random.default_rng(5).normal(size=(6, 24, 3)).astype(np.float32)
+    single = make_scorer(art, None, window=24)
+    want = single.fetch(single.launch(single.pad(x)), len(x))
+    scorer = make_scorer(art, _mesh(dp, tp), window=24)
+    jax_scorer = jax_serve.make_scorer(jax_art, _jax_mesh(dp, tp), window=24)
+    assert scorer.kind == jax_scorer.kind
+    calls = _count_k2(monkeypatch)
+    got = scorer.fetch(scorer.launch(scorer.pad(x)), len(x))
+    monkeypatch.undo()
+    jax_probs = jax_scorer.fetch(jax_scorer.launch(jax_scorer.pad(x)), len(x))
+    for ref in (want, jax_probs):
+        np.testing.assert_array_equal(got.argmax(-1), ref.argmax(-1))
+        np.testing.assert_allclose(got, ref, atol=1e-5)
+    assert scorer.params_bytes() == jax_scorer.params_bytes()
+    if tp > 1:
+        int8 = tier == "int8"
+        kind = "device" if int8 and tp == 4 else "model_parallel"
+        assert scorer.kind == kind
+        if kind == "model_parallel":
+            total, per_device = INT8_ARTIFACT_ON_TP2[family] if int8 else (0, 0)
+            assert scorer.params_bytes() == {"total": total, "per_device": per_device}
+            specs = {paths[int(k)]: _padded(s, scorer._tp.tree[k].dim())
+                     for k, s in scorer.param_specs.items()}
+            assert specs == {paths[int(k)]: s for k, s in _jax_leaf_specs(jax_scorer).items()}
+    else:
+        assert scorer.kind == "sharded"
+    heads = ARTIFACT_FAMILIES[family].get("num_heads")
+    if heads is None:
+        assert calls == []
+    else:
+        split = scorer.kind == "model_parallel" and tier == "int8"
+        shards = {"model_parallel": dp, "sharded": dp, "device": 1}[scorer.kind]
+        assert len(calls) == 2 * shards * (tp if split else 1)
+        assert set(calls) == {heads // tp if split else heads}
+
+
+@pytest.mark.parametrize("family", list(ARTIFACT_FAMILIES))
+def test_int8_artifact_rows_keep_only_their_blocks(family, exported, monkeypatch):
+    """An int8 artifact on 2x2 and 1x2: each device of each row keeps its
+    blocks of the split leaves and the replicated leaves, ``per_device``
+    bytes of stored values in all (counted by device index: every device
+    is the CPU here), and no device a whole copy of a split leaf; every
+    dense layer whose kernel is split runs column- or row-parallel on
+    the blocks, once a data shard a dispatch."""
+    from har_tpu_torch.serve import model_parallel
+
+    art = exported[f"{family}-int8"][0]
+    record = art.meta["int8_leaves"]
+    parallel = []
+    for name in ("_linear_col", "_linear_row"):
+        real = getattr(model_parallel, name)
+        monkeypatch.setattr(model_parallel, name,
+                            lambda *a, real=real, name=name: parallel.append(name) or real(*a))
+    x = np.random.default_rng(5).normal(size=(6, 24, 3)).astype(np.float32)
+    for dp, tp in ((2, 2), (1, 2)):
+        scorer = make_scorer(art, _mesh(dp, tp), window=24)
+        assert scorer.kind == "model_parallel"
+        parallel.clear()
+        scorer.launch(scorer.pad(x))
+        split_kernels = sum(
+            1 for k, r in enumerate(record)
+            if r["path"].endswith("/kernel") and len(r["shape"]) == 2
+            and any(e is not None for e in tuple(scorer.param_specs[str(k)])))
+        assert split_kernels > 0 and len(parallel) == dp * split_kernels
+        placed = scorer._tp.placed
+        per_device = scorer.params_bytes()["per_device"]
+        split = 0
+        for i in range(dp):
+            for j in range(tp):
+                held = 0
+                for r in record:
+                    for b in r["buffers"]:
+                        block = placed[b["value"]][i, j]
+                        held += block.numel() * block.element_size()
+                        if block.numel() < int(np.prod(r["shape"])):
+                            split += 1
+                assert held == per_device
+        assert split > 0
+
+
+def test_int8_artifact_fleet_on_2x2_equals_single_device(exported):
+    """The int8 transformer artifact through the whole fleet on 2x2
+    (FleetServer): no window dropped, labels equal to one device,
+    probabilities within 1e-6."""
+    art = exported["transformer-int8"][0]
+    out = model_parallel_smoke(sessions=8, dp=2, tp=2, device="cpu", model=art,
+                               window=24, target_batch=8)
+    assert out["ok"], out
+    assert out["dropped"] == 0
     assert out["model_axis_shards"] == 2 and out["batch_shards"] == 2
