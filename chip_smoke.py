@@ -339,10 +339,22 @@ exits nonzero without the final ``ok`` line:
     HL008, no finding outside the baseline, its wall clock (imports
     included) under the release gate's 8,000 ms and printed with the
     card's name and power limit; no kernel launches;
-39. with ``--profile`` only: one DT, one RF and one transformer fit, one
+39. api_main: the port's Python library through ``har_tpu``'s names
+    (``har_tpu_torch.data``, ``.features``, ``.models``, ``.train``),
+    docs/index.md's walkthrough on ``cuda`` and on the CPU:
+    ``synthetic_wisdm(5418)``, ``build_wisdm_pipeline``,
+    ``make_feature_set``, ``FeatureSet.split`` (the same rows as
+    ``random_split``), ``LogisticRegression(max_iter=20, reg_param=0.3)``
+    and ``DecisionTreeClassifier`` scored by ``evaluate``: DT labels equal,
+    LR's metrics within 1e-5, K1 exactly DT's levels; then
+    ``NeuralClassifier("transformer")`` at the CLI's widths for one epoch
+    of 2,048 synthetic raw windows: K2 exactly layers x steps in the fit
+    and layers x chunks in ``transform``; times printed with the card's
+    name and power limit;
+40. with ``--profile`` only: one DT, one RF and one transformer fit, one
     default run, one parity run, one GBDT fit and a 2-epoch BiLSTM fit
     under torch.profiler, with K1's and K2's shares of the device time;
-40. the kernels line (K1's launches over every path that grows trees),
+41. the kernels line (K1's launches over every path that grows trees),
     a short ``summary`` line, then ``{"ok": true, "device": {...}}``.
 
 ``train --eda`` (host matplotlib, no kernel) is not driven here: the card's
@@ -376,6 +388,9 @@ last lines.  ``--pipeline-only`` runs phases 1 and 2 and then phase 34's
 dispatch times and pipelined schedules alone, five runs a configuration
 (no check that a launch does not wait): a copy of this script run from another
 checkout's root times that checkout's fleet pipeline the same way.
+
+``--api-only`` runs phases 1, 2 and 39 and stops there, without the
+last lines.
 
 ``--flash-only`` runs phases 1, 2 and 4 and stops there, without the last
 two lines: the quick way to time K2, or to time another checkout's K2 by
@@ -5359,6 +5374,123 @@ def phase_gate_main() -> dict:
     return out
 
 
+API_LR_ATOL = 1e-5  # LR's evaluate dict, card against CPU
+API_RAW_WINDOWS = 2048  # synthetic raw windows: 3 training steps at batch 512
+
+
+def _walkthrough(device: str) -> dict:
+    """docs/index.md's walkthrough (:59-83) through har_tpu's names with
+    only the package renamed (and ``device=``): ingest, featurize, split,
+    train LR and DT, evaluate; each fit's K1 and K2 launches counted."""
+    from har_tpu_torch.data import random_split, synthetic_wisdm
+    from har_tpu_torch.features import build_wisdm_pipeline, make_feature_set
+    from har_tpu_torch.models import DecisionTreeClassifier as ApiDT
+    from har_tpu_torch.models import LogisticRegression as ApiLR
+    from har_tpu_torch.ops.metrics import evaluate
+
+    table = synthetic_wisdm(5418)
+    pipeline = build_wisdm_pipeline()
+    full = make_feature_set(pipeline.fit(table).transform(table))
+    train, test = full.split([0.7, 0.3], seed=2018)
+    rows = [t["UID"] for t in random_split(table, [0.7, 0.3], seed=2018)]
+    if not all(np.array_equal(r, s.uid) for r, s in zip(rows, (train, test))):
+        raise AssertionError("random_split and FeatureSet.split disagree")
+    out = dict(rows=[len(train), len(test)], seconds={}, launches={})
+    for tag, est in (("lr", ApiLR(max_iter=20, reg_param=0.3, device=device)),
+                     ("dt", ApiDT(device=device))):
+        with launch_counts() as launches:
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = est.fit(train)
+            preds = model.transform(test)
+            out["seconds"][tag] = time.perf_counter() - t0
+        out["launches"][tag] = dict(launches)
+        out[tag] = dict(model=model, labels=preds.prediction,
+                        metrics=evaluate(test.label, preds.raw, num_classes=6))
+    return out
+
+
+def phase_api_main() -> dict:
+    """The port's Python library through ``har_tpu``'s names on the card:
+    the walkthrough on ``cuda`` and on the CPU (DT labels equal, LR's
+    ``evaluate`` dict within 1e-5, K1 exactly DT's levels, LR and DT
+    ``ClassifierModel``s), then ``NeuralClassifier("transformer")`` at the
+    CLI's widths (embed 64, 4 heads, T 200, 2 layers, bf16) for one epoch
+    of synthetic raw windows: K2 exactly layers x steps in the fit and
+    layers x chunks in ``transform``, finite probabilities of the right
+    shape, a ``ClassifierModel``."""
+    from har_tpu_torch.data.synthetic import synthetic_raw_windows
+    from har_tpu_torch.features import FeatureSet as ApiFeatureSet
+    from har_tpu_torch.models import ClassifierModel, NeuralClassifier
+    from har_tpu_torch.train import TrainerConfig as ApiTrainerConfig
+
+    t0 = time.perf_counter()
+    card, cpu = _walkthrough("cuda"), _walkthrough("cpu")
+    lr_diff = max(float(np.abs(np.subtract(card["lr"]["metrics"][k], v, dtype=np.float64)).max())
+                  for k, v in cpu["lr"]["metrics"].items())
+    depth = card["dt"]["model"].tree.max_depth
+    expected = dict(lr=dict(hist=0, hist_rows=0, flash_attention=0),
+                    dt=dict(hist=0, hist_rows=depth, flash_attention=0))
+    checks = dict(
+        dt_labels_equal=bool(np.array_equal(card["dt"]["labels"], cpu["dt"]["labels"])),
+        lr_metrics_max_abs_diff=lr_diff,
+        lr_metric_keys_equal=set(card["lr"]["metrics"]) == set(cpu["lr"]["metrics"]),
+        launches_exact=card["launches"] == expected,
+        protocols=all(isinstance(card[t]["model"], ClassifierModel) for t in ("lr", "dt")),
+    )
+
+    x, y = synthetic_raw_windows(API_RAW_WINDOWS, window=200, seed=0)
+    train, test = ApiFeatureSet(features=x, label=y).split([0.7, 0.3], seed=2018)
+    est = NeuralClassifier("transformer", config=ApiTrainerConfig(epochs=1), device="cuda")
+    layers = len(Transformer1D(**est.model_kwargs).blocks)
+    steps = est.config.epochs * math.ceil(len(train) / est.config.batch_size)
+    with launch_counts() as fit_launches:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model = est.fit(train)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t1
+    with launch_counts() as predict_launches:
+        t1 = time.perf_counter()
+        preds = model.transform(test)
+        predict_s = time.perf_counter() - t1
+    neural_expected = dict(fit=layers * steps,
+                           transform=layers * math.ceil(len(test) / PREDICT_CHUNK))
+    checks.update(
+        neural_launches_exact=(
+            fit_launches == dict(hist=0, hist_rows=0, flash_attention=neural_expected["fit"])
+            and predict_launches == dict(hist=0, hist_rows=0,
+                                         flash_attention=neural_expected["transform"])),
+        neural_probabilities=bool(preds.probability.shape == (len(test), 6)
+                                  and np.isfinite(preds.probability).all()
+                                  and np.allclose(preds.probability.sum(-1), 1.0, atol=1e-3)),
+        neural_protocol=isinstance(model, ClassifierModel),
+    )
+    seconds = time.perf_counter() - t0
+    out = dict(
+        seconds=seconds, nvidia_smi=nvidia_smi(), rows=card["rows"],
+        walkthrough_seconds=dict(cuda=card["seconds"], cpu=cpu["seconds"]),
+        accuracy=dict(lr=card["lr"]["metrics"]["accuracy"],
+                      dt=card["dt"]["metrics"]["accuracy"],
+                      transformer=float((preds.prediction == test.label).mean())),
+        walkthrough_launches=card["launches"], neural=dict(
+            layers=layers, steps=steps, fit_s=fit_s, predict_s=predict_s,
+            launches=dict(fit=fit_launches["flash_attention"],
+                          transform=predict_launches["flash_attention"]),
+            expected_launches=neural_expected),
+        checks=checks,
+        launches=dict(hist_rows=card["launches"]["dt"]["hist_rows"],
+                      flash_attention=fit_launches["flash_attention"]
+                      + predict_launches["flash_attention"]),
+    )
+    emit("api_main", **out)
+    if not (all(v for k, v in checks.items() if k != "lr_metrics_max_abs_diff")
+            and lr_diff <= API_LR_ATOL):
+        raise AssertionError(f"api_main: {out}")
+    return out
+
+
 def main(argv: list[str]) -> int:
     native_before = native_hashes()
     shutil.rmtree(MODELS_DIR, ignore_errors=True)
@@ -5389,6 +5521,9 @@ def main(argv: list[str]) -> int:
     if "--gate-only" in argv:
         phase_lint_main()
         phase_gate_main()
+        return 0
+    if "--api-only" in argv:
+        phase_api_main()
         return 0
     hist = phase_hist()
     hist_rows = phase_hist_rows()
@@ -5432,6 +5567,7 @@ def main(argv: list[str]) -> int:
     ha_main = phase_ha_main(cluster_main["runs"], cells=HA_DEFAULT_CELLS)
     bench_main = phase_bench_main()
     lint_main = phase_lint_main()
+    api_main = phase_api_main()
     if "--profile" in argv:
         phase_profile()
     flash_launches = {
@@ -5446,7 +5582,7 @@ def main(argv: list[str]) -> int:
                            ("mesh_serve_main", mesh_serve_main),
                            ("staging_main", staging_main),
                            ("cluster_main", cluster_main), ("ha_main", ha_main),
-                           ("bench_main", bench_main))
+                           ("bench_main", bench_main), ("api_main", api_main))
     }
     hist_rows_launches = {
         name: path["launches"]["hist_rows"]
@@ -5457,7 +5593,8 @@ def main(argv: list[str]) -> int:
                            ("lifecycle_main", lifecycle["scoring"]),
                            ("ucihar_main", ucihar_main), ("ucihar_gbt_main", ucihar_gbt_main),
                            ("ucihar_parity_lane", ucihar_lane), ("sweep_main", sweep_main),
-                           ("raw_lane_main", raw_lane_main), ("bench_main", bench_main))
+                           ("raw_lane_main", raw_lane_main), ("bench_main", bench_main),
+                           ("api_main", api_main))
     }
     rows_checked = dict(
         max_abs_err=max(hist_rows["max_abs_err"], gbdt_hist["max_abs_err"]),
@@ -5642,6 +5779,7 @@ def main(argv: list[str]) -> int:
          bench_main=dict(seconds=bench_main["seconds"], launches=bench_main["launches"],
                          value=bench_main["result"]["value"]),
          lint_main={k: lint_main[k] for k in ("lint_ms", "files", "findings", "baselined")},
+         api_main={k: api_main[k] for k in ("seconds", "launches", "accuracy", "checks")},
          ucihar_split_candidates_s=ucihar_main["split_candidates_s"],
          ucihar_parity_lane_result=ucihar_lane["lane"], raw_lane_result=raw_lane_main["lane"])
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -14,9 +14,12 @@ from typing import Any, Mapping, Sequence
 
 # The WISDM transformed CSV is not shipped with the repository.  Its
 # location comes from HAR_TPU_WISDM_CSV (the variable the JAX package reads
-# too); without it the tabular dataset falls back to the synthetic
-# generator (har_tpu_torch.data.synthetic) so the port is self-contained.
+# too), else REFERENCE_WISDM_CSV: the CSV's place in the reference
+# project's own tree, relative to the working directory.  Without either
+# the tabular dataset falls back to the synthetic generator
+# (har_tpu_torch.data.synthetic) so the port is self-contained.
 WISDM_CSV_ENV = "HAR_TPU_WISDM_CSV"
+REFERENCE_WISDM_CSV = "Main/wisdm_main_ver_0.0/data/wisdm_data.csv"
 
 
 # the reference's four result.txt blocks, in its order (``parity``);
@@ -25,7 +28,7 @@ PARITY_BLOCKS = ("lr", "lr_cv", "dt", "rf")
 
 
 def default_wisdm_path() -> str | None:
-    path = os.environ.get(WISDM_CSV_ENV)
+    path = os.environ.get(WISDM_CSV_ENV, REFERENCE_WISDM_CSV)
     return path if path and os.path.exists(path) else None
 
 

@@ -126,3 +126,14 @@ class NativeLib:
                 self._configure(lib)
                 self._lib = lib
             return self._lib
+
+    def available(self) -> bool:
+        """Whether the library loads: True once :meth:`load` succeeds,
+        False where the build fails (g++ absent or refusing the source).
+        A query only: :meth:`load` still raises for a caller that needs
+        the library."""
+        try:
+            self.load()
+        except (OSError, RuntimeError, subprocess.SubprocessError):
+            return False
+        return True

@@ -33,12 +33,20 @@ def _columns_to_table(names: Sequence[str], columns: list[list[str]]) -> Table:
     return Table(out, schema)
 
 
-def read_csv(path: str, header: bool = True, infer: bool = True) -> Table:
+def read_csv(path: str, header: bool = True, infer: bool = True,
+             engine: str = "auto") -> Table:
     """Read a CSV file into a columnar Table.
 
     `header=True, infer=True` matches the reference's read options
     (Main/main.py:18-20).  Without inference every column is a string.
+    ``engine``: ``"auto"`` and ``"python"`` both parse in Python;
+    ``har_tpu``'s ``"native"`` C++ parser is not ported.
     """
+    if engine not in ("auto", "python"):
+        raise ValueError(
+            f"unknown CSV engine {engine!r}: the port parses CSV in Python "
+            "('auto' or 'python')"
+        )
     with open(path, newline="") as f:
         reader = _csv.reader(f)
         rows = list(reader)

@@ -155,7 +155,19 @@ def read_raw_python(path: str) -> RawStream:
     )
 
 
-def load_raw_stream(path: str) -> RawStream:
+def native_available() -> bool:
+    """Whether the port's own build of ``libharraw`` loads."""
+    return NATIVE.available()
+
+
+def load_raw_stream(path: str, engine: str = "auto") -> RawStream:
+    """``engine``: ``"native"`` or ``"python"``; ``"auto"`` is the
+    native parser too (``har_tpu`` falls back to Python when its build
+    fails; here a failed build raises)."""
+    if engine == "python":
+        return read_raw_python(path)
+    if engine not in ("auto", "native"):
+        raise ValueError(f"unknown engine {engine!r}")
     return read_raw_native(path)
 
 

@@ -16,6 +16,8 @@ import dataclasses
 import enum
 from typing import Sequence
 
+import numpy as np
+
 
 class ColumnType(enum.Enum):
     INT = "int"
@@ -70,6 +72,14 @@ class Schema:
 
     def type_of(self, name: str) -> ColumnType:
         return self.types[self.names.index(name)]
+
+    def numpy_dtype(self, name: str):
+        t = self.type_of(name)
+        if t is ColumnType.INT:
+            return np.int64
+        if t is ColumnType.DOUBLE:
+            return np.float64
+        return object
 
 
 def infer_schema(names: Sequence[str], columns: Sequence[Sequence[str]]) -> Schema:

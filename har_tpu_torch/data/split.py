@@ -14,6 +14,7 @@ from typing import Sequence
 
 import numpy as np
 
+from har_tpu_torch.data.table import Table
 
 
 def split_indices(
@@ -33,3 +34,8 @@ def split_indices(
     # are exhaustive and disjoint.
     return out
 
+
+def random_split(
+    table: Table, fractions: Sequence[float], seed: int
+) -> list[Table]:
+    return [table.take(idx) for idx in split_indices(len(table), fractions, seed)]

@@ -2,7 +2,8 @@
 
 Generates a table with the reference's post-drop column layout (UID, 10
 numeric summary features, 3 string PEAK features with '?' sentinels, and a
-6-class ACTIVITY label).  Class-conditional Gaussians keep the problem learnable so
+6-class ACTIVITY label) plus, optionally, raw tri-axial windows for the
+neural configs.  Class-conditional Gaussians keep the problem learnable so
 accuracy-threshold tests are meaningful without shipping the dataset.
 """
 
@@ -64,3 +65,28 @@ def synthetic_wisdm(
     types.append(ColumnType.STRING)
     return Table(cols, Schema(tuple(names), tuple(types)))
 
+
+def synthetic_raw_windows(
+    n_rows: int = 512,
+    window: int = 200,
+    seed: int = 0,
+    n_classes: int = 6,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Raw (n, window, 3) tri-axial windows with class-dependent frequency —
+    the input shape for the 1D-CNN / BiLSTM configs (BASELINE.json)."""
+    rng = np.random.default_rng((seed, 20829))
+    labels = rng.integers(0, n_classes, size=n_rows)
+    t = np.arange(window, dtype=np.float32) / 20.0  # 20 Hz
+    freq = 0.5 + labels[:, None].astype(np.float32)  # class-coded frequency
+    phase = rng.uniform(0, 2 * np.pi, size=(n_rows, 1)).astype(np.float32)
+    base = np.sin(2 * np.pi * freq * t[None, :] + phase)
+    x = np.stack(
+        [
+            base + 0.1 * rng.standard_normal((n_rows, window)),
+            0.5 * base + 0.1 * rng.standard_normal((n_rows, window)),
+            np.cos(2 * np.pi * freq * t[None, :] + phase)
+            + 0.1 * rng.standard_normal((n_rows, window)),
+        ],
+        axis=-1,
+    ).astype(np.float32)
+    return x, labels.astype(np.int32)

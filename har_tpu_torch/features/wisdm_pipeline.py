@@ -11,9 +11,10 @@ import dataclasses
 
 import numpy as np
 
+from har_tpu_torch.data.table import Table
 from har_tpu_torch.features.assembler import VectorAssembler
 from har_tpu_torch.features.one_hot import OneHotEncoder
-from har_tpu_torch.features.pipeline import ColumnSpace, Pipeline
+from har_tpu_torch.features.pipeline import ColumnSpace, Pipeline, PipelineModel
 from har_tpu_torch.features.string_indexer import StringIndexer
 from har_tpu_torch.data.wisdm import (
     LABEL_COLUMN,
@@ -113,3 +114,12 @@ def make_feature_set(
         class_names=class_names,
     )
 
+
+def fit_transform(
+    pipeline: Pipeline, train: Table, *others: Table
+) -> tuple[PipelineModel, list[FeatureSet]]:
+    """Fit on `train`, transform train + others (reference fits the pipeline
+    on the full df before splitting — Main/main.py:68-80; callers choose)."""
+    model = pipeline.fit(train)
+    sets = [make_feature_set(model.transform(t)) for t in (train, *others)]
+    return model, sets

@@ -63,6 +63,10 @@ def load():
     return NATIVE.load()
 
 
+def available() -> bool:
+    return NATIVE.available()
+
+
 def _ptr(a: np.ndarray, ctype):
     return a.ctypes.data_as(ctype)
 

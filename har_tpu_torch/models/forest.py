@@ -84,6 +84,9 @@ class RandomForestClassifier:
     # an arbitrary fixed default, as the JAX package's
     seed: int = 3
     num_classes: int | None = None
+    # mllib: exact MLlib split-candidate set (parity default);
+    # quantile: evenly spaced quantiles
+    split_candidates: str = "mllib"
     device: str = "cuda"
 
     def copy_with(self, **params) -> "RandomForestClassifier":
@@ -123,7 +126,7 @@ class RandomForestClassifier:
         """Fit on ``data``; ``boot``/``feature_scores`` replace the seeded
         draws (both or neither)."""
         device = resolve_device(self.device)
-        x, y, thresholds, bins = tree_inputs(data, self.max_bins, device)
+        x, y, thresholds, bins = tree_inputs(data, self.max_bins, device, self.split_candidates)
         num_classes = self.num_classes or int(data.label.max()) + 1
         fps = self._features_per_split(x.shape[1])
         if boot is None:

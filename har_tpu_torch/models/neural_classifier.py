@@ -34,7 +34,7 @@ from har_tpu_torch.train.trainer import NeuralModel, Trainer, TrainerConfig
 
 @dataclasses.dataclass(frozen=True)
 class NeuralClassifier:
-    model_name: str = "transformer"
+    model_name: str = "mlp"
     config: TrainerConfig = dataclasses.field(default_factory=TrainerConfig)
     model_kwargs: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     standardize: bool = True

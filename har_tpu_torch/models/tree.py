@@ -111,6 +111,16 @@ def quantile_thresholds(x: torch.Tensor, max_bins: int) -> torch.Tensor:
     return out.float().T.contiguous()
 
 
+def split_thresholds(features: np.ndarray, max_bins: int, method: str) -> torch.Tensor:
+    """Resolve a split-candidate method name to a (d, B-1) threshold
+    array on the CPU."""
+    if method == "mllib":
+        return torch.as_tensor(mllib_split_candidates(features, max_bins))
+    if method == "quantile":
+        return quantile_thresholds(torch.as_tensor(features, dtype=torch.float32), max_bins)
+    raise ValueError(f"unknown split_candidates method {method!r}")
+
+
 def binize(x: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
     """Quantize features: bin id = number of thresholds strictly below x.
 
@@ -276,13 +286,12 @@ def walk_trees(
     return node
 
 
-def tree_inputs(data: FeatureSet, max_bins: int, device: torch.device):
+def tree_inputs(data: FeatureSet, max_bins: int, device: torch.device,
+                split_candidates: str = "mllib"):
     """(x, y, thresholds, bins) of a training set on ``device``."""
     x = torch.as_tensor(data.features, dtype=torch.float32).to(device)
     y = torch.as_tensor(data.label, dtype=torch.int64).to(device)
-    thresholds = torch.as_tensor(
-        mllib_split_candidates(data.features, max_bins)
-    ).to(device)
+    thresholds = split_thresholds(data.features, max_bins, split_candidates).to(device)
     return x, y, thresholds, binize(x, thresholds)
 
 
@@ -294,6 +303,9 @@ class DecisionTreeClassifier:
     max_bins: int = 32
     min_instances_per_node: int = 1
     num_classes: int | None = None
+    # mllib: exact MLlib split-candidate set (parity default);
+    # quantile: evenly spaced quantiles
+    split_candidates: str = "mllib"
     device: str = "cuda"
 
     def copy_with(self, **params) -> "DecisionTreeClassifier":
@@ -301,7 +313,7 @@ class DecisionTreeClassifier:
 
     def fit(self, data: FeatureSet) -> "DecisionTreeModel":
         device = resolve_device(self.device)
-        _, y, thresholds, bins = tree_inputs(data, self.max_bins, device)
+        _, y, thresholds, bins = tree_inputs(data, self.max_bins, device, self.split_candidates)
         num_classes = self.num_classes or int(data.label.max()) + 1
         w = torch.ones((1, len(y)), dtype=torch.float32, device=device)
         feature, threshold, leaf_class, leaf_probs, leaf_counts = _grow_tree(

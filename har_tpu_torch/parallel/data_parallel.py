@@ -134,7 +134,10 @@ def make_dp_train_step(
 
 def shard_columns(mesh, batch: int) -> slice:
     """This rank's columns of a batch of ``batch`` rows: the JAX fit's
-    ``P(None, dp)`` over the batch axis, in linear shard order."""
+    ``P(None, dp)`` over the batch axis, in linear shard order (every
+    column with no mesh)."""
+    if mesh is None:
+        return slice(None)
     n = data_shard_count(mesh)
     if batch % n:
         raise ValueError(
@@ -147,13 +150,13 @@ def shard_columns(mesh, batch: int) -> slice:
 
 
 def make_module_step(module, optimizer, mesh, augment=None, generators=None,
-                     context=contextlib.nullcontext) -> Callable:
+                     context=contextlib.nullcontext, min_count=None) -> Callable:
     """``step(xb, yb, wb) -> global mean loss``: :func:`make_dp_train_step`
     over the module's parameters and its training forward, on this rank's
     rows of one batch (``wb`` each row's weight; ``augment`` and dropout
     draw from this data shard's ``generators``), the gradient that of the
     global weighted mean (the JAX trainer's, with no clamp on the weight
-    sum)."""
+    sum unless ``min_count`` gives one)."""
 
     def loss_fn(params, xb, yb, wb):
         if augment is not None:
@@ -161,7 +164,8 @@ def make_module_step(module, optimizer, mesh, augment=None, generators=None,
         logits = module(xb, train=True, generator=generators["dropout"])
         return (F.cross_entropy(logits, yb, reduction="none") * wb).sum(), wb.sum()
 
-    dp_step = make_dp_train_step(loss_fn, optimizer, mesh, context=context, min_count=None)
+    dp_step = make_dp_train_step(loss_fn, optimizer, mesh, context=context,
+                                 min_count=min_count)
     return lambda xb, yb, wb: dp_step(list(module.parameters()), xb, yb, wb)
 
 
@@ -189,11 +193,12 @@ def make_fit(module, optimizer, mesh, augment=None, class_weights=None,
 
 
 def make_batch_step(module, optimizer, mesh, augment=None, generators=None,
-                    context=contextlib.nullcontext):
+                    context=contextlib.nullcontext, min_count=None):
     """``step(x, y, mask) -> loss``: one streamed batch that every rank
     holds whole; the rank trains on its rows, ``mask`` each row's weight
     (the JAX streaming step's masked mean)."""
-    step = make_module_step(module, optimizer, mesh, augment, generators, context)
+    step = make_module_step(module, optimizer, mesh, augment, generators, context,
+                            min_count)
 
     def batch_step(x, y, mask):
         cols = shard_columns(mesh, x.shape[0])

@@ -150,6 +150,19 @@ def build_estimator(name: str, params: dict | None = None, device="cuda", mesh=N
         )
     cls = _ESTIMATORS[name]
     fields = {f.name for f in dataclasses.fields(cls)}
+    if params.get("class_weight") is not None and "class_weight" not in fields:
+        # one params dict serves every model of a mixed --models run, so
+        # an estimator without the knob trains unweighted; say so, as
+        # har_tpu does, rather than drop the request without a word
+        import warnings
+
+        warnings.warn(
+            f"class_weight is ignored by {name} (supported by "
+            "logistic_regression and the neural families); "
+            f"{name} trains unweighted",
+            UserWarning,
+            stacklevel=2,
+        )
     kwargs = {k: v for k, v in params.items() if k in fields}
     if mesh is not None and "mesh" in fields:
         kwargs["mesh"] = mesh

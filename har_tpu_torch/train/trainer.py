@@ -85,7 +85,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from har_tpu_torch.device import resolve_device
-from har_tpu_torch.parallel.data_parallel import make_module_step
+from har_tpu_torch.parallel.data_parallel import make_batch_step, make_fit, make_module_step
+from har_tpu_torch.parallel.mesh import linear_data_shard_index
 
 
 def _whole(t: torch.Tensor) -> torch.Tensor:
@@ -259,6 +260,19 @@ def _shard_seed(seed: int, shard: int) -> int:
     return int(np.random.SeedSequence([seed, shard]).generate_state(1, np.uint64)[0] >> 1)
 
 
+# the augmentation generator's seed is the trainer seed plus this
+_AUGMENT_SEED_OFFSET = 0x9E3779B9
+
+
+def _step_generators(device: torch.device, seed: int, shard: int) -> dict:
+    """Data shard ``shard``'s dropout and augmentation generators."""
+    seed = _shard_seed(seed, shard)
+    return {
+        "dropout": torch.Generator(device=device).manual_seed(seed),
+        "augment": torch.Generator(device=device).manual_seed(seed + _AUGMENT_SEED_OFFSET),
+    }
+
+
 def warmup_cosine_decay_schedule(
     init_value: float, peak_value: float, warmup_steps: int, decay_steps: int,
     end_value: float = 0.0,
@@ -348,6 +362,43 @@ def make_optimizer(cfg: TrainerConfig, params, total_steps: int) -> AdamW:
     return AdamW(params, schedule, weight_decay=cfg.weight_decay)
 
 
+def _module_generators(module: nn.Module, mesh, seed: int) -> dict:
+    shard = 0 if mesh is None else linear_data_shard_index(mesh)
+    return _step_generators(next(module.parameters()).device, seed, shard)
+
+
+def make_train_step(module: nn.Module, optimizer: AdamW, mesh=None,
+                    augment: Callable | None = None, seed: int = 0) -> Callable:
+    """``step(x, y, mask) -> loss``: ``har_tpu``'s ``make_train_step``
+    with torch's signature.  It takes the module (not flax's ``apply_fn``),
+    the port's optimizer over its parameters (:func:`make_optimizer`) and
+    a mesh of ranks (None: one device); the step updates the parameters
+    and the optimizer in place instead of returning them, and dropout and
+    ``augment`` draw from this data shard's generators, seeded from
+    ``seed`` as :class:`Trainer` seeds them (the JAX step takes a key a
+    call).  The body is :func:`Trainer.fit`'s
+    (``parallel.data_parallel.make_module_step``) over this rank's
+    columns of the batch; the loss is the ``mask``-weighted mean, its
+    weight sum clamped at 1 as in ``har_tpu``."""
+    return make_batch_step(module, optimizer, mesh, augment,
+                           _module_generators(module, mesh, seed), min_count=1.0)
+
+
+def make_scan_fit(module: nn.Module, optimizer: AdamW, mesh=None,
+                  augment: Callable | None = None,
+                  class_weights: torch.Tensor | None = None,
+                  seed: int = 0) -> Callable:
+    """``fit(x, y, batch_idx) -> [per-step loss]``: ``har_tpu``'s
+    ``make_scan_fit`` with torch's signature (module, port optimizer,
+    mesh, as :func:`make_train_step`): the staged schedule ``batch_idx``
+    (steps, batch) over ``x``/``y`` on the module's device, one step a
+    row (``parallel.data_parallel.make_fit``; a Python loop where the JAX
+    fit is one ``lax.scan``), ``class_weights`` (C,) weighing each row's
+    loss."""
+    return make_fit(module, optimizer, mesh, augment, class_weights,
+                    _module_generators(module, mesh, seed))
+
+
 def batch_iterator(
     n: int, batch_size: int, rng: np.random.Generator
 ) -> Iterator[np.ndarray]:
@@ -397,10 +448,6 @@ class NeuralModel:
         logits = self.predict_logits(np.ascontiguousarray(x, np.float32))
         probs = torch.softmax(torch.from_numpy(logits), dim=-1).numpy()
         return Predictions.from_raw(logits, probs)
-
-
-# the augmentation generator's seed is the trainer seed plus this
-_AUGMENT_SEED_OFFSET = 0x9E3779B9
 
 
 class Trainer:
@@ -667,13 +714,7 @@ class Trainer:
                         size=2, device=device, source=host,
                     )
 
-        seed = _shard_seed(cfg.seed, shard)
-        generators = {
-            "dropout": torch.Generator(device=device).manual_seed(seed),
-            "augment": torch.Generator(device=device).manual_seed(
-                seed + _AUGMENT_SEED_OFFSET
-            ),
-        }
+        generators = _step_generators(device, cfg.seed, shard)
 
         # one step body for every route: on one device the data-parallel
         # sum has no group to run over

@@ -6,8 +6,16 @@ from har_tpu_torch.tuning.cross_validator import (
     kfold_indices,
     param_grid,
 )
+from har_tpu_torch.tuning.mllib_cv import (
+    REFERENCE_GRID,
+    MLlibCVResult,
+    mllib_cross_validate,
+)
 
 __all__ = [
+    "REFERENCE_GRID",
+    "MLlibCVResult",
+    "mllib_cross_validate",
     "CrossValidator",
     "CrossValidatorModel",
     "kfold_indices",

@@ -59,8 +59,10 @@ class StepTimer:
     Repeated labels accumulate in the per-label totals (epochs, CV
     cells); the yielded :class:`Section` always holds just the interval
     its own block measured, so callers reporting a single fit don't pick
-    up earlier runs under the same label.  ``device``: the torch device whose queued work a section
-    waits for at both ends (only a CUDA device needs it).
+    up earlier runs under the same label.  ``rate(label, count)`` derives
+    items/s the way the benchmark counts windows/s.  ``device``: the torch
+    device whose queued work a section waits for at both ends (only a
+    CUDA device needs it).
     """
 
     def __init__(self, device: torch.device | str = "cpu"):
@@ -84,6 +86,17 @@ class StepTimer:
                 self._totals.get(label, 0.0) + section.seconds
             )
             self._counts[label] = self._counts.get(label, 0) + 1
+
+    @property
+    def seconds(self) -> dict[str, float]:
+        return dict(self._totals)
+
+    def calls(self, label: str) -> int:
+        return self._counts.get(label, 0)
+
+    def rate(self, label: str, items: int) -> float:
+        total = self._totals.get(label, 0.0)
+        return items / total if total > 0 else 0.0
 
     def rows(self) -> list[dict]:
         return [
